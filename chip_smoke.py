@@ -4,13 +4,13 @@ NVIDIA H100.
 
     python3 chip_smoke.py
 
-It builds every CUDA kernel of the port's serving path from the sources in
-this checkout (one ``nvcc`` per source, all started together), then runs
-three phases and exits non-zero if any fails:
+It builds every CUDA kernel of the port's serving and training paths from
+the sources in this checkout (one ``nvcc`` per source, all started
+together), then runs six phases and exits non-zero if any fails:
 
-1. Kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the main path's shapes, with times (CUDA events), the byte and
-   operation bound, and one PyTorch library call as a yardstick.
+1. RMSNorm kernel vs plain: the kernel against its plain PyTorch version on
+   the card, at the serving path's shapes, with times (CUDA events), the
+   byte and operation bound, and one PyTorch library call as a yardstick.
 2. Full-width forward: one ``forward_step`` prefill of Llama-2-7B (bf16,
    full width and depth, random weights from a seed) with the kernel
    against the same with the plain RMSNorm; and a tiny fp32 model on the
@@ -19,6 +19,19 @@ three phases and exits non-zero if any fails:
    of mixed lengths through the Llama-2-7B model.  Every kernel's launch
    count is reset just before and read just after; RMSNorm must have run
    65 times (2 per block + the final norm) per forward call.
+4. Flash attention kernels (forward, dq, dk/dv) vs plain at the
+   Llama-800M training shape, a GQA shape with a ragged length, and an fp32
+   case with a window and packed segments.
+5. Cross-entropy kernel vs plain at [8192, 32000] (fp32, bf16) and at the
+   tiny model's training shapes.
+6. Training: (a) Llama-800M widths at 2 layers, one step's loss and
+   gradients through the kernels against the plain versions on the card,
+   and with per-block remat; (b) ``dlrover_tpu_torch.train.main`` trains
+   Llama-800M at full width and depth (B 4, S 2048) for a few steps: the
+   loss falls and every attention forward and backward went through the
+   flash kernels; step time, tokens/s, MFU, peak memory and a profiled
+   step's device busy share; (c) the tiny model's training through the
+   cross-entropy kernel, one launch per step.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -29,6 +42,8 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import io
 import json
 import math
 import statistics
@@ -39,6 +54,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, tensor cores, dense
+TRAIN_STEPS = 6  # phase 6b; the first step carries set-up
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048  # phases 6a and 6b
 D_MODEL = 4096
 NORM_SHAPES = (8, 16, 256)  # decode rows (slots), smallest/largest bucket
 SEED = 0
@@ -89,21 +107,39 @@ def to_device(tree, dev):
 
 
 @contextlib.contextmanager
-def plain_rmsnorm():
-    """Route the model's norms through the plain version (comparison
-    runs only)."""
+def plain_kernels():
+    """Route the models' norms, attention and cross-entropy through the
+    plain versions, with the same autograd functions and the same
+    no-gradient shortcut as the wrappers (comparison runs only)."""
+    import torch
+
     from dlrover_tpu_torch.models import llama, llama_infer
+    from dlrover_tpu_torch.ops import cross_entropy as xent
+    from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import rmsnorm as rms
 
-    def plain(x, w, *, eps=1e-6):
+    def norm(x, w, *, eps=1e-6):
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return rms._RMSNorm.apply(x, w, eps, rms._reference)
         return rms._reference(x, w, eps)
 
-    saved = (llama.rmsnorm, llama_infer.rmsnorm)
-    llama.rmsnorm = llama_infer.rmsnorm = plain
+    def attn(q, k, v, *, causal=True, segment_ids=None, window=0):
+        return fa.FlashAttention.apply(q, k, v, segment_ids, causal, window,
+                                       fa.PLAIN)
+
+    def ce(logits, labels):
+        return xent.SoftmaxCrossEntropy.apply(logits, labels,
+                                              xent._reference)
+
+    saved = (llama.rmsnorm, llama_infer.rmsnorm, llama.flash_attention,
+             llama.softmax_cross_entropy)
+    (llama.rmsnorm, llama_infer.rmsnorm, llama.flash_attention,
+     llama.softmax_cross_entropy) = norm, norm, attn, ce
     try:
         yield
     finally:
-        llama.rmsnorm, llama_infer.rmsnorm = saved
+        (llama.rmsnorm, llama_infer.rmsnorm, llama.flash_attention,
+         llama.softmax_cross_entropy) = saved
 
 
 def phase_kernels(rms) -> dict:
@@ -177,7 +213,7 @@ def phase_forward(llama, infer, params, cfg) -> None:
 
     with torch.inference_mode():
         lk = prefill()
-        with plain_rmsnorm():
+        with plain_kernels():
             lp = prefill()
     torch.cuda.synchronize()
     if lk.shape != (1, 64, cfg.vocab_size) or not bool(
@@ -250,7 +286,7 @@ def profile_step(step, iters: int = 5) -> dict:
     }
 
 
-def phase_serve(infer, rms, params, cfg) -> dict:
+def phase_serve(infer, rms, params, cfg, counted) -> dict:
     """DecodeServer over the 7B model; returns the measured numbers."""
     import numpy as np
     import torch
@@ -266,13 +302,16 @@ def phase_serve(infer, rms, params, cfg) -> dict:
     first: dict = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rms.rmsnorm.launches = 0
+    reset_launches(*counted)
     t0 = time.perf_counter()
     outs = srv.serve(prompts, mnt, on_token=lambda rid, _t: first.setdefault(
         rid, time.perf_counter() - t0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = rms.rmsnorm.launches
+    others = {w.__name__: w.launches for w in counted if w is not rms.rmsnorm}
+    if any(others.values()):
+        raise SystemExit(f"serving launched training kernels: {others}")
     st = dict(srv.last_stats)
     peak = torch.cuda.max_memory_allocated()
 
@@ -302,7 +341,7 @@ def phase_serve(infer, rms, params, cfg) -> dict:
 
     step_ms = {"kernel": [], "plain": []}
     for which in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
-        with plain_rmsnorm() if which == "plain" else \
+        with plain_kernels() if which == "plain" else \
                 contextlib.nullcontext():
             step_ms[which].append(time_ms(step, iters=30, warmup=3))
     busy = profile_step(step)
@@ -324,6 +363,411 @@ def phase_serve(infer, rms, params, cfg) -> dict:
     return res
 
 
+def reset_launches(*wrappers) -> None:
+    for w in wrappers:
+        w.launches = 0
+
+
+def close_check(got, plain32, what: str) -> dict:
+    """Tolerances of phase 4: fp32 outputs within 1e-4 of the largest
+    plain value (fp32 sums of up to S products in another order); bf16
+    outputs within 2 bf16 ulps of the plain fp32 value plus 1e-5 of the
+    largest (one rounding each side; sums of cancelling terms keep the
+    fp32 sum-order error)."""
+    import torch
+
+    err = (got.double() - plain32.double()).abs()
+    scale = float(plain32.abs().max())
+    if got.dtype == torch.float32:
+        ok = float(err.max()) <= 1e-4 * scale + 1e-6
+        tol = "1e-4 of max|plain|"
+    else:
+        ok = bool((err <= 2 * bf16_ulp(plain32) + 1e-5 * scale).all())
+        tol = "2 bf16 ulp + 1e-5 of max|plain|"
+    if not ok:
+        raise SystemExit(f"{what}: kernel disagrees with plain, max err "
+                         f"{float(err.max())} ({tol})")
+    return {"max_abs_err": float(err.max()), "tolerance": tol}
+
+
+FLASH_SHAPES = {
+    # name: B, H, KV, S, D, dtype, causal, window, segments
+    "llama800m": (4, 16, 16, 2048, 96, "bfloat16", True, 0, False),
+    "gqa_ragged": (2, 32, 8, 1000, 128, "bfloat16", True, 0, False),
+    "fp32_window_segments": (2, 8, 8, 1024, 64, "float32", True, 256, True),
+}
+
+
+def flash_inputs(B, H, KV, S, D, dtype, segs, seed):
+    import torch
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, H, S, D, generator=gen, device=DEV).to(dt)
+    k = torch.randn(B, KV, S, D, generator=gen, device=DEV).to(dt)
+    v = torch.randn(B, KV, S, D, generator=gen, device=DEV).to(dt)
+    g = torch.randn(B, H, S, D, generator=gen, device=DEV).to(dt)
+    seg = None
+    if segs:
+        cuts = torch.sort(torch.randint(1, S - 16, (B, 5), generator=gen,
+                                        device=DEV)).values
+        seg = (torch.arange(S, device=DEV)[None, :, None]
+               >= cuts[:, None, :]).sum(-1).to(torch.int32)
+        seg[:, -16:] = -1
+    return q, k, v, g, seg
+
+
+def flash_bound(q, k, seg, causal, window, which: str) -> dict:
+    """Least time for the work of one kernel on these inputs: its
+    products over the visible (query, key) pairs at the peak for the
+    inputs' type, or its bytes (each input read once, each output written
+    once) at the memory rate, whichever is larger."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    B, H, S, D = q.shape
+    mask = fa._visible(S, causal, seg, window, q.device)
+    per_head = B * S * S if mask is None else \
+        float(mask.expand(B, 1, S, S).sum())
+    pairs = per_head * H
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[which]
+    flops = 2.0 * D * pairs * products
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else \
+        FP32_FLOPS_PER_S
+    e = q.element_size()
+    nq, nk = q.numel(), k.numel()
+    stats = 4 * B * H * S
+    seg_bytes = 0 if seg is None else 4 * B * S
+    nbytes = {
+        "fwd": e * (2 * nq + 2 * nk) + stats,
+        "dq": e * (3 * nq + 2 * nk) + 2 * stats,
+        "dkv": e * (2 * nq + 4 * nk) + 2 * stats,
+    }[which] + seg_bytes
+    ops_ms = flops / peak * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes, "visible_pairs": pairs}
+
+
+def sdpa_times(q, k, v, g) -> dict:
+    """``F.scaled_dot_product_attention`` on the flash backend, causal:
+    one forward, and one backward giving dq, dk and dv together."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=20, warmup=3)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), g, retain_graph=True), iters=20, warmup=3)
+    return {"fwd": fwd_ms, "bwd": bwd_ms}
+
+
+def phase_flash() -> dict:
+    """Flash kernels vs plain; returns the records at the 800M shape."""
+    import torch
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    recs = {}
+    for i, (name, shape) in enumerate(FLASH_SHAPES.items()):
+        B, H, KV, S, D, dtype, causal, window, segs = shape
+        q, k, v, g, seg = flash_inputs(B, H, KV, S, D, dtype, segs, SEED + i)
+        kw = dict(causal=causal, segment_ids=seg, window=window)
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        delta = fa._delta(out, g)
+        dq = fa.flash_dq(q, k, v, g, lse, delta, **kw)
+        dk, dv = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, g)]
+        p_out, p_lse = fa._flash_fwd_plain(*f32[:3], causal, seg, window)
+        lse_err = float((lse - p_lse).abs().max())
+        if not lse_err <= 1e-4:
+            raise SystemExit(f"flash {name}: lse err {lse_err} (atol 1e-4)")
+        checks = {"fwd": close_check(out, p_out, f"flash fwd {name}")}
+        del p_out, p_lse
+        p_dq, p_dk, p_dv = fa._bwd_parts(*f32, lse, delta, causal, seg,
+                                         window, True, True)
+        checks["dq"] = close_check(dq, p_dq, f"flash dq {name}")
+        e_dk = close_check(dk, p_dk, f"flash dk {name}")
+        e_dv = close_check(dv, p_dv, f"flash dv {name}")
+        checks["dkv"] = max(e_dk, e_dv, key=lambda c: c["max_abs_err"])
+        del f32, p_dq, p_dk, p_dv
+        iters = 10 if S >= 2048 else 20
+        times = {
+            "fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                    lambda: fa._flash_fwd_plain(q, k, v, causal, seg,
+                                                window)),
+            "dq": (lambda: fa.flash_dq(q, k, v, g, lse, delta, **kw),
+                   lambda: fa._bwd_parts(q, k, v, g, lse, delta, causal,
+                                         seg, window, True, False)),
+            "dkv": (lambda: fa.flash_dkv(q, k, v, g, lse, delta, **kw),
+                    lambda: fa._bwd_parts(q, k, v, g, lse, delta, causal,
+                                          seg, window, False, True)),
+        }
+        lib = sdpa_times(q, k, v, g) if name == "llama800m" else None
+        for which, (kern, plain) in times.items():
+            row = {"shape": name, "kernel": which, "lse_err": lse_err,
+                   **checks[which],
+                   "ms": time_ms(kern, iters=iters, warmup=2),
+                   "plain_ms": time_ms(plain, iters=3, warmup=1),
+                   "library_ms": None if lib is None else
+                   lib["fwd" if which == "fwd" else "bwd"],
+                   **flash_bound(q, k, seg, causal, window, which)}
+            log("phase4 flash " + json.dumps(row))
+            if name == "llama800m":
+                recs[which] = row
+        del q, k, v, g, out, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    return recs
+
+
+XENT_SHAPES = (
+    # rows, V, dtype, label dtype
+    (8192, 32000, "float32", "int64"),
+    (8192, 32000, "bfloat16", "int32"),
+    (64, 256, "float32", "int32"),
+    (128, 256, "float32", "int32"),  # tiny training: 4 x 32 tokens
+)
+
+
+def phase_xent() -> dict:
+    """Cross-entropy kernel vs plain (atol 1e-4 on losses of ~log V: fp32
+    sums of V exponentials in another order); returns the record at the
+    tiny training shape, the path phase 6c drives."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import cross_entropy as xent
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    rec = None
+    for rows, V, dtype, ldtype in XENT_SHAPES:
+        logits = (3.0 * torch.randn(rows, V, generator=gen, device=DEV)
+                  ).to(getattr(torch, dtype))
+        labels = torch.randint(0, V, (rows,), generator=gen, device=DEV
+                               ).to(getattr(torch, ldtype))
+        out = xent.xent_fwd(logits, labels)
+        ref = xent._reference(logits, labels)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not err <= 1e-4:
+            raise SystemExit(f"xent [{rows},{V}] {dtype}: max err {err} "
+                             "(atol 1e-4)")
+        nbytes = rows * V * logits.element_size() + \
+            rows * labels.element_size() + 4 * rows
+        ops = 4.0 * rows * V
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_FLOPS_PER_S * 1e3
+        row = {"rows": rows, "v": V, "dtype": dtype, "labels": ldtype,
+               "max_abs_err": err, "tolerance": "atol 1e-4",
+               "ms": time_ms(lambda: xent.xent_fwd(logits, labels)),
+               "plain_ms": time_ms(lambda: xent._reference(logits, labels),
+                                   iters=50),
+               "library_ms": time_ms(lambda: F.cross_entropy(
+                   logits, labels.long(), reduction="none")),
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes": nbytes}
+        log("phase5 xent " + json.dumps(row))
+        if (rows, V) == (128, 256):
+            rec = row
+    return rec
+
+
+def loss_and_grads(llama, params, batch, cfg):
+    from dlrover_tpu_torch.parallel.accelerate import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = None
+    loss = llama.loss_fn(params, batch, cfg)
+    loss.backward()
+    return loss.item(), [p.grad.clone() for p in leaves]
+
+
+def phase_train_parity(llama, train, counted) -> dict:
+    """Llama-800M widths at 2 layers, B 4, S 2048: one step's loss and
+    gradients through the kernels against the plain versions on the card
+    (relative L2 of each gradient tensor <= 5e-2 and relative loss
+    difference <= 1e-3: bf16 activations, where a rounding flip is 2**-8
+    of a value, through two blocks and back); and the same step with
+    per-block remat, which recomputes the same kernels (relative L2 <=
+    1e-6)."""
+    import torch
+
+    from dlrover_tpu_torch.parallel.accelerate import tree_leaves
+
+    cfg = dataclasses.replace(llama.LlamaConfig.medium_800m(), n_layer=2)
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(SEED + 11), DEV,
+        param_dtype=torch.float32)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    toks = torch.from_numpy(train.synth_tokens(
+        range(TRAIN_BATCH), TRAIN_SEQ, cfg.vocab_size)).to(DEV)
+    batch = {"tokens": toks}
+    reset_launches(*counted)
+    loss_k, grads_k = loss_and_grads(llama, params, batch, cfg)
+    launches = {w.__name__: w.launches for w in counted}
+    want = {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "rmsnorm": 5,
+            "xent_fwd": 0}
+    if launches != want:
+        raise SystemExit(f"2-layer step launches {launches} != {want}")
+    with plain_kernels():
+        loss_p, grads_p = loss_and_grads(llama, params, batch, cfg)
+    reset_launches(*counted)
+    loss_r, grads_r = loss_and_grads(
+        llama, params, batch, dataclasses.replace(cfg, remat_block=True))
+    remat_launches = {w.__name__: w.launches for w in counted}
+    if remat_launches["flash_fwd"] != 4 or remat_launches["rmsnorm"] != 9:
+        raise SystemExit(f"remat step launches {remat_launches}")
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp(min=1e-30))
+
+    rel_plain = [rel(a, b) for a, b in zip(grads_k, grads_p)]
+    rel_remat = [rel(a, b) for a, b in zip(grads_r, grads_k)]
+    res = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_remat": loss_r,
+           "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_rel_l2_max": max(rel_plain),
+           "grad_rel_l2_median": statistics.median(rel_plain),
+           "remat_grad_rel_l2_max": max(rel_remat),
+           "launches": launches, "remat_launches": remat_launches}
+    log("phase6a train parity " + json.dumps(res))
+    if not (math.isfinite(loss_k) and res["loss_rel_diff"] <= 1e-3
+            and res["grad_rel_l2_max"] <= 5e-2
+            and res["remat_grad_rel_l2_max"] <= 1e-6
+            and loss_r == loss_k):
+        raise SystemExit(f"2-layer training step: kernel vs plain {res}")
+    return res
+
+
+def run_train_cli(train, argv, counted) -> dict:
+    """``train.main(argv)`` with every kernel count reset just before and
+    read just after; returns its TRAIN_DONE fields and the counts."""
+    import torch
+
+    reset_launches(*counted)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    out = buf.getvalue()
+    log("\n".join("  " + ln for ln in out.strip().splitlines()[-3:]))
+    done = [ln for ln in out.splitlines() if ln.startswith("TRAIN_DONE")]
+    if rc != 0 or not done:
+        raise SystemExit(f"train.main({argv}) failed: rc {rc}\n{out}")
+    stats = dict(kv.split("=", 1) for kv in done[-1].split()[1:])
+    stats["counts"] = {w.__name__: w.launches for w in counted}
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return stats
+
+
+def profile_train_step(train, args) -> dict:
+    """Device busy share and costliest kernels of one 800M training step
+    (``torch.profiler``), after one warm-up step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, job, state = train.build(args)
+    toks = train.synth_tokens(range(args.batch_per_proc), args.seq_len,
+                              cfg.vocab_size)
+    state, m = job.train_step(state, {"tokens": toks})
+    float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = job.train_step(state, {"tokens": toks})
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    del state, job
+    return {
+        "wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
+        "device_busy_share": device_us / wall_us,
+        "kernels": sum(e.count for e in kernels),
+        "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                for e in top],
+    }
+
+
+def phase_train(llama, train, counted) -> dict:
+    """6b: Llama-800M full width and depth through ``train.main``; 6c: the
+    tiny model through the cross-entropy kernel.
+
+    6b trains on ``--dataset_size`` = one global batch, so every step
+    sees the same rows and the loss must fall within a few steps.  On the
+    example's default 4096-row set each step draws fresh rows of a
+    shifted random sequence, which a few steps cannot learn: the loss
+    then moves by batch-to-batch noise only.  The work per step is the
+    same either way."""
+    import torch
+
+    argv = ["--model", "800m", "--seq_len", str(TRAIN_SEQ),
+            "--batch_per_proc", str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS),
+            "--dataset_size", str(TRAIN_BATCH), "--device", DEV]
+    st = run_train_cli(train, argv, counted)
+    args = train.parse_args(argv)
+    cfg = train.build_config(args)
+    n, counts = TRAIN_STEPS, st["counts"]
+    first, last = float(st["first_loss"]), float(st["loss"])
+    want = {"flash_fwd": cfg.n_layer * n, "flash_dq": cfg.n_layer * n,
+            "flash_dkv": cfg.n_layer * n,
+            "rmsnorm": (2 * cfg.n_layer + 1) * n, "xent_fwd": 0}
+    if counts != want:
+        raise SystemExit(f"800m training launches {counts} != {want}")
+    if not (math.isfinite(first) and math.isfinite(last) and last < first):
+        raise SystemExit(f"800m training loss did not fall: {first} -> "
+                         f"{last}")
+    tok_s = float(st["tokens_per_s"])
+    res = {"model": "medium_800m", "n_layer": cfg.n_layer,
+           "d_model": cfg.d_model, "batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ,
+           "steps": n, "first_loss": first, "loss": last,
+           "step_ms": float(st["step_ms"]), "tokens_per_s": tok_s,
+           "flops_per_token": llama.flops_per_token(cfg),
+           "mfu": llama.flops_per_token(cfg) * tok_s / BF16_FLOPS_PER_S,
+           "peak_mem_gib": st["peak_mem_gib"], "launches": counts}
+    torch.cuda.empty_cache()
+    res["profile"] = profile_train_step(train, args)
+    torch.cuda.empty_cache()
+    log("phase6b train 800m " + json.dumps(res))
+
+    tiny = run_train_cli(train, ["--model", "tiny", "--steps", "5",
+                                 "--device", DEV], counted)
+    tc = tiny["counts"]
+    tiny_want = {"flash_fwd": 2 * 5, "flash_dq": 2 * 5, "flash_dkv": 2 * 5,
+                 "rmsnorm": 5 * 5, "xent_fwd": 5}
+    if tc != tiny_want or not math.isfinite(float(tiny["loss"])):
+        raise SystemExit(f"tiny training: {tiny}")
+    res["tiny"] = {"loss": float(tiny["loss"]),
+                   "first_loss": float(tiny["first_loss"]), "launches": tc}
+    log("phase6c train tiny " + json.dumps(res["tiny"]))
+    return res
+
+
+def kernel_record(name, source, replaces, launches, rec) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}}
+
+
 def main() -> int:
     import torch
 
@@ -331,15 +775,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device; run it on the GPU machine",
               file=sys.stderr)
         return 2
+    from dlrover_tpu_torch import train
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.models import llama_infer as infer
+    from dlrover_tpu_torch.ops import cross_entropy as xent
+    from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import rmsnorm as rms
 
+    counted = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, xent.xent_fwd,
+               rms.rmsnorm)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    log(f"build: {build_kernels([rms]):.1f}s")
+    log(f"build: {build_kernels([rms, fa, xent]):.1f}s")
 
     rec = phase_kernels(rms)
 
@@ -351,20 +800,36 @@ def main() -> int:
     log(f"llama2_7b params on card: {time.perf_counter() - t0:.1f}s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
     phase_forward(llama, infer, params, cfg)
-    served = phase_serve(infer, rms, params, cfg)
+    served = phase_serve(infer, rms, params, cfg, counted)
+    del params
+    torch.cuda.empty_cache()
 
-    kernels = [{
-        "name": "rmsnorm", "route": "cuda",
-        "source": "dlrover_tpu_torch/ops/csrc/rmsnorm.cu",
-        "replaces": "dlrover_tpu/ops/rmsnorm.py:25",
-        "launches": served["rmsnorm_launches"],
-        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-        "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-    }]
+    flash = phase_flash()
+    xrec = phase_xent()
+    phase_train_parity(llama, train, counted)
+    trained = phase_train(llama, train, counted)
+
+    fa_src = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
+    fa_ref = "dlrover_tpu/ops/flash_attention.py"
+    kernels = [
+        kernel_record("rmsnorm", "dlrover_tpu_torch/ops/csrc/rmsnorm.cu",
+                      "dlrover_tpu/ops/rmsnorm.py:25",
+                      served["rmsnorm_launches"], rec),
+        kernel_record("flash_fwd", fa_src, f"{fa_ref}:105",
+                      trained["launches"]["flash_fwd"], flash["fwd"]),
+        kernel_record("flash_dq", fa_src, f"{fa_ref}:296",
+                      trained["launches"]["flash_dq"], flash["dq"]),
+        kernel_record("flash_dkv", fa_src, f"{fa_ref}:367",
+                      trained["launches"]["flash_dkv"], flash["dkv"]),
+        kernel_record("xent_fwd", "dlrover_tpu_torch/ops/csrc/"
+                      "cross_entropy.cu", "dlrover_tpu/ops/cross_entropy.py"
+                      ":25", trained["tiny"]["launches"]["xent_fwd"], xrec),
+    ]
     if not all(math.isfinite(k[f]) for k in kernels
                for f in ("ms", "plain_ms", "bound_ms", "library_ms")):
         raise SystemExit("a kernel time is not finite")
+    if not all(k["launches"] > 0 for k in kernels):
+        raise SystemExit("a kernel of the path was never launched")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -9,11 +9,14 @@ same round-to-nearest-even cast, made once — and keeps the norm gains
 
     tree = jax.tree.map(np.asarray, params)      # on the JAX side
     params_t = params_from_numpy(tree, cfg, device="cpu")
+
+Training keeps fp32 masters: ``param_dtype=torch.float32`` stores every
+leaf as the reference does.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -25,13 +28,16 @@ _GAINS = ("ln1", "ln2", "ln_f")
 
 
 def params_from_numpy(tree: Dict, cfg: LlamaConfig,
-                      device: DeviceLike = None) -> Dict:
-    """The reference's parameter tree as numpy arrays -> the port's."""
+                      device: DeviceLike = None,
+                      param_dtype: Optional[torch.dtype] = None) -> Dict:
+    """The reference's parameter tree as numpy arrays -> the port's, with
+    the projections in ``param_dtype`` (default ``cfg.dtype``)."""
     dev = resolve_device(device)
+    store = cfg.dtype if param_dtype is None else param_dtype
 
     def leaf(name: str, a) -> torch.Tensor:
         t = torch.from_numpy(np.asarray(a, np.float32).copy())
-        return t.to(dev, torch.float32 if name in _GAINS else cfg.dtype)
+        return t.to(dev, torch.float32 if name in _GAINS else store)
 
     def conv(node: Dict) -> Dict:
         return {

@@ -1,16 +1,19 @@
-"""RMSNorm forward: a hand-written CUDA kernel and its plain PyTorch version.
+"""RMSNorm: a hand-written CUDA forward kernel, its plain PyTorch version,
+and the closed-form backward.
 
 Held against ``dlrover_tpu/ops/rmsnorm.py``: :func:`_reference` is its
 ``_reference`` and the CUDA kernel ``csrc/rmsnorm.cu`` replaces its Pallas
 ``_kernel`` (launched by ``_pallas_fwd``).  Both compute
 ``xf * rsqrt(mean(xf**2) + eps) * w.float()`` in fp32 and cast once, to
 ``x.dtype``; the normalised ``xf * rsqrt(...)`` is never rounded before the
-gain multiplies it.  The closed-form backward (the reference's ``_bwd``)
-comes with the training slice.
+gain multiplies it.  :func:`_backward` is the reference's closed-form
+``_bwd`` in plain PyTorch, on both devices (the reference has no backward
+kernel either).
 
-:func:`rmsnorm` runs the plain version only for a tensor that lies on the
+:func:`rmsnorm` runs the plain forward only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises.
-``rmsnorm.launches`` counts the kernel's launches.
+``rmsnorm.launches`` counts the kernel's launches.  When no gradient is
+wanted (the decode path) it calls the forward directly, outside autograd.
 """
 
 from __future__ import annotations
@@ -31,6 +34,38 @@ def _reference(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     ms = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     inv = torch.rsqrt(ms + eps)
     return (xf * inv * w.float()).to(x.dtype)
+
+
+def _backward(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+              eps: float):
+    """The reference's ``_bwd``: ``dx = inv * (gw - xhat * mean(gw *
+    xhat))`` in fp32, cast to ``x.dtype``; ``dw = sum(g * xhat)`` over
+    rows, cast to ``w.dtype``."""
+    xf, gf, wf = x.float(), g.float(), w.float()
+    inv = torch.rsqrt(torch.mean(torch.square(xf), dim=-1, keepdim=True)
+                      + eps)
+    xhat = xf * inv
+    gw = gf * wf
+    dx = inv * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+    dw = torch.sum((gf * xhat).reshape(-1, x.shape[-1]), dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``forward_fn`` (the kernel's wrapper or the plain version) forward,
+    :func:`_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, forward_fn):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return forward_fn(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx, dw = _backward(x, w, g, ctx.eps)
+        return dx, dw, None, None
 
 
 def build() -> None:
@@ -91,12 +126,16 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim; ``w`` is the fp32 [D] gain."""
     if x.device.type == "cpu":
-        return _reference(x, w, eps)
-    if x.device.type != "cuda":
+        fwd = _reference
+    elif x.device.type == "cuda":
+        fwd = _launch
+    else:
         raise ValueError(
             f"rmsnorm runs on cuda (kernel) or cpu (plain), got {x.device}"
         )
-    return _launch(x, w, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps, fwd)
+    return fwd(x, w, eps)
 
 
 rmsnorm.launches = 0

@@ -6,16 +6,25 @@ machine (which has no JAX) it runs without the repository's conftest:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: fp32 atol 1e-5 (fp32 throughout; the kernel sums in another
-order and uses the hardware rsqrt); bf16 at most 1 bf16 ulp of the plain
-value (fp32 compute, one rounding on both sides).
+Tolerances.  RMSNorm: fp32 atol 1e-5 (fp32 throughout; the kernel sums in
+another order and uses the hardware rsqrt); bf16 at most 1 bf16 ulp of the
+plain value (fp32 compute, one rounding on both sides).  Flash attention:
+fp32 outputs within 1e-4 of the largest plain value (fp32 sums of up to S
+products in another order); bf16 outputs within 2 bf16 ulps of the plain
+fp32 value (the plain version on the upcast inputs) plus 1e-5 of the
+largest (one rounding each side; entries that are sums of cancelling terms
+keep the fp32 sum-order error); lse within 1e-4.  Cross-entropy: atol 1e-4
+on losses of ~log V (fp32 sums of V exponentials in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dlrover_tpu_torch import train
 from dlrover_tpu_torch.models import llama, llama_infer
+from dlrover_tpu_torch.ops import cross_entropy as xent
+from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.ops import rmsnorm as rms_mod
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -105,3 +114,169 @@ def test_tiny_model_on_the_card_matches_the_cpu(card):
                                    prompt_buckets=(8, 16)).serve(prompts, 6)
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(o, r)
+
+
+def _close(out, plain32, dtype, what):
+    """The tolerances of the module docstring."""
+    err = (out.double() - plain32.double()).abs()
+    scale = float(plain32.abs().max())
+    if dtype == torch.float32:
+        bound = 1e-4 * scale + 1e-6
+        assert float(err.max()) <= bound, (what, float(err.max()), bound)
+    else:
+        bound = 2 * _bf16_ulp(plain32) + 1e-5 * scale
+        assert bool((err <= bound).all()), (what, float(err.max()))
+
+
+FLASH_CASES = [
+    # B, H, KV, S, D, dtype, causal, window, segments
+    (2, 4, 2, 200, 64, torch.bfloat16, True, 0, False),
+    (1, 2, 2, 77, 24, torch.float32, False, 0, False),
+    (2, 4, 4, 130, 96, torch.float32, True, 50, True),
+    (1, 8, 2, 300, 128, torch.bfloat16, True, 0, True),
+    (1, 2, 1, 64, 16, torch.bfloat16, True, 0, False),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_flash_kernels_match_plain(card, case):
+    B, H, KV, S, D, dtype, causal, window, segs = case
+    g = torch.Generator(device=card).manual_seed(S + D)
+    q = torch.randn(B, H, S, D, generator=g, device=card).to(dtype)
+    k = torch.randn(B, KV, S, D, generator=g, device=card).to(dtype)
+    v = torch.randn(B, KV, S, D, generator=g, device=card).to(dtype)
+    do = torch.randn(B, H, S, D, generator=g, device=card).to(dtype)
+    seg = None
+    if segs:
+        cuts = torch.sort(torch.randint(1, S, (B, 3), generator=g,
+                                        device=card)).values
+        seg = (torch.arange(S, device=card)[None, :, None]
+               >= cuts[:, None, :]).sum(-1).to(torch.int32)
+        seg[:, -5:] = -1
+    kw = dict(causal=causal, segment_ids=seg, window=window)
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa._delta(out, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    assert dk.shape == k.shape and lse.dtype == torch.float32
+    f32 = [t.float() for t in (q, k, v, do)]
+    p_out, p_lse = fa._flash_fwd_plain(*f32[:3], causal, seg, window)
+    assert float((lse - p_lse).abs().max()) <= 1e-4
+    _close(out, p_out, dtype, "out")
+    # The backward from the kernel's own lse and delta, as the autograd
+    # function runs it.
+    p_dq, p_dk, p_dv = fa._bwd_parts(*f32, lse, delta, causal, seg, window,
+                                     True, True)
+    for got, want, name in ((dq, p_dq, "dq"), (dk, p_dk, "dk"),
+                            (dv, p_dv, "dv")):
+        _close(got, want, dtype, name)
+
+
+def test_flash_autograd_on_the_card_launches_each_kernel_once(card):
+    g = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn(1, 2, 96, 32, generator=g, device=card)
+               .requires_grad_() for _ in range(3))
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
+    fa.flash_attention(q, k, v).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    ref = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    fa.reference_attention(*ref).square().sum().backward()
+    for t, r in zip((q, k, v), ref):
+        assert float((t.grad.cpu() - r.grad).abs().max()) <= 1e-4
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(card):
+    q = torch.randn(1, 2, 16, 24, device=card)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_fwd(q[..., :20].contiguous(), q[..., :20].contiguous(),
+                     q[..., :20].contiguous())
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q, q.bfloat16(), q)
+
+
+@pytest.mark.parametrize("rows,V,dtype,ldtype", [
+    (64, 256, torch.float32, torch.int64),
+    (100, 1000, torch.bfloat16, torch.int32),
+    (7, 33, torch.float32, torch.int32),
+    (5, 33, torch.bfloat16, torch.int64),
+    (512, 32000, torch.float32, torch.int32),
+])
+def test_xent_kernel_matches_plain(card, rows, V, dtype, ldtype):
+    g = torch.Generator(device=card).manual_seed(rows + V)
+    logits = (3.0 * torch.randn(rows, V, generator=g, device=card)).to(dtype)
+    labels = torch.randint(0, V, (rows,), generator=g, device=card)
+    labels[0] = -1  # selects nothing: the target is 0
+    labels = labels.to(ldtype)
+    before = xent.xent_fwd.launches
+    out = xent.xent_fwd(logits, labels)
+    torch.cuda.synchronize()
+    assert xent.xent_fwd.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (rows,)
+    ref = xent._reference(logits, labels)
+    assert float((out - ref).abs().max()) <= 1e-4
+
+
+def test_tiny_training_on_the_card_matches_the_cpu(card):
+    """The tiny fp32 model's loss and gradients, kernels on the card
+    against the plain versions on the CPU (atol 1e-4: fp32 throughout)."""
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 33)))
+    seg = torch.from_numpy(np.repeat([[0, 1, 1, 2]], 2, 0).repeat(8, 1)
+                           .reshape(2, 32)[:, :32])
+    seg = torch.cat([seg, seg[:, -1:]], dim=1).to(torch.int32)
+    grads = []
+    for dev in ("cpu", card):
+        params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu", param_dtype=torch.float32)
+        params = _to(params, dev)
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        before = xent.xent_fwd.launches
+        loss = llama.loss_fn(params, {"tokens": tokens.to(dev),
+                                      "segment_ids": seg.to(dev)}, cfg)
+        loss.backward()
+        if dev != "cpu":
+            assert xent.xent_fwd.launches == before + 1
+        grads.append([loss.item()] + [p.grad.cpu() for p in leaves])
+    assert abs(grads[0][0] - grads[1][0]) <= 1e-4
+    for a, b in zip(grads[0][1:], grads[1][1:]):
+        assert float((a - b).abs().max()) <= 1e-4
+
+
+def test_train_cli_runs_on_the_card(card, capsys):
+    assert train.main(["--model", "tiny", "--steps", "3"]) == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    stats = dict(kv.split("=", 1) for kv in line.split()[1:])
+    assert stats["xent_fwd_launches"] == "3"
+    assert stats["flash_fwd_launches"] == str(3 * 2)
+    assert stats["rmsnorm_launches"] == str(3 * 5)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]

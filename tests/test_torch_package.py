@@ -71,7 +71,7 @@ def test_no_jax_or_reference_import(path):
 def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, dlrover_tpu_torch, dlrover_tpu_torch.serve, "
-        "dlrover_tpu_torch.models.convert\n"
+        "dlrover_tpu_torch.train, dlrover_tpu_torch.models.convert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dlrover_tpu')]\n"
         "assert not bad, bad\n"
@@ -133,9 +133,11 @@ def test_other_later_slice_paths_are_refused(tiny):
     with pytest.raises(NotImplementedError, match="MoE"):
         tllama.LlamaConfig.tiny(num_experts=4)
     x = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="flash"):
-        tllama.block_apply(params["layers"][0], x, cfg,
-                           torch.zeros(1, 2, dtype=torch.long))
+    for impl in ("ring", "ulysses"):
+        with pytest.raises(NotImplementedError, match=impl):
+            tllama.block_apply(params["layers"][0], x, cfg,
+                               torch.zeros(1, 2, dtype=torch.long),
+                               attn_impl=impl)
     with pytest.raises(ValueError, match="decode_chunk"):
         tinfer.DecodeServer(params, cfg, decode_chunk=0)
 

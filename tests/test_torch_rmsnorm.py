@@ -10,8 +10,11 @@ plain version on the card by ``chip_smoke.py`` and by
 Tolerances: fp32 atol 1e-6 (both sides compute in fp32; only the order of
 the sum and the rsqrt's last bit differ, about 2 ulp at |out| < 8).  bf16:
 at most 1 bf16 ulp of the reference value (fp32 compute, one rounding).
+The closed-form backward is held against ``jax.grad`` through the
+reference's custom VJP; its tolerances are stated at its tests.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -117,3 +120,53 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("rmsnorm", rms_mod.SOURCES)
 
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_matches_jax_grad(dtype):
+    """The closed-form backward against ``jax.grad`` through the
+    reference's custom VJP (its ``_bwd``): fp32 atol 1e-5 (same closed
+    form, sums in another order); bf16 dx within 2 bf16 ulps plus 1e-6 (fp32
+    compute, one rounding each side), dw (fp32) atol 1e-4 (a sum over rows
+    of bf16-valued products)."""
+    x, w = _inputs(9, 64, seed=21)
+    g = np.random.RandomState(22).randn(9, 64).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj = jnp.asarray(x, jdt)
+    x = np.asarray(xj).astype(np.float32)
+
+    def f(x_, w_):
+        return jnp.sum(jax_rmsnorm(x_, w_, eps=1e-5).astype(jnp.float32) * g)
+
+    j_dx, j_dw = jax.jit(jax.grad(f, argnums=(0, 1)))(xj, jnp.asarray(w))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    before = rmsnorm.launches
+    torch.sum(rmsnorm(xt, wt, eps=1e-5).float()
+              * torch.from_numpy(g)).backward()
+    assert rmsnorm.launches == before
+    assert xt.grad.dtype == tdt and wt.grad.dtype == torch.float32
+    j_dx = np.asarray(j_dx).astype(np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(xt.grad.numpy(), j_dx, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(wt.grad.numpy(), np.asarray(j_dw),
+                                   atol=1e-5, rtol=0)
+    else:
+        err = np.abs(xt.grad.float().numpy() - j_dx)
+        assert np.all(err <= 2 * _bf16_ulp(j_dx) + 1e-6), float(err.max())
+        np.testing.assert_allclose(wt.grad.numpy(), np.asarray(j_dw),
+                                   atol=1e-4, rtol=0)
+
+
+def test_backward_is_the_closed_form_not_autodiff():
+    """The gradient comes from the reference's closed form, computed once
+    in fp32: equal to ``_backward`` bit for bit."""
+    x, w = _inputs(5, 32, seed=4)
+    g = torch.from_numpy(np.random.RandomState(5).randn(5, 32)
+                         .astype(np.float32))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).requires_grad_()
+    rmsnorm(xt, wt, eps=1e-5).backward(g)
+    dx, dw = rms_mod._backward(torch.from_numpy(x), torch.from_numpy(w), g,
+                               1e-5)
+    assert torch.equal(xt.grad, dx) and torch.equal(wt.grad, dw)
