@@ -6,7 +6,7 @@ NVIDIA H100.
 
 It builds every CUDA kernel of the port's serving and training paths from
 the sources in this checkout (one ``nvcc`` per source, all started
-together), then runs six phases and exits non-zero if any fails:
+together), then runs eight phases and exits non-zero if any fails:
 
 1. RMSNorm kernel vs plain: the kernel against its plain PyTorch version on
    the card, at the serving path's shapes, with times (CUDA events), the
@@ -32,6 +32,19 @@ together), then runs six phases and exits non-zero if any fails:
    flash kernels; step time, tokens/s, MFU, peak memory and a profiled
    step's device busy share; (c) the tiny model's training through the
    cross-entropy kernel, one launch per step.
+7. Blockwise int8 quantize: the op ``quantize_blockwise`` at the JAX
+   kernel smoke's shape (4 Mi fp32 values, seed 4) with the kernel counts
+   reset just before and read just after, its round trip within
+   ``max|x| / 254``; then the kernel against its plain version on that
+   and four more inputs (a ragged tail, bf16, an all-zero block, .5
+   ties): codes equal and scales bit-equal.
+8. 8-bit Adam training: ``accelerate(..., optimizer=adam8bit(3e-4))``
+   trains Llama-800M-h128 (12 heads of 128, full width and depth, per-
+   block remat, bf16 compute, fp32 masters, int8 moments) at B 16 x S
+   2048 for 4 steps on one seeded batch: the loss falls; step time,
+   tokens/s, MFU, peak memory, the moments' bytes, each kernel's launches
+   a step (the blockwise quantize: 0, the moments use the dynamic codes)
+   and a profiled step with the optimizer's device time.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -61,6 +74,9 @@ D_MODEL = 4096
 NORM_SHAPES = (8, 16, 256)  # decode rows (slots), smallest/largest bucket
 SEED = 0
 DEV = "cuda"
+A8_STEPS = 4  # phase 8; the first step carries set-up
+A8_BATCH, A8_SEQ = 16, 2048  # phase 8
+QUANT_OPS_PER_ELEMENT = 6  # |x|, max, divide, round, clip (2)
 
 
 def log(msg: str) -> None:
@@ -249,41 +265,47 @@ def phase_forward(llama, infer, params, cfg) -> None:
         raise SystemExit(f"tiny model: card vs cpu max abs err {err}")
 
 
-def profile_step(step, iters: int = 5) -> dict:
-    """Device busy share of the decode step and its costliest kernels,
-    from ``torch.profiler`` over ``iters`` steps."""
-    import torch
+def step_profile(run, iters: int = 1, top: int = 10) -> tuple:
+    """``torch.profiler`` over one call of ``run``, which makes ``iters``
+    steps and ends in a synchronise.  Returns ``(summary, kernel events,
+    every averaged event)``: the summary gives, per step, wall and device
+    ms, the device busy share, the kernel launches and the ``top``
+    costliest kernels.  Kernel events leave out the device-side spans of
+    user annotations (``record_function``, ``Optimizer.step#...``), which
+    would count their kernels twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(iters):
-            step()
-        torch.cuda.synchronize()
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    cpu_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in cpu_keys]
     device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    norm = [e for e in kernels if "rmsnorm_fwd_kernel" in e.key]
-    norm_n = sum(e.count for e in norm)
-    return {
-        "rmsnorm_device_us_per_launch": (
-            sum(e.self_device_time_total for e in norm) / norm_n
-            if norm_n else None),
-        "rmsnorm_launches_per_step": norm_n / iters,
-        "steps": iters,
-        "wall_ms_per_step": wall_us / 1e3 / iters,
-        "device_ms_per_step": device_us / 1e3 / iters,
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    summary = {
+        "steps": iters, "wall_ms": wall_us / 1e3 / iters,
+        "device_ms": device_us / 1e3 / iters,
         "device_busy_share": device_us / wall_us,
-        "kernels_per_step": sum(e.count for e in kernels) / iters,
+        "kernels": sum(e.count for e in kernels) / iters,
         "top": [[e.key[:60], e.self_device_time_total / 1e3 / iters,
-                 e.count // iters] for e in top],
+                 e.count / iters] for e in ranked[:top]],
     }
+    return summary, kernels, events
+
+
+def kernel_device_us(kernels, name_part: str) -> tuple:
+    """``(mean device µs a launch, launches)`` of the kernel events whose
+    name holds ``name_part``."""
+    hits = [e for e in kernels if name_part in e.key]
+    n = sum(e.count for e in hits)
+    return (sum(e.self_device_time_total for e in hits) / n if n else None,
+            n)
 
 
 def phase_serve(infer, rms, params, cfg, counted) -> dict:
@@ -344,7 +366,18 @@ def phase_serve(infer, rms, params, cfg, counted) -> dict:
         with plain_kernels() if which == "plain" else \
                 contextlib.nullcontext():
             step_ms[which].append(time_ms(step, iters=30, warmup=3))
-    busy = profile_step(step)
+    step()
+    torch.cuda.synchronize()
+
+    def five_steps():
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+
+    busy, kernels, _ = step_profile(five_steps, iters=5, top=8)
+    norm_us, norm_n = kernel_device_us(kernels, "rmsnorm_fwd_kernel")
+    busy["rmsnorm_device_us_per_launch"] = norm_us
+    busy["rmsnorm_launches_per_step"] = norm_n / 5
     res = {
         "requests": len(prompts), "slots": 8, "max_len": 512,
         "max_new_tokens": mnt, "prompt_lens": [int(n) for n in lens],
@@ -393,6 +426,8 @@ def close_check(got, plain32, what: str) -> dict:
 FLASH_SHAPES = {
     # name: B, H, KV, S, D, dtype, causal, window, segments
     "llama800m": (4, 16, 16, 2048, 96, "bfloat16", True, 0, False),
+    # phase 8's attention: Llama-800M-h128 at B 16
+    "llama800m_h128": (16, 12, 12, 2048, 128, "bfloat16", True, 0, False),
     "gqa_ragged": (2, 32, 8, 1000, 128, "bfloat16", True, 0, False),
     "fp32_window_segments": (2, 8, 8, 1024, 64, "float32", True, 256, True),
 }
@@ -510,7 +545,8 @@ def phase_flash() -> dict:
                     lambda: fa._bwd_parts(q, k, v, g, lse, delta, causal,
                                           seg, window, False, True)),
         }
-        lib = sdpa_times(q, k, v, g) if name == "llama800m" else None
+        lib = sdpa_times(q, k, v, g) if name.startswith("llama800m") \
+            else None
         for which, (kern, plain) in times.items():
             row = {"shape": name, "kernel": which, "lse_err": lse_err,
                    **checks[which],
@@ -616,7 +652,7 @@ def phase_train_parity(llama, train, counted) -> dict:
     loss_k, grads_k = loss_and_grads(llama, params, batch, cfg)
     launches = {w.__name__: w.launches for w in counted}
     want = {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "rmsnorm": 5,
-            "xent_fwd": 0}
+            "xent_fwd": 0, "quantize_blockwise": 0}
     if launches != want:
         raise SystemExit(f"2-layer step launches {launches} != {want}")
     with plain_kernels():
@@ -676,8 +712,6 @@ def profile_train_step(train, args) -> dict:
     """Device busy share and costliest kernels of one 800M training step
     (``torch.profiler``), after one warm-up step."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     cfg, job, state = train.build(args)
     toks = train.synth_tokens(range(args.batch_per_proc), args.seq_len,
@@ -685,25 +719,15 @@ def profile_train_step(train, args) -> dict:
     state, m = job.train_step(state, {"tokens": toks})
     float(m["loss"])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = job.train_step(state, {"tokens": toks})
-        float(m["loss"])
+
+    def run():
+        _, m2 = job.train_step(state, {"tokens": toks})
+        float(m2["loss"])
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+
+    res, _, _ = step_profile(run)
     del state, job
-    return {
-        "wall_ms": wall_us / 1e3, "device_ms": device_us / 1e3,
-        "device_busy_share": device_us / wall_us,
-        "kernels": sum(e.count for e in kernels),
-        "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                for e in top],
-    }
+    return res
 
 
 def phase_train(llama, train, counted) -> dict:
@@ -728,7 +752,8 @@ def phase_train(llama, train, counted) -> dict:
     first, last = float(st["first_loss"]), float(st["loss"])
     want = {"flash_fwd": cfg.n_layer * n, "flash_dq": cfg.n_layer * n,
             "flash_dkv": cfg.n_layer * n,
-            "rmsnorm": (2 * cfg.n_layer + 1) * n, "xent_fwd": 0}
+            "rmsnorm": (2 * cfg.n_layer + 1) * n, "xent_fwd": 0,
+            "quantize_blockwise": 0}
     if counts != want:
         raise SystemExit(f"800m training launches {counts} != {want}")
     if not (math.isfinite(first) and math.isfinite(last) and last < first):
@@ -752,7 +777,7 @@ def phase_train(llama, train, counted) -> dict:
                                  "--device", DEV], counted)
     tc = tiny["counts"]
     tiny_want = {"flash_fwd": 2 * 5, "flash_dq": 2 * 5, "flash_dkv": 2 * 5,
-                 "rmsnorm": 5 * 5, "xent_fwd": 5}
+                 "rmsnorm": 5 * 5, "xent_fwd": 5, "quantize_blockwise": 0}
     if tc != tiny_want or not math.isfinite(float(tiny["loss"])):
         raise SystemExit(f"tiny training: {tiny}")
     res["tiny"] = {"loss": float(tiny["loss"]),
@@ -761,11 +786,231 @@ def phase_train(llama, train, counted) -> dict:
     return res
 
 
+def quant_inputs() -> dict:
+    """Phase 7's inputs on the card: the JAX kernel smoke's (``randn(4 <<
+    20)`` fp32 from ``RandomState(4)``), a ragged tail, bf16, an all-zero
+    block, and a block whose scale is exactly 1 with values on .5 ties."""
+    import numpy as np
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    zero = torch.randn(3, 128, generator=gen)
+    zero[1] = 0.0
+    halves = torch.arange(63, dtype=torch.float32) + 0.5
+    xs = {
+        "smoke_4Mi_fp32": torch.from_numpy(
+            np.random.RandomState(4).randn(4 << 20).astype(np.float32)),
+        "ragged_1000_fp32": 3.0 * torch.randn(1000, generator=gen),
+        "3x12345_bf16": (5.0 * torch.randn(3, 12345, generator=gen)).to(
+            torch.bfloat16),
+        "zero_block_fp32": zero,
+        "ties_fp32": torch.cat([torch.tensor([127.0, -127.0]), halves,
+                                -halves]),
+    }
+    return {k: v.to(DEV) for k, v in xs.items()}
+
+
+def quant_bound(x) -> dict:
+    """Least time for one blockwise quantize of ``x``: read x once, write
+    one int8 code an element (padded to whole blocks) and one fp32 scale
+    a block; ``QUANT_OPS_PER_ELEMENT`` fp32 operations an element."""
+    rows = -(-x.numel() // 128)
+    nbytes = x.numel() * x.element_size() + rows * 128 + 4 * rows
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = QUANT_OPS_PER_ELEMENT * x.numel() / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
+
+
+def phase_quant(quant, counted) -> dict:
+    """Phase 7; returns the record at the smoke shape."""
+    import torch
+
+    xs = quant_inputs()
+    x = xs["smoke_4Mi_fp32"]
+    torch.cuda.synchronize()
+    reset_launches(*counted)
+    codes, scale = quant.quantize_blockwise(x)
+    back = quant.dequantize_blockwise(codes, scale, x.shape)
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in counted}
+    want = {w.__name__: 0 for w in counted}
+    want["quantize_blockwise"] = 1
+    if launches != want:
+        raise SystemExit(f"quantize_blockwise path launches {launches}")
+    err = float((back - x).abs().max())
+    bound = float(x.abs().max()) / 254.0
+    log(f"phase7 quant path: quantize_blockwise + dequantize_blockwise on "
+        f"{x.numel()} fp32, round-trip max err {err:.6g} (bound "
+        f"max|x|/254 * 1.01 = {bound * 1.01:.6g}), launches {launches}")
+    if not err <= bound * 1.01:
+        raise SystemExit(f"quant round trip {err} > {bound} * 1.01")
+
+    rec = None
+    for name, xi in xs.items():
+        kc, ks = quant.quantize_blockwise(xi)
+        pc, ps = quant.quantize_blockwise(xi, backend="plain")
+        torch.cuda.synchronize()
+        code_err = int((kc.int() - pc.int()).abs().max())
+        scale_same = torch.equal(ks.view(torch.int32), ps.view(torch.int32))
+        kb = quant.dequantize_blockwise(kc, ks, xi.shape)
+        rt_err = float((kb - xi.float()).abs().max())
+        rt_bound = float(xi.float().abs().max()) / 254.0 * 1.01
+        if code_err != 0 or not scale_same or not rt_err <= rt_bound:
+            raise SystemExit(
+                f"quant kernel vs plain at {name}: max code diff "
+                f"{code_err}, scales bit-equal {scale_same}, round trip "
+                f"{rt_err} (bound {rt_bound})")
+        row = {"input": name, "n": xi.numel(), "dtype": str(xi.dtype),
+               "max_abs_err": float(max(code_err, float(
+                   (ks - ps).abs().max()))),
+               "tolerance": "codes equal, scales bit-equal",
+               "roundtrip_err": rt_err, "roundtrip_bound": rt_bound,
+               "ms": time_ms(lambda: quant.quantize_blockwise(xi)),
+               "plain_ms": time_ms(lambda: quant.quantize_blockwise(
+                   xi, backend="plain"), iters=50),
+               "library_ms": None,
+               "no_library_call": "no single PyTorch call computes "
+                                  "per-block absmax int8 codes",
+               **quant_bound(xi)}
+        if name == "smoke_4Mi_fp32":
+            # 16.8 MB fits the 50 MB L2: back-to-back calls on one input
+            # read it from L2.  Rotating over 4 copies (67 MB) reads from
+            # device memory, as a caller with a fresh tensor would.
+            copies = [xi.clone() for _ in range(4)]
+            turn = iter(range(1 << 30))
+            row["ms_l2_hot"] = row["ms"]
+            row["ms"] = time_ms(lambda: quant.quantize_blockwise(
+                copies[next(turn) % 4]))
+            row["plain_ms"] = time_ms(lambda: quant.quantize_blockwise(
+                copies[next(turn) % 4], backend="plain"), iters=50)
+            # Back-to-back calls are bound by the host's enqueue rate; the
+            # profile gives the kernel's own device time.
+            def forty_calls():
+                for _ in range(40):
+                    quant.quantize_blockwise(copies[next(turn) % 4])
+                torch.cuda.synchronize()
+
+            _, kernels, _ = step_profile(forty_calls, iters=40)
+            row["device_us_per_launch"], _ = kernel_device_us(
+                kernels, "quant_kernel")
+            rec = row
+        log("phase7 quant " + json.dumps(row))
+    rec["launches"] = launches["quantize_blockwise"]
+    return rec
+
+
+def phase_adam8bit(llama, counted) -> dict:
+    """Phase 8: Llama-800M-h128 trained with 8-bit Adam through
+    ``accelerate``, the way the JAX package's bench measures its
+    ``llama_800m_h128`` adam8bit candidate."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from dlrover_tpu_torch.optim import adam8bit
+    from dlrover_tpu_torch.parallel.accelerate import Strategy, accelerate
+
+    cfg = dataclasses.replace(llama.LlamaConfig.medium_800m(), n_head=12,
+                              n_kv_head=12, remat_block=True)
+    tokens = np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, size=(A8_BATCH, A8_SEQ + 1)).astype(np.int32)
+    batch = {"tokens": tokens}
+    job = accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        init_fn=lambda g: llama.init_params(cfg, g, DEV,
+                                            param_dtype=torch.float32),
+        optimizer=adam8bit(3e-4), sample_batch=batch, strategy=Strategy(),
+        device=DEV)
+    state = job.create_state(torch.Generator(device=DEV).manual_seed(SEED))
+    opt = state["opt_state"]
+    n_params = llama.num_params(state["params"])
+
+    # Device time of each optimizer step, from CUDA events around it.
+    opt_events = []
+    opt_step = opt.step
+
+    def timed_opt_step(*a, **k):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = opt_step(*a, **k)
+        e1.record()
+        opt_events.append((e0, e1))
+        return out
+
+    opt.step = timed_opt_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(*counted)
+    losses, step_ms = [], []
+    for _ in range(A8_STEPS):
+        t0 = time.perf_counter()
+        state, m = job.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = {w.__name__: w.launches for w in counted}
+    peak = torch.cuda.max_memory_allocated()
+    opt_ms = [e0.elapsed_time(e1) for e0, e1 in opt_events]
+    L, n = cfg.n_layer, A8_STEPS
+    # Block remat recomputes each block's forward (its attention and
+    # both norms) in the backward; the final norm is not recomputed.
+    want = {"flash_fwd": 2 * L * n, "flash_dq": L * n, "flash_dkv": L * n,
+            "rmsnorm": (4 * L + 1) * n, "xent_fwd": 0,
+            "quantize_blockwise": 0}
+    if counts != want:
+        raise SystemExit(f"adam8bit training launches {counts} != {want}")
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0]):
+        raise SystemExit(f"adam8bit training loss did not fall: {losses}")
+    steady = statistics.median(step_ms[1:])
+    tok_s = A8_BATCH * A8_SEQ / (steady / 1e3)
+    state_bytes = opt.state_bytes()
+    res = {"model": f"medium_800m, n_head=n_kv_head={cfg.n_head} "
+                    f"(head_dim {cfg.head_dim}), remat_block",
+           "n_layer": L, "d_model": cfg.d_model,
+           "head_dim": cfg.head_dim, "params": n_params, "batch": A8_BATCH,
+           "seq_len": A8_SEQ, "steps": n, "losses": losses,
+           "step_ms": step_ms, "step_ms_median_2_on": steady,
+           "tokens_per_s": tok_s,
+           "flops_per_token": llama.flops_per_token(cfg),
+           "mfu": llama.flops_per_token(cfg) * tok_s / BF16_FLOPS_PER_S,
+           "peak_mem_gib": peak / 2 ** 30,
+           "opt_state_bytes": state_bytes,
+           "adamw_state_bytes": 8 * n_params,
+           "opt_step_device_ms": opt_ms,
+           "launches": counts,
+           "launches_per_step": {k: v / n for k, v in counts.items()}}
+
+    def run():
+        _, m2 = job.train_step(state, batch)
+        float(m2["loss"])
+        torch.cuda.synchronize()
+
+    prof, _, events = step_profile(run)
+    e0, e1 = opt_events[-1]
+    prof["adam8bit_step_device_ms"] = e0.elapsed_time(e1)
+    # The kernels under the optimizer's own profiler annotation.
+    prof["adam8bit_step_kernels_ms"] = sum(
+        e.device_time_total for e in events
+        if e.device_type == DeviceType.CPU and "Adam8bit.step" in e.key) / 1e3
+    res["profile"] = prof
+    log("phase8 adam8bit train " + json.dumps(res))
+    del state, job, opt
+    torch.cuda.empty_cache()
+    return res
+
+
 def kernel_record(name, source, replaces, launches, rec) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches,
-            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}}
+    out = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces, "launches": launches,
+           **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms")}}
+    if "no_library_call" in rec:
+        out["no_library_call"] = rec["no_library_call"]
+    return out
 
 
 def main() -> int:
@@ -780,15 +1025,16 @@ def main() -> int:
     from dlrover_tpu_torch.models import llama_infer as infer
     from dlrover_tpu_torch.ops import cross_entropy as xent
     from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import quant
     from dlrover_tpu_torch.ops import rmsnorm as rms
 
     counted = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, xent.xent_fwd,
-               rms.rmsnorm)
+               rms.rmsnorm, quant.quantize_blockwise)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    log(f"build: {build_kernels([rms, fa, xent]):.1f}s")
+    log(f"build: {build_kernels([rms, fa, xent, quant]):.1f}s")
 
     rec = phase_kernels(rms)
 
@@ -808,6 +1054,8 @@ def main() -> int:
     xrec = phase_xent()
     phase_train_parity(llama, train, counted)
     trained = phase_train(llama, train, counted)
+    qrec = phase_quant(quant, counted)
+    phase_adam8bit(llama, counted)
 
     fa_src = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_ref = "dlrover_tpu/ops/flash_attention.py"
@@ -824,9 +1072,16 @@ def main() -> int:
         kernel_record("xent_fwd", "dlrover_tpu_torch/ops/csrc/"
                       "cross_entropy.cu", "dlrover_tpu/ops/cross_entropy.py"
                       ":25", trained["tiny"]["launches"]["xent_fwd"], xrec),
+        kernel_record("quant_blockwise", "dlrover_tpu_torch/ops/csrc/"
+                      "quant.cu", "dlrover_tpu/ops/quant.py:41",
+                      qrec["launches"], qrec),
     ]
+    # library_ms may be null only in a record that says why no PyTorch
+    # call computes the function.
     if not all(math.isfinite(k[f]) for k in kernels
-               for f in ("ms", "plain_ms", "bound_ms", "library_ms")):
+               for f in ("ms", "plain_ms", "bound_ms")) or not all(
+            math.isfinite(k["library_ms"]) if k["library_ms"] is not None
+            else bool(k.get("no_library_call")) for k in kernels):
         raise SystemExit("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")

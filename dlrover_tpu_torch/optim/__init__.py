@@ -3,7 +3,9 @@ JAX package trains with.
 
 An optimizer here is a factory ``params -> torch.optim.Optimizer`` over the
 list of fp32 master tensors, which ``parallel.accelerate`` calls when it
-creates the train state.
+creates the train state.  ``adam8bit`` (Adam with 8-bit moments) lives in
+``ops/quant.py``, as the reference's does, and is exported here as the
+reference's ``dlrover_tpu/optim/__init__.py`` exports it.
 """
 
 from __future__ import annotations
@@ -12,7 +14,11 @@ from typing import Callable, List
 
 import torch
 
+from dlrover_tpu_torch.ops.quant import adam8bit
+
 OptimizerFactory = Callable[[List[torch.Tensor]], torch.optim.Optimizer]
+
+__all__ = ["OptimizerFactory", "adam8bit", "adamw"]
 
 
 def adamw(lr: float) -> OptimizerFactory:

@@ -129,7 +129,8 @@ def _build_train_step(loss_fn: Callable, strategy: Strategy,
             loss_sum = loss_sum + loss.detach().float()
         for p in leaves:
             # A parameter the loss does not reach has a zero gradient, as
-            # in JAX, so AdamW still decays it (torch skips a None grad).
+            # in JAX, so the optimizer still updates it (torch's AdamW
+            # skips a None grad; it would not decay the parameter).
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in leaves]
@@ -158,7 +159,7 @@ def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
 
     ``loss_fn(params, batch) -> scalar``; ``init_fn(generator) -> params``
     (fp32 masters); ``optimizer`` a factory from ``dlrover_tpu_torch.optim``
-    (``adamw(lr)``); ``sample_batch`` a dict of arrays with the global batch
+    (``adamw(lr)``, ``adam8bit(lr)``); ``sample_batch`` a dict of arrays with the global batch
     dim.  ``param_specs`` may be ``None`` or ``"planner"``: on one card
     every parameter lies whole on the card either way."""
     if isinstance(strategy, str):

@@ -15,7 +15,11 @@ fp32 value (the plain version on the upcast inputs) plus 1e-5 of the
 largest (one rounding each side; entries that are sums of cancelling terms
 keep the fp32 sum-order error); lse within 1e-4.  Cross-entropy: atol 1e-4
 on losses of ~log V (fp32 sums of V exponentials in another order).
+Blockwise int8 quantize: codes equal and scales bit-equal (the same IEEE
+fp32 operations, in the same order, on both sides).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ from dlrover_tpu_torch import train
 from dlrover_tpu_torch.models import llama, llama_infer
 from dlrover_tpu_torch.ops import cross_entropy as xent
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.ops import quant
 from dlrover_tpu_torch.ops import rmsnorm as rms_mod
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 
@@ -264,6 +269,110 @@ def test_train_cli_runs_on_the_card(card, capsys):
     assert stats["xent_fwd_launches"] == "3"
     assert stats["flash_fwd_launches"] == str(3 * 2)
     assert stats["rmsnorm_launches"] == str(3 * 5)
+
+
+def _quant_input(case, card):
+    """The chip smoke's phase-7 inputs, and two the kernel takes another
+    way: an fp32 view 4 bytes off alignment (scalar loads) and fp16 (cast
+    to fp32 by the wrapper, as the reference casts)."""
+    if case == "smoke":
+        x = torch.from_numpy(np.random.RandomState(4).randn(4 << 20)
+                             .astype(np.float32))
+    elif case == "ragged":
+        x = 3.0 * torch.randn(1000, generator=torch.Generator().manual_seed(1))
+    elif case == "bf16":
+        x = (5.0 * torch.randn(3, 12345, generator=torch.Generator()
+                               .manual_seed(2))).to(torch.bfloat16)
+    elif case == "zero_block":
+        x = torch.randn(3, 128, generator=torch.Generator().manual_seed(3))
+        x[1] = 0.0
+    elif case == "ties":
+        halves = torch.arange(63, dtype=torch.float32) + 0.5
+        x = torch.cat([torch.tensor([127.0, -127.0]), halves, -halves])
+    elif case == "unaligned":
+        x = torch.randn(1001, generator=torch.Generator().manual_seed(5))
+        return x.to(card)[1:]
+    else:
+        x = torch.randn(700, generator=torch.Generator().manual_seed(6)) \
+            .half()
+    return x.to(card)
+
+
+@pytest.mark.parametrize("case", ["smoke", "ragged", "bf16", "zero_block",
+                                  "ties", "unaligned", "fp16"])
+def test_quant_kernel_matches_plain(card, case):
+    """Codes equal and scales bit-equal to the plain version, and the
+    reference smoke's round-trip bound (max|x| / 254, which a truncating
+    kernel breaks)."""
+    x = _quant_input(case, card)
+    before = quant.quantize_blockwise.launches
+    codes, scale = quant.quantize_blockwise(x)
+    torch.cuda.synchronize()
+    assert quant.quantize_blockwise.launches == before + 1
+    pc, ps = quant.quantize_blockwise(x, backend="plain")
+    assert quant.quantize_blockwise.launches == before + 1
+    assert torch.equal(codes, pc)
+    assert torch.equal(scale.view(torch.int32), ps.view(torch.int32))
+    back = quant.dequantize_blockwise(codes, scale, x.shape)
+    err = float((back - x.float()).abs().max())
+    assert err <= float(x.float().abs().max()) / 254.0 * 1.01
+
+
+def test_quant_cuda_backend_refuses_a_cpu_tensor(card):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        quant.quantize_blockwise(torch.ones(10), backend="cuda")
+    with pytest.raises(ValueError, match="stochastic"):
+        quant.quantize_blockwise(torch.ones(10, device=card),
+                                 backend="cuda", stochastic=True)
+
+
+def _recording(per_leaf, out):
+    """``per_leaf`` that also appends each update it returns to ``out``."""
+    def run(*args):
+        res = per_leaf(*args)
+        out.append(res[0].cpu())
+        return res
+    return run
+
+
+def test_adam8bit_on_the_card_matches_the_cpu(card):
+    """Three updates of one parameter on the card and on the CPU with the
+    same noise: the updates within 1e-5 of the largest (fp32 ``pow`` and
+    ``log10`` of the two devices differ by ulps; a moment code may move
+    one level where its log level sits on a .5 boundary); the parameters
+    after each step within the sum, over the steps so far, of that
+    tolerance and one fp32 ulp of ``|p|`` (each side rounds ``p + update``
+    once).  The update launches no blockwise-quantize kernel."""
+    w0 = torch.from_numpy(np.random.RandomState(0).randn(7, 50)
+                          .astype(np.float32))
+    params = [w0.clone().requires_grad_(True),
+              w0.clone().to(card).requires_grad_(True)]
+    opts = [quant.adam8bit(1e-2, weight_decay=0.01)([p]) for p in params]
+    upd = []
+    for opt in opts:
+        opt._per_leaf = _recording(opt._per_leaf, upd)
+    before = quant.quantize_blockwise.launches
+    bound = torch.zeros_like(w0)
+    for count in (1, 2, 3):
+        g = torch.from_numpy((np.random.RandomState(count).randn(7, 50)
+                              * 10.0 ** -count).astype(np.float32))
+        rng = np.random.RandomState(100 + count)
+        noise = [torch.from_numpy(rng.rand(3, 128).astype(np.float32) - 0.5)
+                 for _ in range(2)]
+        upd.clear()
+        for p, opt in zip(params, opts):
+            it = iter([n.to(p.device) for n in noise])
+            opt._noise = lambda shape, device, it=it: next(it)
+            p.grad = g.to(p.device)
+            opt.step()
+        assert len(upd) == 2
+        tol = 1e-5 * float(upd[0].abs().max())
+        assert float((upd[0] - upd[1]).abs().max()) <= tol
+        mag = params[0].detach().abs()
+        bound += tol + (torch.nextafter(mag, torch.tensor(math.inf)) - mag)
+        diff = (params[0].detach() - params[1].detach().cpu()).abs()
+        assert bool((diff <= bound).all()), float((diff - bound).max())
+    assert quant.quantize_blockwise.launches == before
 
 
 def _to(tree, dev):

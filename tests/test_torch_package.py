@@ -19,6 +19,7 @@ from dlrover_tpu.models import llama as jllama
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama as tllama
 from dlrover_tpu_torch.models import llama_infer as tinfer
+from dlrover_tpu_torch.ops import quant as tquant
 from dlrover_tpu_torch import serve as tserve
 
 REPO = Path(__file__).resolve().parents[1]
@@ -71,7 +72,8 @@ def test_no_jax_or_reference_import(path):
 def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, dlrover_tpu_torch, dlrover_tpu_torch.serve, "
-        "dlrover_tpu_torch.train, dlrover_tpu_torch.models.convert\n"
+        "dlrover_tpu_torch.train, dlrover_tpu_torch.models.convert, "
+        "dlrover_tpu_torch.ops.quant, dlrover_tpu_torch.optim\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dlrover_tpu')]\n"
         "assert not bad, bad\n"
@@ -93,6 +95,19 @@ def test_default_device_raises_without_cuda(no_cuda):
         tserve.main(["--config", "tiny"])
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_quant_op_runs_on_cuda_by_default(no_cuda):
+    """``quantize_blockwise`` puts an array on the CUDA device unless the
+    caller passes ``device="cpu"``, and a CPU tensor never reaches the
+    kernel's backend."""
+    x = np.ones(300, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tquant.quantize_blockwise(x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tquant.quantize_blockwise(torch.from_numpy(x), backend="cuda")
+    codes, scale = tquant.quantize_blockwise(x, device="cpu")
+    assert codes.device.type == "cpu" and tuple(codes.shape) == (3, 128)
 
 
 def test_chip_smoke_fails_without_cuda(no_cuda, tmp_path):
