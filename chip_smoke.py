@@ -20,8 +20,11 @@ together), then runs eight phases and exits non-zero if any fails:
    count is reset just before and read just after; RMSNorm must have run
    65 times (2 per block + the final norm) per forward call.
 4. Flash attention kernels (forward, dq, dk/dv) vs plain at the
-   Llama-800M training shape, a GQA shape with a ragged length, and an fp32
-   case with a window and packed segments.
+   Llama-800M training shape, phase 8's shape, a GQA shape with a ragged
+   length, and an fp32 case with a window and packed segments.  bf16 runs
+   the tensor-core forward and dk/dv (``design`` "wgmma"), fp32 and dq the
+   CUDA-core kernels; each row gives ``bound_share`` (bound / time); two
+   dk/dv launches at phase 8's shape must agree bit for bit.
 5. Cross-entropy kernel vs plain at [8192, 32000] (fp32, bf16) and at the
    tiny model's training shapes.
 6. Training: (a) Llama-800M widths at 2 layers, one step's loss and
@@ -30,8 +33,10 @@ together), then runs eight phases and exits non-zero if any fails:
    Llama-800M at full width and depth (B 4, S 2048) for a few steps: the
    loss falls and every attention forward and backward went through the
    flash kernels; step time, tokens/s, MFU, peak memory and a profiled
-   step's device busy share; (c) the tiny model's training through the
-   cross-entropy kernel, one launch per step.
+   step's device busy share, whose kernels must include 24
+   ``flash_fwd_wgmma`` and 24 ``flash_dkv_wgmma`` launches and no bf16
+   instance of the CUDA-core forward or dk/dv; (c) the tiny model's
+   training through the cross-entropy kernel, one launch per step.
 7. Blockwise int8 quantize: the op ``quantize_blockwise`` at the JAX
    kernel smoke's shape (4 Mi fp32 values, seed 4) with the kernel counts
    reset just before and read just after, its round trip within
@@ -44,7 +49,9 @@ together), then runs eight phases and exits non-zero if any fails:
    2048 for 4 steps on one seeded batch: the loss falls; step time,
    tokens/s, MFU, peak memory, the moments' bytes, each kernel's launches
    a step (the blockwise quantize: 0, the moments use the dynamic codes)
-   and a profiled step with the optimizer's device time.
+   and a profiled step with the optimizer's device time, whose kernels
+   must include 48 ``flash_fwd_wgmma`` and 24 ``flash_dkv_wgmma``
+   launches and no bf16 instance of the CUDA-core forward or dk/dv.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -59,6 +66,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -308,6 +316,24 @@ def kernel_device_us(kernels, name_part: str) -> tuple:
             n)
 
 
+# The CUDA-core forward and dk/dv kernels' bf16 instances (the build has
+# none; a profile that shows one ran the wrong kernel).  The word boundary
+# keeps ``rmsnorm_fwd_kernel`` out.
+OLD_BF16_FLASH = re.compile(r"\b(fwd|dkv)_kernel<__nv_bfloat16")
+
+
+def tensor_core_launches(kernels, steps: int, want: dict, what: str) -> dict:
+    """Launches a step of the tensor-core flash kernels in a profile's
+    kernel events; fails unless they equal ``want`` or if a bf16 instance
+    of the CUDA-core forward or dk/dv ran."""
+    old = sorted({e.key[:90] for e in kernels if OLD_BF16_FLASH.search(e.key)})
+    got = {name: kernel_device_us(kernels, name)[1] / steps for name in want}
+    if old or got != want:
+        raise SystemExit(f"{what}: tensor-core flash launches a step {got} "
+                         f"!= {want}, old bf16 kernels {old}")
+    return got
+
+
 def phase_serve(infer, rms, params, cfg, counted) -> dict:
     """DecodeServer over the 7B model; returns the measured numbers."""
     import numpy as np
@@ -547,14 +573,27 @@ def phase_flash() -> dict:
         }
         lib = sdpa_times(q, k, v, g) if name.startswith("llama800m") \
             else None
+        if name == "llama800m_h128":
+            # dk/dv sums the GQA group in registers in a fixed order:
+            # block remat (phase 6a) relies on a repeat being bit-equal.
+            again = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
+                raise SystemExit(f"flash dk/dv {name}: a repeat differs")
+            log(f"phase4 flash {name}: dk/dv repeat bit-identical")
+            del again
+        tc = dtype == "bfloat16"
         for which, (kern, plain) in times.items():
             row = {"shape": name, "kernel": which, "lse_err": lse_err,
+                   "design": "wgmma" if tc and which != "dq" else
+                   "cuda-core",
                    **checks[which],
                    "ms": time_ms(kern, iters=iters, warmup=2),
                    "plain_ms": time_ms(plain, iters=3, warmup=1),
                    "library_ms": None if lib is None else
                    lib["fwd" if which == "fwd" else "bwd"],
                    **flash_bound(q, k, seg, causal, window, which)}
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             log("phase4 flash " + json.dumps(row))
             if name == "llama800m":
                 recs[which] = row
@@ -725,9 +764,9 @@ def profile_train_step(train, args) -> dict:
         float(m2["loss"])
         torch.cuda.synchronize()
 
-    res, _, _ = step_profile(run)
+    res, kernels, _ = step_profile(run)
     del state, job
-    return res
+    return res, kernels
 
 
 def phase_train(llama, train, counted) -> dict:
@@ -769,7 +808,14 @@ def phase_train(llama, train, counted) -> dict:
            "mfu": llama.flops_per_token(cfg) * tok_s / BF16_FLOPS_PER_S,
            "peak_mem_gib": st["peak_mem_gib"], "launches": counts}
     torch.cuda.empty_cache()
-    res["profile"] = profile_train_step(train, args)
+    res["profile"], kernels = profile_train_step(train, args)
+    res["profile"]["tensor_core_launches_per_step"] = tensor_core_launches(
+        kernels, 1, {"flash_fwd_wgmma": cfg.n_layer,
+                     "flash_dkv_wgmma": cfg.n_layer}, "800m training profile")
+    res["profile"]["flash_device_us_per_launch"] = {
+        name: kernel_device_us(kernels, name)[0]
+        for name in ("flash_fwd_wgmma", "flash_dkv_wgmma", "dq_kernel")}
+    del kernels
     torch.cuda.empty_cache()
     log("phase6b train 800m " + json.dumps(res))
 
@@ -989,7 +1035,13 @@ def phase_adam8bit(llama, counted) -> dict:
         float(m2["loss"])
         torch.cuda.synchronize()
 
-    prof, _, events = step_profile(run)
+    prof, kernels, events = step_profile(run)
+    prof["tensor_core_launches_per_step"] = tensor_core_launches(
+        kernels, 1, {"flash_fwd_wgmma": 2 * L, "flash_dkv_wgmma": L},
+        "adam8bit training profile")
+    prof["flash_device_us_per_launch"] = {
+        name: kernel_device_us(kernels, name)[0]
+        for name in ("flash_fwd_wgmma", "flash_dkv_wgmma", "dq_kernel")}
     e0, e1 = opt_events[-1]
     prof["adam8bit_step_device_ms"] = e0.elapsed_time(e1)
     # The kernels under the optimizer's own profiler annotation.
@@ -1008,6 +1060,8 @@ def kernel_record(name, source, replaces, launches, rec) -> dict:
            "replaces": replaces, "launches": launches,
            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
                                   "bound_ms", "bound_by", "library_ms")}}
+    if "design" in rec:
+        out["design"] = rec["design"]
     if "no_library_call" in rec:
         out["no_library_call"] = rec["no_library_call"]
     return out

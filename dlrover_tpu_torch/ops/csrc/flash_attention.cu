@@ -2,48 +2,70 @@
 // bound to PyTorch through ctypes by dlrover_tpu_torch/ops/flash_attention.py.
 //
 // Replaces the Pallas TPU kernels of dlrover_tpu/ops/flash_attention.py:
-//   fwd_kernel  <- _fwd_kernel      (reached through _flash_fwd)
-//   dq_kernel   <- _bwd_dq_kernel   (reached through _flash_bwd_pallas)
-//   dkv_kernel  <- _bwd_dkv_kernel  (reached through _flash_bwd_pallas)
-// with the same arithmetic: q scaled by 1/sqrt(D) in fp32 before the QK^T
-// product in the forward and the scale applied after the product in the
-// backward; every mask the finite NEG_INF = -1e30; l floored at 1e-30 and
-// lse = m + log(l); p = exp(s - lse) recomputed in the backward; P kept in
-// fp32 for the PV, dV and dK products; dq written once in q's dtype; dk/dv
-// summed in fp32 over the query heads of one KV head and cast once.
+//   flash_fwd_wgmma (bf16), fwd_kernel (fp32)  <- _fwd_kernel
+//   dq_kernel (bf16, fp32)                     <- _bwd_dq_kernel
+//   flash_dkv_wgmma (bf16), dkv_kernel (fp32)  <- _bwd_dkv_kernel
+// with the same arithmetic: every mask the finite NEG_INF = -1e30; l
+// floored at 1e-30 and lse = m + log(l); p = exp(s - lse) recomputed in the
+// backward; P (and dS) kept at fp32 precision for the PV, dV and dK
+// products; dq written once in q's dtype; dk/dv summed in fp32 over the
+// query heads of one KV head and cast once.  The C entry points route by
+// dtype: bf16 forward and dk/dv run on the tensor cores, fp32 (and dq in
+// both dtypes) on the CUDA cores.
 //
 // What bounds it: operations.  At the Llama-800M training shape (B 4, H 16,
 // S 2048, D 96, causal) the forward does 2 products over the S(S+1)/2
 // visible pairs of each head, ~51.5 GFLOP, against ~100 MB of q, k, v and
 // out: ~52 us at the bf16 tensor-core peak (989 TFLOP/s), far above the
 // memory bound (~30 us at 3.35 TB/s); dq does 3 products (~78 us) and dk/dv
-// 4 (~104 us).  This first version computes in fp32 on the CUDA cores
-// (peak 67 TFLOP/s), as the reference does, so P is never rounded to bf16;
-// it cannot come near the bf16 bound.  A tensor-core version (wgmma with P
-// in bf16) changes the numbers and is later work with its own tolerance.
+// 4 (~104 us).
 //
-// Design: one block of 256 threads per (64-row tile, batch*head) for the
-// forward and dq (grid x walks the tiles last-first, so the longest causal
-// rows start first), and per (64-key tile, batch*KV head) for dk/dv, which
-// loops over the GQA group's query heads inside the block and so sums dk
-// and dv in registers without atomics (the result does not depend on the
-// order blocks run in).  Tiles of q, k, v and g stream through shared
+// Tensor-core kernels (bf16).  Hopper's warpgroup products (wgmma) on bf16
+// tiles in shared memory, filled by cp.async through a two-stage ring so
+// the next tile's copy overlaps this tile's products.  The forward
+// (flash_fwd_wgmma) gives each block 128 query rows of one (batch, head),
+// two warpgroups of 64 rows, over 64-key tiles: S = Q K^T from shared
+// memory into fp32 registers, then the masks and the online softmax in
+// fp32 registers.  The reference keeps P in fp32; a single bf16 P would err
+// by ~2^-9 of a row's weighted |v|, which breaks a 2-ulp tolerance where an
+// output cancels to near zero.  So P is split into two bf16 values, hi =
+// bf16(p) and lo = bf16(p - hi), and O += P_hi V + P_lo V runs as two
+// products with A taken from registers into one fp32 accumulator: ~2^-17
+// relative, fp32-grade, at 3 products instead of 2.  Q K^T is exact as it
+// stands (bf16 products summed in fp32).  The dk/dv kernel
+// (flash_dkv_wgmma) gives each block 64 keys of one (batch, KV head), one
+// warpgroup, K and V resident, and loops over the GQA group's query heads
+// and their visible query tiles, summing dK and dV in registers (no
+// atomics: the result is the same bit for bit on every run).  It computes
+// S^T = K Q^T and dP^T = V dO^T, so the accumulators already hold P^T and
+// dS^T in the layout of an A operand, and dV += P^T dO, dK += dS^T Q each
+// take the hi/lo split (6 products where the reference has 4).  D is
+// padded in shared memory (never in device memory) to 64, 96 or 128 with
+// zeros by the copy itself; rows past S are zero-filled the same way and
+// masked.
+//
+// CUDA-core kernels (fp32 forward and dk/dv; dq).  One block of 256
+// threads per (64-row tile, batch*head) for the forward and dq (grid x
+// walks the tiles last-first, so the longest causal rows start first), and
+// per (64-key tile, batch*KV head) for dk/dv.  Tiles stream through shared
 // memory as fp32; k, v (forward, dq) or q, g (dk/dv) are stored transposed
-// with a row pitch of 65 floats, so both the tile product (consecutive
-// columns per thread) and the accumulation (consecutive head-dim entries
-// per thread, stride 65) read shared memory without bank conflicts.  Each
-// thread owns a 4x4 micro-tile of the 64x64 score block and a 4 x D/16
-// slice of the output; a row's 64 scores live in one half-warp, so its max
-// and sum are half-warp shuffles.  Causal blocks beyond the diagonal and,
-// with a window, blocks below it are skipped as the reference skips them.
-// GQA reads KV head (h / (H/KV)) in place.  A ragged S is masked inside
-// the kernels (loads past S read zero; keys and, in dk/dv, queries past S
-// are masked), never padded by copies.  Any head dim D <= 128 that is a
-// multiple of 8 is taken (D = 96 at 800M is not a power of two).
+// with a row pitch of 65 floats, so both the tile product and the
+// accumulation read shared memory without bank conflicts.  Each thread
+// owns a 4x4 micro-tile of the 64x64 score block and a 4 x D/16 slice of
+// the output; a row's 64 scores live in one half-warp.  Peak 67 TFLOP/s.
+//
+// Both families skip causal blocks beyond the diagonal and, with a window,
+// blocks below it, as the reference does; read GQA's KV head (h / (H/KV))
+// in place; mask a ragged S inside the kernel (loads past S read zero, keys
+// and queries past S are masked), never padded by copies; and take any head
+// dim D <= 128 that is a multiple of 8 (D = 96 at 800M is not a power of
+// two) and strided [B, S, H, D] views.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -146,7 +168,7 @@ __device__ __forceinline__ void load_cols(float* dst, const T* src,
 }
 
 // ---------------------------------------------------------------------------
-// Forward
+// Forward (CUDA cores; fp32 only, bf16 runs tc::flash_fwd_wgmma)
 // ---------------------------------------------------------------------------
 
 template <typename T, int NJ>
@@ -280,7 +302,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward: dq
+// Backward: dq (CUDA cores; fp32 and bf16)
 // ---------------------------------------------------------------------------
 
 template <typename T, int NJ>
@@ -412,7 +434,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward: dk, dv
+// Backward: dk, dv (CUDA cores; fp32 only, bf16 runs tc::flash_dkv_wgmma)
 // ---------------------------------------------------------------------------
 
 template <typename T, int NJ>
@@ -579,6 +601,722 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// Tensor-core kernels (bf16): wgmma on shared-memory tiles
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 (or 4) bytes from global to shared memory; when `full` is false the
+// source is not read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's completed shared-memory writes visible to the
+// wgmma operand reads (the async proxy) that follow the next barrier.
+__device__ __forceinline__ void async_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void mma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void mma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses to registers that an in-flight
+// wgmma reads or writes across the fence, commit and wait around it.
+template <int N>
+__device__ __forceinline__ void pin(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Shared-memory tiles: R x DP bf16 in the core-matrix layout without
+// swizzle, element (r, c) at byte
+//   ((r / 8) * (DP / 8) + c / 8) * 128 + (r % 8) * 16 + (c % 8) * 2,
+// so each 8 x 8 core matrix is 128 contiguous bytes.  One layout serves
+// every operand: read K-major (rows = M or N, columns = K) for the
+// products over D, and MN-major (rows = K, columns = N, transpose bit set)
+// for the products over keys or queries.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+// K-major operand of 64 rows from row r0 (a multiple of 8), K-slice kk
+// (columns 16 kk .. 16 kk + 15): the leading offset steps along K (the
+// next 8 columns), the stride offset along rows (the next 8 rows).
+template <int DP>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int r0, int kk) {
+  return make_desc(tile + r0 * DP * 2 + kk * 256, 128, DP * 16);
+}
+// MN-major operand (N = DP columns), K-slice kk (rows 16 kk .. 16 kk +
+// 15): the leading offset steps along K (the next 8 rows), the stride
+// offset along N (the next 8 columns).
+template <int DP>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return make_desc(tile + kk * DP * 32, DP * 16, 128);
+}
+
+// Copies rows [row0, row0 + R) of a [S, D] slice (row stride ld elements)
+// into a tile at dst.  Rows past S and columns past D are zero-filled by
+// the copy itself (src-size 0) and never read.  Eight consecutive threads
+// fill one core matrix (128 contiguous bytes), so the 16-byte stores of a
+// quarter-warp hit distinct banks; chunk i lands at byte 16 i.
+template <int R, int DP, int NTHR>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long ld, int row0, int S,
+                                          int D, int tid) {
+  constexpr int CPR = DP / 8;  // 16-byte chunks a row
+  static_assert((R * CPR) % NTHR == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < R * CPR / NTHR; ++it) {
+    const int i = tid + it * NTHR;
+    const int rest = i >> 3, cc = rest % CPR;
+    const int pos = row0 + (rest / CPR) * 8 + (i & 7);
+    const bool in = pos < S && cc * 8 < D;
+    cp_async16(dst + 16 * i, in ? src + pos * ld + cc * 8 : src, in);
+  }
+}
+
+// Rounds (x0, x1) to a bf16 pair `hi` and the rest to a bf16 pair `lo`:
+// hi + lo equals (x0, x1) within ~2^-17 relative.  Low half = x0, the
+// lower column, as an A fragment register holds it.
+__device__ __forceinline__ void split(float x0, float x1, uint32_t* hi,
+                                      uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void store2(bf16* dst, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The warpgroup products.  Accumulator layout (m64nN, fp32, N / 2
+// registers a thread): warp w of the warpgroup holds rows 16 w .. 16 w +
+// 15; in each 8-column chunk j a thread holds d[4j], d[4j + 1] at row
+// lane / 4, columns 8 j + 2 (lane % 4) + {0, 1}, and d[4j + 2], d[4j + 3]
+// at row lane / 4 + 8.  The A fragment of K-slice kk (16 columns) is then
+// the bf16 pairs (d[8kk], d[8kk+1]), (d[8kk+2], d[8kk+3]), (d[8kk+4],
+// d[8kk+5]), (d[8kk+6], d[8kk+7]): an accumulator feeds the next product
+// with no data movement.
+#define D8(i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d {+}= A B, A and B from shared memory, both K-major; `accumulate` 0
+// overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B, A (bf16 pairs, the fragment layout above) from registers, B
+// from shared memory, MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef D8
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 32) {
+    wgmma_ss_n32(d, a, b, accumulate);
+  } else {
+    static_assert(N == 64, "S tiles are 32 or 64 wide");
+    wgmma_ss_n64(d, a, b, accumulate);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, b);
+  } else if constexpr (N == 96) {
+    wgmma_rs_n96(d, a, b);
+  } else {
+    static_assert(N == 128, "D pads to 64, 96 or 128");
+    wgmma_rs_n128(d, a, b);
+  }
+}
+
+// ---- Forward --------------------------------------------------------------
+
+// 96-99 KB of shared memory at D 128 would let two blocks share an SM, but
+// the registers (185 a thread at D 128) hold it to one.
+template <int DP>
+struct Fwd {
+  static constexpr int BM = 128;  // query rows a block: two warpgroups
+  static constexpr int BN = 64;   // keys a tile
+  static constexpr int NST = 2;   // ring stages
+  static constexpr int NT = 256;
+  static constexpr int Q_BYTES = BM * DP * 2;
+  static constexpr int T_BYTES = BN * DP * 2;
+  static constexpr int STAGE = 2 * T_BYTES + BN * 4;  // K, V, key segments
+  static constexpr int SMEM = Q_BYTES + NST * STAGE;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
+  using C = Fwd<DP>;
+  constexpr int NO = DP / 2;  // O accumulator registers a thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_q = smem_u32(smem), s_ring = s_q + C::Q_BYTES;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid & 127) >> 5;
+  const int S = p.S, D = p.D;
+  const int nq = (S + C::BM - 1) / C::BM;
+  const int q_start = (nq - 1 - static_cast<int>(blockIdx.x)) * C::BM;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int kvh = h / (p.H / p.KV);
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const int* seg = p.seg != nullptr ? p.seg + static_cast<long long>(b) * S
+                                    : nullptr;
+
+  // This warpgroup's 64 rows, and this thread's two of them.
+  const int w_first = q_start + wg * 64, w_last = w_first + 63;
+  const int r0 = w_first + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const int cq = 2 * (lane & 3);  // first column of its pair in each chunk
+  int seg0 = -1, seg1 = -1;
+  if (seg != nullptr) {
+    if (r0 < S) seg0 = seg[r0];
+    if (r1 < S) seg1 = seg[r1];
+  }
+
+  load_tile<C::BM, DP, C::NT>(s_q, q, p.sq.s, q_start, S, D, tid);
+  cp_commit();
+
+  int k1 = (S + C::BN - 1) / C::BN, k0 = 0;
+  if (p.causal) k1 = min(k1, (q_start + C::BM - 1) / C::BN + 1);
+  if (p.window > 0) k0 = max(0, q_start - p.window + 1) / C::BN;
+
+  auto load_kv = [&](int j, int stage) {
+    const uint32_t base = s_ring + stage * C::STAGE;
+    load_tile<C::BN, DP, C::NT>(base, k, p.sk.s, j * C::BN, S, D, tid);
+    load_tile<C::BN, DP, C::NT>(base + C::T_BYTES, v, p.sv.s, j * C::BN, S,
+                                D, tid);
+    if (seg != nullptr && tid < C::BN) {
+      const int kp = j * C::BN + tid;
+      cp_async4(base + 2 * C::T_BYTES + 4 * tid, kp < S ? seg + kp : seg,
+                kp < S);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < C::NST - 1; ++st) {
+    if (k0 + st < k1) load_kv(k0 + st, st);
+    cp_commit();
+  }
+
+  float o[NO], s[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  uint32_t ph[16], pl[16];  // P as bf16 hi / lo pairs: 4 K-slices x 4
+
+  for (int j = k0; j < k1; ++j) {
+    const int it = j - k0;
+    if (j + C::NST - 1 < k1) {
+      load_kv(j + C::NST - 1, (it + C::NST - 1) % C::NST);
+    }
+    cp_commit();
+    cp_wait<C::NST - 1>();
+    async_fence();
+    __syncthreads();
+
+    const int k_start = j * C::BN;
+    // Warpgroup-uniform: does any of its pairs in this tile attend?
+    const bool live = w_first < S && (!p.causal || k_start <= w_last) &&
+                      (p.window == 0 ||
+                       k_start + C::BN - 1 > w_first - p.window);
+    if (live) {
+      const int stage = it % C::NST;
+      const uint32_t s_k = s_ring + stage * C::STAGE;
+      const uint32_t s_v = s_k + C::T_BYTES;
+      const int* segk = reinterpret_cast<const int*>(
+          smem + C::Q_BYTES + stage * C::STAGE + 2 * C::T_BYTES);
+
+      pin<32>(s);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<64>(s, desc_k<DP>(s_q, wg * 64, kk), desc_k<DP>(s_k, 0, kk),
+                     kk > 0);
+      }
+      mma_commit();
+      mma_wait<0>();
+      pin<32>(s);
+
+      const bool edge =
+          seg != nullptr || k_start + C::BN > S ||
+          (p.causal && k_start + C::BN - 1 > w_first) ||
+          (p.window > 0 && w_last - k_start >= p.window);
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float x = s[i] * p.scale;
+        if (edge) {
+          const int kc = 8 * (i >> 2) + cq + (i & 1);
+          const bool second = (i & 2) != 0;
+          if (!visible(p, second ? r1 : r0, k_start + kc,
+                       second ? seg1 : seg0, seg != nullptr ? segk[kc] : 0)) {
+            x = NEG_INF;
+          }
+        }
+        s[i] = x;
+        if (i & 2) {
+          mx1 = fmaxf(mx1, x);
+        } else {
+          mx0 = fmaxf(mx0, x);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = exp2f((m0 - mn0) * LOG2E);
+      const float a1 = exp2f((m1 - mn1) * LOG2E);
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const float mn = (i & 2) ? mn1 : mn0;
+        const float e0 = exp2f((s[i] - mn) * LOG2E);
+        const float e1 = exp2f((s[i + 1] - mn) * LOG2E);
+        if (i & 2) {
+          sum1 += e0 + e1;
+        } else {
+          sum0 += e0 + e1;
+        }
+        split(e0, e1, &ph[i >> 1], &pl[i >> 1]);
+      }
+      l0 = l0 * a0 + quad_sum(sum0);
+      l1 = l1 * a1 + quad_sum(sum1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= (i & 2) ? a1 : a0;
+
+      pin<NO>(o);
+      pin<16>(ph);
+      pin<16>(pl);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<DP>(o, ph + 4 * kk, desc_mn<DP>(s_v, kk));
+        wgmma_rs<DP>(o, pl + 4 * kk, desc_mn<DP>(s_v, kk));
+      }
+      mma_commit();
+      mma_wait<0>();
+      pin<NO>(o);
+      pin<16>(ph);
+      pin<16>(pl);
+    }
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+
+  if (w_first < S) {
+    bf16* out = static_cast<bf16*>(p.o) + b * p.so.b + h * p.so.h;
+    const float ls0 = fmaxf(l0, 1e-30f), ls1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      const int col = 8 * c + cq;
+      if (col < D) {
+        if (r0 < S) {
+          store2(out + r0 * p.so.s + col, o[4 * c] / ls0, o[4 * c + 1] / ls0);
+        }
+        if (r1 < S) {
+          store2(out + r1 * p.so.s + col, o[4 * c + 2] / ls1,
+                 o[4 * c + 3] / ls1);
+        }
+      }
+    }
+    if ((lane & 3) == 0) {
+      const long long row = static_cast<long long>(bh) * S;
+      if (r0 < S) p.lse[row + r0] = m0 + logf(ls0);
+      if (r1 < S) p.lse[row + r1] = m1 + logf(ls1);
+    }
+  }
+}
+
+// ---- dK, dV ---------------------------------------------------------------
+
+template <int DP>
+struct Dkv {
+  static constexpr int BN = 64;                   // keys a block
+  // Queries a tile: with 64, S^T, dP^T and the fragments fit beside dK and
+  // dV without spills up to D 96; at D 128 they would spill, so 32 there.
+  static constexpr int BQ = DP <= 96 ? 64 : 32;
+  static constexpr int NST = 2;
+  static constexpr int NT = 128;                  // one warpgroup
+  static constexpr int KV_BYTES = BN * DP * 2;
+  static constexpr int T_BYTES = BQ * DP * 2;
+  // Q, dO, then lse, delta and query segments of the tile.
+  static constexpr int STAGE = 2 * T_BYTES + 3 * BQ * 4;
+  static constexpr int SMEM = 2 * KV_BYTES + NST * STAGE;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(128) flash_dkv_wgmma(Params p) {
+  using C = Dkv<DP>;
+  constexpr int BQ = C::BQ;
+  constexpr int NA = DP / 2;  // dK, dV accumulator registers a thread
+  constexpr int NS = BQ / 2;  // S^T, dP^T registers a thread
+  constexpr int NF = BQ / 4;  // hi (or lo) fragment registers: BQ/16 x 4
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_k = smem_u32(smem), s_v = s_k + C::KV_BYTES;
+  const uint32_t s_ring = s_v + C::KV_BYTES;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int S = p.S, D = p.D;
+  const int k_start = blockIdx.x * C::BN;
+  const int bkv = blockIdx.y, b = bkv / p.KV, kvh = bkv - b * p.KV;
+  const int rep = p.H / p.KV;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const int* seg = p.seg != nullptr ? p.seg + static_cast<long long>(b) * S
+                                    : nullptr;
+  // This thread's two keys (rows of the accumulators).
+  const int kr0 = k_start + warp * 16 + (lane >> 2), kr1 = kr0 + 8;
+  const int cq = 2 * (lane & 3);
+  int seg0 = -1, seg1 = -1;
+  if (seg != nullptr) {
+    if (kr0 < S) seg0 = seg[kr0];
+    if (kr1 < S) seg1 = seg[kr1];
+  }
+
+  load_tile<C::BN, DP, C::NT>(s_k, k, p.sk.s, k_start, S, D, tid);
+  load_tile<C::BN, DP, C::NT>(s_v, v, p.sv.s, k_start, S, D, tid);
+  cp_commit();
+
+  // Query tiles [q0, q1) of each head of the group see these keys.
+  const int nq = (S + BQ - 1) / BQ;
+  const int q0 = p.causal ? k_start / BQ : 0;
+  int q1 = nq;
+  if (p.window > 0) q1 = min(q1, (k_start + C::BN + p.window - 2) / BQ + 1);
+  const int nqt = max(q1 - q0, 0), n_tiles = rep * nqt;
+
+  auto load_q = [&](int t, int stage) {
+    const int r = t / nqt, h = kvh * rep + r, q_start = (q0 + t - r * nqt) * BQ;
+    const long long row0 = static_cast<long long>(b * p.H + h) * S;
+    const bf16* q = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+    const bf16* g = static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h;
+    const uint32_t base = s_ring + stage * C::STAGE;
+    load_tile<BQ, DP, C::NT>(base, q, p.sq.s, q_start, S, D, tid);
+    load_tile<BQ, DP, C::NT>(base + C::T_BYTES, g, p.sg.s, q_start, S, D,
+                             tid);
+    if (tid < BQ) {
+      const int qp = q_start + tid;
+      const bool in = qp < S;
+      const uint32_t vec = base + 2 * C::T_BYTES + 4 * tid;
+      cp_async4(vec, in ? p.lse + row0 + qp : p.lse, in);
+      cp_async4(vec + 4 * BQ, in ? p.delta + row0 + qp : p.delta, in);
+      if (seg != nullptr) cp_async4(vec + 8 * BQ, in ? seg + qp : seg, in);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < C::NST - 1; ++st) {
+    if (st < n_tiles) load_q(st, st);
+    cp_commit();
+  }
+
+  float dk[NA], dv[NA], s[NS], dp[NS];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = dp[i] = 0.f;
+  uint32_t fh[NF], fl[NF];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + C::NST - 1 < n_tiles) {
+      load_q(t + C::NST - 1, (t + C::NST - 1) % C::NST);
+    }
+    cp_commit();
+    cp_wait<C::NST - 1>();
+    async_fence();
+    __syncthreads();
+
+    const int stage = t % C::NST;
+    const int q_start = (q0 + t % nqt) * BQ;
+    const uint32_t s_q = s_ring + stage * C::STAGE;
+    const uint32_t s_g = s_q + C::T_BYTES;
+    const float* lse = reinterpret_cast<const float*>(
+        smem + 2 * C::KV_BYTES + stage * C::STAGE + 2 * C::T_BYTES);
+    const float* delta = lse + BQ;
+    const int* segq = reinterpret_cast<const int*>(delta + BQ);
+
+    // S^T = K Q^T and dP^T = V dO^T over D.
+    pin<NS>(s);
+    pin<NS>(dp);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<BQ>(s, desc_k<DP>(s_k, 0, kk), desc_k<DP>(s_q, 0, kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      wgmma_ss<BQ>(dp, desc_k<DP>(s_v, 0, kk), desc_k<DP>(s_g, 0, kk),
+                   kk > 0);
+    }
+    mma_commit();
+    mma_wait<0>();
+    pin<NS>(s);
+    pin<NS>(dp);
+
+    // P^T = exp(S^T scale - lse), in fp32 and as hi/lo pairs.
+    const bool edge = seg != nullptr || q_start + BQ > S ||
+                      k_start + C::BN > S ||
+                      (p.causal && q_start < k_start + C::BN - 1) ||
+                      (p.window > 0 && q_start + BQ - 1 - k_start >= p.window);
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      const int c = 8 * (i >> 2) + cq;  // query of s[i]; s[i + 1] is c + 1
+      const float2 ls = *reinterpret_cast<const float2*>(lse + c);
+      float x0 = s[i] * p.scale, x1 = s[i + 1] * p.scale;
+      if (edge) {
+        const bool second = (i & 2) != 0;
+        const int kp = second ? kr1 : kr0, sk = second ? seg1 : seg0;
+        const int sq0 = seg != nullptr ? segq[c] : 0;
+        const int sq1 = seg != nullptr ? segq[c + 1] : 0;
+        const int qp = q_start + c;
+        if (!(qp < S && visible(p, qp, kp, sq0, sk))) x0 = NEG_INF;
+        if (!(qp + 1 < S && visible(p, qp + 1, kp, sq1, sk))) x1 = NEG_INF;
+      }
+      s[i] = exp2f((x0 - ls.x) * LOG2E);
+      s[i + 1] = exp2f((x1 - ls.y) * LOG2E);
+      split(s[i], s[i + 1], &fh[i >> 1], &fl[i >> 1]);
+    }
+
+    // dV += P^T dO (hi and lo), while dS^T = P^T (dP^T - delta) scale.
+    pin<NA>(dv);
+    pin<NF>(fh);
+    pin<NF>(fl);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<DP>(dv, fh + 4 * kk, desc_mn<DP>(s_g, kk));
+      wgmma_rs<DP>(dv, fl + 4 * kk, desc_mn<DP>(s_g, kk));
+    }
+    mma_commit();
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = 8 * (i >> 2) + cq + (i & 1);
+      dp[i] = s[i] * (dp[i] - delta[c]) * p.scale;
+    }
+    mma_wait<0>();
+    pin<NA>(dv);
+    pin<NF>(fh);
+    pin<NF>(fl);
+
+    // dK += dS^T Q (hi and lo).
+#pragma unroll
+    for (int i = 0; i < NS; i += 2) {
+      split(dp[i], dp[i + 1], &fh[i >> 1], &fl[i >> 1]);
+    }
+    pin<NA>(dk);
+    pin<NF>(fh);
+    pin<NF>(fl);
+    mma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<DP>(dk, fh + 4 * kk, desc_mn<DP>(s_q, kk));
+      wgmma_rs<DP>(dk, fl + 4 * kk, desc_mn<DP>(s_q, kk));
+    }
+    mma_commit();
+    mma_wait<0>();
+    pin<NA>(dk);
+    pin<NF>(fh);
+    pin<NF>(fl);
+    __syncthreads();  // done with this stage before it is refilled
+  }
+
+  bf16* dkp = static_cast<bf16*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
+  bf16* dvp = static_cast<bf16*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c) {
+    const int col = 8 * c + cq;
+    if (col < D) {
+      if (kr0 < S) {
+        store2(dkp + kr0 * p.sdk.s + col, dk[4 * c], dk[4 * c + 1]);
+        store2(dvp + kr0 * p.sdv.s + col, dv[4 * c], dv[4 * c + 1]);
+      }
+      if (kr1 < S) {
+        store2(dkp + kr1 * p.sdk.s + col, dk[4 * c + 2], dk[4 * c + 3]);
+        store2(dvp + kr1 * p.sdv.s + col, dv[4 * c + 2], dv[4 * c + 3]);
+      }
+    }
+  }
+}
+
+// ---- Layout probe ---------------------------------------------------------
+
+// One 64 x 64 tile (D 64) through both product forms, for the card test of
+// the shared-memory layout and of the accumulator-to-A-fragment step: s =
+// q k^T (A and B from shared memory, K-major), written out as the
+// accumulator holds it, and o = hi(s) v + lo(s) v (A from s's registers, v
+// MN-major).  q, k, v are contiguous [64, 64]; s and o fp32 [64, 64].
+__global__ void __launch_bounds__(128)
+    wgmma_tile_probe(const bf16* q, const bf16* k, const bf16* v,
+                     float* s_out, float* o_out) {
+  __shared__ __align__(128) unsigned char smem[3 * 64 * 64 * 2];
+  const uint32_t s_q = smem_u32(smem), s_k = s_q + 8192, s_v = s_k + 8192;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  load_tile<64, 64, 128>(s_q, q, 64, 0, 64, 64, tid);
+  load_tile<64, 64, 128>(s_k, k, 64, 0, 64, 64, tid);
+  load_tile<64, 64, 128>(s_v, v, 64, 0, 64, 64, tid);
+  cp_commit();
+  cp_wait<0>();
+  async_fence();
+  __syncthreads();
+
+  float s[32], o[32];
+  uint32_t fh[16], fl[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = o[i] = 0.f;
+  pin<32>(s);
+  mma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_ss<64>(s, desc_k<64>(s_q, 0, kk), desc_k<64>(s_k, 0, kk), kk > 0);
+  }
+  mma_commit();
+  mma_wait<0>();
+  pin<32>(s);
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    split(s[i], s[i + 1], &fh[i >> 1], &fl[i >> 1]);
+  }
+  pin<32>(o);
+  pin<16>(fh);
+  pin<16>(fl);
+  mma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_rs<64>(o, fh + 4 * kk, desc_mn<64>(s_v, kk));
+    wgmma_rs<64>(o, fl + 4 * kk, desc_mn<64>(s_v, kk));
+  }
+  mma_commit();
+  mma_wait<0>();
+  pin<32>(o);
+  pin<16>(fh);
+  pin<16>(fl);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = warp * 16 + (lane >> 2) + ((i & 2) ? 8 : 0);
+    const int col = 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+    s_out[row * 64 + col] = s[i];
+    o_out[row * 64 + col] = o[i];
+  }
+}
+
+}  // namespace tc
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -595,32 +1333,38 @@ size_t dkv_smem(int D) {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+template <typename K>
+int set_smem(K kernel, size_t smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+// CUDA-core kernels: the forward and dk/dv for fp32 only, dq for both.
 template <typename T, int NJ>
 int launch(Which which, const Params& p, cudaStream_t stream) {
   const int nq = (p.S + BQ - 1) / BQ;
-  cudaError_t err;
-  if (which == kFwd) {
-    const size_t smem = fwd_smem(p.D);
-    err = cudaFuncSetAttribute(fwd_kernel<T, NJ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    fwd_kernel<T, NJ><<<dim3(nq, p.B * p.H), NT, smem, stream>>>(p);
-  } else if (which == kDq) {
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  if (which == kDq) {
     const size_t smem = dq_smem(p.D);
-    err = cudaFuncSetAttribute(dq_kernel<T, NJ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    err = set_smem(dq_kernel<T, NJ>, smem);
+    if (err != 0) return err;
     dq_kernel<T, NJ><<<dim3(nq, p.B * p.H), NT, smem, stream>>>(p);
+  } else if constexpr (std::is_same<T, float>::value) {
+    if (which == kFwd) {
+      const size_t smem = fwd_smem(p.D);
+      err = set_smem(fwd_kernel<T, NJ>, smem);
+      if (err != 0) return err;
+      fwd_kernel<T, NJ><<<dim3(nq, p.B * p.H), NT, smem, stream>>>(p);
+    } else {
+      const size_t smem = dkv_smem(p.D);
+      err = set_smem(dkv_kernel<T, NJ>, smem);
+      if (err != 0) return err;
+      const int nk = (p.S + BK - 1) / BK;
+      dkv_kernel<T, NJ><<<dim3(nk, p.B * p.KV), NT, smem, stream>>>(p);
+    }
   } else {
-    const size_t smem = dkv_smem(p.D);
-    err = cudaFuncSetAttribute(dkv_kernel<T, NJ>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int nk = (p.S + BK - 1) / BK;
-    dkv_kernel<T, NJ><<<dim3(nk, p.B * p.KV), NT, smem, stream>>>(p);
+    return err;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -631,6 +1375,49 @@ int dispatch_d(Which which, const Params& p, cudaStream_t stream) {
   if (p.D <= 64) return launch<T, 4>(which, p, stream);
   if (p.D <= 96) return launch<T, 6>(which, p, stream);
   return launch<T, 8>(which, p, stream);
+}
+
+// Tensor-core kernels (bf16 forward and dk/dv), D padded to DP.
+template <int DP>
+int launch_tc(Which which, const Params& p, cudaStream_t stream) {
+  int err;
+  if (which == kFwd) {
+    using C = tc::Fwd<DP>;
+    err = set_smem(tc::flash_fwd_wgmma<DP>, C::SMEM);
+    if (err != 0) return err;
+    const int nq = (p.S + C::BM - 1) / C::BM;
+    tc::flash_fwd_wgmma<DP><<<dim3(nq, p.B * p.H), C::NT, C::SMEM, stream>>>(
+        p);
+  } else {
+    using C = tc::Dkv<DP>;
+    err = set_smem(tc::flash_dkv_wgmma<DP>, C::SMEM);
+    if (err != 0) return err;
+    const int nk = (p.S + C::BN - 1) / C::BN;
+    tc::flash_dkv_wgmma<DP>
+        <<<dim3(nk, p.B * p.KV), C::NT, C::SMEM, stream>>>(p);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+}
+
+int dispatch_tc(Which which, const Params& p, int n_in,
+                cudaStream_t stream) {
+  // The copies move 16 bytes (8 bf16) at a time: every input's base and
+  // (b, h, s) strides must keep that alignment.
+  const void* in[] = {p.q, p.k, p.v, p.g};
+  const Str* st[] = {&p.sq, &p.sk, &p.sv, &p.sg};
+  for (int i = 0; i < n_in; ++i) {
+    if (!aligned16(in[i]) || st[i]->b % 8 != 0 || st[i]->h % 8 != 0 ||
+        st[i]->s % 8 != 0) {
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    }
+  }
+  if (p.D <= 64) return launch_tc<64>(which, p, stream);
+  if (p.D <= 96) return launch_tc<96>(which, p, stream);
+  return launch_tc<128>(which, p, stream);
 }
 
 int run(Which which, Params& p, const long long* strides, int n_strided,
@@ -653,7 +1440,10 @@ int run(Which which, Params& p, const long long* strides, int n_strided,
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(which, p, s);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(which, p, s);
+  if (dtype == 1) {
+    if (which == kDq) return dispatch_d<__nv_bfloat16>(which, p, s);
+    return dispatch_tc(which, p, which == kFwd ? 3 : 4, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -662,8 +1452,10 @@ int run(Which which, Params& p, const long long* strides, int n_strided,
 // Every tensor is [B, H or KV, S, D] with a unit D stride; `strides` holds
 // (b, h, s) element strides for each strided tensor in argument order.
 // lse and delta are contiguous fp32 [B*H, S]; seg is [B, S] int32 or null.
-// dtype: 0 = fp32, 1 = bf16.  Each call launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// dtype: 0 = fp32, 1 = bf16.  bf16 forward and dk/dv run on the tensor
+// cores and need 16-byte aligned inputs (cudaErrorMisalignedAddress
+// otherwise).  Each call launches on `stream` and returns cudaGetLastError()
+// (0 on success).
 
 extern "C" int dlr_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, const int* seg,
@@ -722,4 +1514,16 @@ extern "C" int dlr_flash_bwd_dkv(const void* q, const void* k, const void* v,
   Str* slots[] = {&p.sq, &p.sk, &p.sv, &p.sg, &p.sdk, &p.sdv};
   return run(kDkv, p, strides, 6, slots, B, H, KV, S, D, causal, window,
              scale, dtype, stream);
+}
+
+// The layout probe of the card test: one block over contiguous [64, 64]
+// bf16 q, k, v; fp32 [64, 64] s and o.
+extern "C" int dlr_wgmma_tile_probe(const void* q, const void* k,
+                                    const void* v, float* s, float* o,
+                                    void* stream) {
+  tc::wgmma_tile_probe<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), s, o);
+  return static_cast<int>(cudaGetLastError());
 }

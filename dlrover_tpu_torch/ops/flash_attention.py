@@ -23,11 +23,20 @@ in ``<wrapper>.launches``.  :func:`flash_attention` is the public entry, a
 ``out`` and the fp32 ``lse``) and whose backward computes ``delta`` and
 runs :func:`flash_dq` and :func:`flash_dkv`.
 
+Which kernel a CUDA tensor reaches is decided by its dtype, not by a
+fallback: bf16 forward and dk/dv run on the tensor cores
+(``flash_fwd_wgmma``, ``flash_dkv_wgmma``: Hopper ``wgmma`` on bf16 tiles,
+P and dS split into two bf16 values so that they keep fp32 precision);
+fp32 forward and dk/dv, and dq in both dtypes, run on the CUDA cores.  A
+bf16 input the tensor-core kernels do not take (a base pointer or a
+stride that breaks their 16-byte copies) raises; it never reaches another
+kernel or the plain version.
+
 Layout ``[B, H, S, D]`` as in the reference; the kernels take any strides
 with a unit last-dim stride, so the model's transposed views pass without a
 copy.  GQA: k and v carry ``KV`` heads with ``H % KV == 0``; the kernels
-read the shared head in place.  Block sizes (64 × 64) are fixed for this
-card in the kernel source; the reference's TPU defaults and their
+read the shared head in place.  Block sizes are fixed for this card in the
+kernel source; the reference's TPU defaults and their
 ``DLROVER_TPU_FLASH_*`` environment variables are not carried over.
 """
 
@@ -189,8 +198,9 @@ def _lib():
     lib.dlr_flash_fwd.argtypes = [p] * 6 + [ctypes.POINTER(ll)] + shape
     lib.dlr_flash_bwd_dq.argtypes = [p] * 8 + [ctypes.POINTER(ll)] + shape
     lib.dlr_flash_bwd_dkv.argtypes = [p] * 9 + [ctypes.POINTER(ll)] + shape
+    lib.dlr_wgmma_tile_probe.argtypes = [p] * 6
     for fn in (lib.dlr_flash_fwd, lib.dlr_flash_bwd_dq,
-               lib.dlr_flash_bwd_dkv):
+               lib.dlr_flash_bwd_dkv, lib.dlr_wgmma_tile_probe):
         fn.restype = ctypes.c_int
     return lib
 
@@ -263,6 +273,18 @@ def _kernel_args(q, k, v, causal, segment_ids, window, tensors):
     return seg, strides, shape
 
 
+def _check_copy_aligned(tensors, name: str) -> None:
+    """The tensor-core kernels copy 16 bytes (8 bf16) at a time: every
+    input's base pointer and (b, h, s) strides must keep that alignment."""
+    for t in tensors:
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+            raise ValueError(
+                f"{name}: bf16 inputs need a 16-byte aligned base and "
+                f"(b, h, s) strides that are multiples of 8 elements, got "
+                f"strides {t.stride()} at offset {t.data_ptr() % 16} mod 16"
+            )
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
@@ -274,7 +296,8 @@ def _check_rc(rc: int, name: str) -> None:
 
 def flash_fwd(q, k, v, *, causal: bool = True,
               segment_ids: Optional[torch.Tensor] = None, window: int = 0):
-    """``(out, lse)``: the forward kernel for CUDA tensors, the plain
+    """``(out, lse)``: the forward kernel for CUDA tensors (bf16: the
+    tensor-core ``flash_fwd_wgmma``; fp32: the CUDA-core kernel), the plain
     version for CPU tensors.  ``out`` is laid out ``[B, S, H, D]`` in
     memory and returned as a ``[B, H, S, D]`` view."""
     kw = dict(causal=causal, segment_ids=segment_ids, window=window)
@@ -288,6 +311,8 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     seg, strides, shape = _kernel_args(q, k, v, causal, segment_ids, window,
                                        (q, k, v, out))
+    if q.dtype == torch.bfloat16:
+        _check_copy_aligned((q, k, v), "flash_fwd")
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.dlr_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -325,7 +350,8 @@ def flash_dq(q, k, v, g, lse, delta, *, causal: bool = True,
 def flash_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
               segment_ids: Optional[torch.Tensor] = None, window: int = 0):
     """``(dk, dv)`` at KV-head size in k's dtype: the dk/dv kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors (bf16: the tensor-core ``flash_dkv_wgmma``; fp32: the CUDA-core
+    kernel), the plain version for CPU tensors."""
     kw = dict(causal=causal, segment_ids=segment_ids, window=window)
     check_shapes(q, k, v, causal, window)
     if _device_of(q, "flash_dkv") == "cpu":
@@ -335,6 +361,8 @@ def flash_dkv(q, k, v, g, lse, delta, *, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     seg, strides, shape = _kernel_args(q, k, v, causal, segment_ids, window,
                                        (q, k, v, g, dk, dv))
+    if q.dtype == torch.bfloat16:
+        _check_copy_aligned((q, k, v, g), "flash_dkv")
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.dlr_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -363,6 +391,28 @@ def _stats(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 flash_fwd.launches = 0
 flash_dq.launches = 0
 flash_dkv.launches = 0
+
+
+def wgmma_tile_probe(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """``(s, o)`` from the tensor-core kernels' layout probe on one tile:
+    contiguous bf16 ``[64, 64]`` CUDA q, k, v; ``s = q·kᵀ`` as the wgmma
+    accumulator holds it and ``o = hi(s)·v + lo(s)·v`` with A taken from
+    those registers, both fp32 ``[64, 64]``.  A test hook of the
+    shared-memory layout and of the accumulator-to-A-fragment step; no path
+    calls it."""
+    for t in (q, k, v):
+        if t.shape != (64, 64) or t.dtype != torch.bfloat16 \
+                or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("the probe takes contiguous bf16 [64, 64] "
+                             "CUDA tensors")
+    s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
+    o = torch.empty_like(s)
+    with torch.cuda.device(q.device):
+        rc = _lib().dlr_wgmma_tile_probe(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(),
+            o.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    _check_rc(rc, "wgmma tile probe")
+    return s, o
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ fp32 outputs within 1e-4 of the largest plain value (fp32 sums of up to S
 products in another order); bf16 outputs within 2 bf16 ulps of the plain
 fp32 value (the plain version on the upcast inputs) plus 1e-5 of the
 largest (one rounding each side; entries that are sums of cancelling terms
-keep the fp32 sum-order error); lse within 1e-4.  Cross-entropy: atol 1e-4
+keep the fp32 sum-order error); lse within 1e-4.  The bf16 forward and
+dk/dv run on the tensor cores with P and dS split into two bf16 values
+and meet the same tolerances.  Cross-entropy: atol 1e-4
 on losses of ~log V (fp32 sums of V exponentials in another order).
 Blockwise int8 quantize: codes equal and scales bit-equal (the same IEEE
 fp32 operations, in the same order, on both sides).
@@ -209,6 +211,113 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
         fa.flash_fwd(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         fa.flash_fwd(q, q.bfloat16(), q)
+
+
+# The tensor-core forward and dk/dv (bf16): B, H, KV, S, D, causal,
+# window, segments, strided [B, S, H, D] views.
+TC_CASES = [
+    (1, 4, 4, 77, 72, True, 0, False, False),
+    (2, 4, 2, 1000, 96, True, 0, False, True),
+    (1, 32, 8, 1000, 128, True, 0, False, False),
+    (2, 4, 4, 300, 64, True, 50, True, False),
+    (1, 2, 2, 129, 128, False, 0, False, True),
+    (1, 4, 2, 200, 96, True, 0, True, True),
+]
+
+
+def _tc_inputs(case, device):
+    B, H, KV, S, D, causal, window, segs, strided = case
+    g = torch.Generator(device=device).manual_seed(S + D + H)
+
+    def rand(heads):
+        if strided:  # the model's layout: [B, S, H, D] seen as [B, H, S, D]
+            return torch.randn(B, S, heads, D, generator=g, device=device
+                               ).bfloat16().transpose(1, 2)
+        return torch.randn(B, heads, S, D, generator=g, device=device
+                           ).bfloat16()
+
+    q, k, v, do = rand(H), rand(KV), rand(KV), rand(H)
+    seg = None
+    if segs:
+        cuts = torch.sort(torch.randint(1, S, (B, 3), generator=g,
+                                        device=device)).values
+        seg = (torch.arange(S, device=device)[None, :, None]
+               >= cuts[:, None, :]).sum(-1).to(torch.int32)
+        seg[:, -5:] = -1
+    return q, k, v, do, dict(causal=causal, segment_ids=seg, window=window)
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_tensor_core_flash_matches_plain(card, case):
+    """``flash_fwd_wgmma`` and ``flash_dkv_wgmma`` against the plain
+    versions on the upcast inputs, under the tolerances of the module
+    docstring (phase 4's)."""
+    q, k, v, do, kw = _tc_inputs(case, card)
+    before = (fa.flash_fwd.launches, fa.flash_dkv.launches)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa._delta(out, do)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    f32 = [t.float() for t in (q, k, v, do)]
+    p_out, p_lse = fa._flash_fwd_plain(*f32[:3], kw["causal"],
+                                       kw["segment_ids"], kw["window"])
+    assert float((lse - p_lse).abs().max()) <= 1e-4
+    _close(out, p_out, torch.bfloat16, "out")
+    _, p_dk, p_dv = fa._bwd_parts(*f32, lse, delta, kw["causal"],
+                                  kw["segment_ids"], kw["window"], False,
+                                  True)
+    _close(dk, p_dk, torch.bfloat16, "dk")
+    _close(dv, p_dv, torch.bfloat16, "dv")
+
+
+def test_wgmma_tile_probe_feeds_the_accumulator_as_a(card):
+    """One 64 x 64 tile: the accumulator of q·kᵀ (both operands from
+    shared memory) is exact to fp32 sums, and fed back as the A operand
+    (hi and lo bf16 pairs) against v read MN-major it gives hi(s)·v +
+    lo(s)·v."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q, k, v = (torch.randn(64, 64, generator=g, device=card).bfloat16()
+               for _ in range(3))
+    s, o = fa.wgmma_tile_probe(q, k, v)
+    torch.cuda.synchronize()
+    s_ref = q.double() @ k.double().T
+    assert float((s.double() - s_ref).abs().max()) <= \
+        1e-6 * float(s_ref.abs().max())
+    hi = s.bfloat16().float()
+    lo = (s - hi).bfloat16().float()
+    o_ref = (hi.double() + lo.double()) @ v.double()
+    assert float((o.double() - o_ref).abs().max()) <= \
+        1e-6 * float(o_ref.abs().max())
+
+
+def test_tensor_core_dkv_repeats_bit_for_bit(card):
+    q, k, v, do, kw = _tc_inputs((2, 8, 4, 640, 128, True, 0, True, True),
+                                 card)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa._delta(out, do)
+    first = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
+    second = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_tensor_core_kernels_refuse_a_misaligned_input(card):
+    """A bf16 input whose base breaks the 16-byte copies raises; it never
+    reaches another kernel or the plain version."""
+    buf = torch.randn(2 * 4 * 64 * 64 + 4, device=card).bfloat16()
+    q = buf[4:].view(2, 4, 64, 64)  # 8 bytes past an aligned base
+    ok = torch.randn(2, 4, 64, 64, device=card).bfloat16()
+    before = (fa.flash_fwd.launches, fa.flash_dkv.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd(q, ok, ok)
+    lse = torch.zeros(2, 4, 64, device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_dkv(ok, ok, ok, q, lse, lse)
+    assert (fa.flash_fwd.launches, fa.flash_dkv.launches) == before
 
 
 @pytest.mark.parametrize("rows,V,dtype,ldtype", [

@@ -215,3 +215,18 @@ def test_reference_checks_are_kept():
     meta = torch.empty(1, 2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="cuda"):
         tfa.flash_attention(meta, meta, meta)
+
+
+def test_copy_alignment_check_of_the_tensor_core_path():
+    """The bf16 tensor-core wrappers refuse, before any launch, a base or a
+    (b, h, s) stride that breaks their 16-byte copies (checked here on CPU
+    tensors; on the card ``tests/test_torch_cuda.py`` drives the
+    wrappers)."""
+    buf = torch.zeros(2 * 4 * 8 * 16 + 8, dtype=torch.bfloat16)
+    aligned = buf[:-8].view(2, 4, 8, 16)
+    tfa._check_copy_aligned((aligned, aligned.transpose(1, 2)), "probe")
+    with pytest.raises(ValueError, match="16-byte"):
+        tfa._check_copy_aligned((buf[4:-4].view(2, 4, 8, 16),), "probe")
+    narrow = torch.zeros(2, 4, 8, 20, dtype=torch.bfloat16)[..., :12]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa._check_copy_aligned((narrow,), "probe")
