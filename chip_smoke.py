@@ -22,9 +22,10 @@ together), then runs eight phases and exits non-zero if any fails:
 4. Flash attention kernels (forward, dq, dk/dv) vs plain at the
    Llama-800M training shape, phase 8's shape, a GQA shape with a ragged
    length, and an fp32 case with a window and packed segments.  bf16 runs
-   the tensor-core forward and dk/dv (``design`` "wgmma"), fp32 and dq the
-   CUDA-core kernels; each row gives ``bound_share`` (bound / time); two
-   dk/dv launches at phase 8's shape must agree bit for bit.
+   the tensor-core kernels (``design`` "wgmma"), fp32 the CUDA-core ones;
+   each row gives ``bound_share`` (bound / time); two dq and two dk/dv
+   launches at phase 8's shape must each agree bit for bit; beside SDPA's
+   backward, ``bwd_total_ms`` is the time of dq and dk/dv together.
 5. Cross-entropy kernel vs plain at [8192, 32000] (fp32, bf16) and at the
    tiny model's training shapes.
 6. Training: (a) Llama-800M widths at 2 layers, one step's loss and
@@ -34,8 +35,9 @@ together), then runs eight phases and exits non-zero if any fails:
    loss falls and every attention forward and backward went through the
    flash kernels; step time, tokens/s, MFU, peak memory and a profiled
    step's device busy share, whose kernels must include 24
-   ``flash_fwd_wgmma`` and 24 ``flash_dkv_wgmma`` launches and no bf16
-   instance of the CUDA-core forward or dk/dv; (c) the tiny model's
+   ``flash_fwd_wgmma``, 24 ``flash_dq_wgmma`` and 24 ``flash_dkv_wgmma``
+   launches and no bf16 instance of a CUDA-core flash kernel; (c) the tiny
+   model's
    training through the cross-entropy kernel, one launch per step.
 7. Blockwise int8 quantize: the op ``quantize_blockwise`` at the JAX
    kernel smoke's shape (4 Mi fp32 values, seed 4) with the kernel counts
@@ -50,8 +52,9 @@ together), then runs eight phases and exits non-zero if any fails:
    tokens/s, MFU, peak memory, the moments' bytes, each kernel's launches
    a step (the blockwise quantize: 0, the moments use the dynamic codes)
    and a profiled step with the optimizer's device time, whose kernels
-   must include 48 ``flash_fwd_wgmma`` and 24 ``flash_dkv_wgmma``
-   launches and no bf16 instance of the CUDA-core forward or dk/dv.
+   must include 48 ``flash_fwd_wgmma``, 24 ``flash_dq_wgmma`` and 24
+   ``flash_dkv_wgmma`` launches and no bf16 instance of a CUDA-core flash
+   kernel.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -316,16 +319,18 @@ def kernel_device_us(kernels, name_part: str) -> tuple:
             n)
 
 
-# The CUDA-core forward and dk/dv kernels' bf16 instances (the build has
-# none; a profile that shows one ran the wrong kernel).  The word boundary
-# keeps ``rmsnorm_fwd_kernel`` out.
-OLD_BF16_FLASH = re.compile(r"\b(fwd|dkv)_kernel<__nv_bfloat16")
+# The CUDA-core flash kernels' bf16 instances (the build has none; a
+# profile that shows one ran the wrong kernel).  The word boundary keeps
+# ``rmsnorm_fwd_kernel`` out.
+OLD_BF16_FLASH = re.compile(r"\b(fwd|dq|dkv)_kernel<__nv_bfloat16")
+# The tensor-core flash kernels, by the unique part of their names.
+TC_FLASH = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
 
 
 def tensor_core_launches(kernels, steps: int, want: dict, what: str) -> dict:
     """Launches a step of the tensor-core flash kernels in a profile's
     kernel events; fails unless they equal ``want`` or if a bf16 instance
-    of the CUDA-core forward or dk/dv ran."""
+    of a CUDA-core flash kernel ran."""
     old = sorted({e.key[:90] for e in kernels if OLD_BF16_FLASH.search(e.key)})
     got = {name: kernel_device_us(kernels, name)[1] / steps for name in want}
     if old or got != want:
@@ -574,19 +579,23 @@ def phase_flash() -> dict:
         lib = sdpa_times(q, k, v, g) if name.startswith("llama800m") \
             else None
         if name == "llama800m_h128":
-            # dk/dv sums the GQA group in registers in a fixed order:
-            # block remat (phase 6a) relies on a repeat being bit-equal.
+            # dq and dk/dv sum in registers in a fixed order, with no
+            # atomics: block remat (phase 6a) relies on a repeat being
+            # bit-equal.
+            again_dq = fa.flash_dq(q, k, v, g, lse, delta, **kw)
             again = fa.flash_dkv(q, k, v, g, lse, delta, **kw)
             torch.cuda.synchronize()
+            if not torch.equal(again_dq, dq):
+                raise SystemExit(f"flash dq {name}: a repeat differs")
             if not (torch.equal(again[0], dk) and torch.equal(again[1], dv)):
                 raise SystemExit(f"flash dk/dv {name}: a repeat differs")
-            log(f"phase4 flash {name}: dk/dv repeat bit-identical")
-            del again
-        tc = dtype == "bfloat16"
+            log(f"phase4 flash {name}: dq and dk/dv repeats bit-identical")
+            del again, again_dq
+        design = "wgmma" if dtype == "bfloat16" else "cuda-core"
+        rows = {}
         for which, (kern, plain) in times.items():
             row = {"shape": name, "kernel": which, "lse_err": lse_err,
-                   "design": "wgmma" if tc and which != "dq" else
-                   "cuda-core",
+                   "design": design,
                    **checks[which],
                    "ms": time_ms(kern, iters=iters, warmup=2),
                    "plain_ms": time_ms(plain, iters=3, warmup=1),
@@ -595,8 +604,16 @@ def phase_flash() -> dict:
                    **flash_bound(q, k, seg, causal, window, which)}
             row["bound_share"] = row["bound_ms"] / row["ms"]
             log("phase4 flash " + json.dumps(row))
-            if name == "llama800m":
-                recs[which] = row
+            rows[which] = row
+        if lib is not None:
+            # SDPA's backward gives dq, dk and dv in one call: its
+            # yardstick is the port's two backward kernels together.
+            total = rows["dq"]["ms"] + rows["dkv"]["ms"]
+            log(f"phase4 flash {name} backward " + json.dumps({
+                "bwd_total_ms": total, "sdpa_bwd_ms": lib["bwd"],
+                "bwd_total_over_sdpa": total / lib["bwd"]}))
+        if name == "llama800m":
+            recs = rows
         del q, k, v, g, out, lse, delta, dq, dk, dv
         torch.cuda.empty_cache()
     return recs
@@ -810,11 +827,10 @@ def phase_train(llama, train, counted) -> dict:
     torch.cuda.empty_cache()
     res["profile"], kernels = profile_train_step(train, args)
     res["profile"]["tensor_core_launches_per_step"] = tensor_core_launches(
-        kernels, 1, {"flash_fwd_wgmma": cfg.n_layer,
-                     "flash_dkv_wgmma": cfg.n_layer}, "800m training profile")
+        kernels, 1, dict.fromkeys(TC_FLASH, cfg.n_layer),
+        "800m training profile")
     res["profile"]["flash_device_us_per_launch"] = {
-        name: kernel_device_us(kernels, name)[0]
-        for name in ("flash_fwd_wgmma", "flash_dkv_wgmma", "dq_kernel")}
+        name: kernel_device_us(kernels, name)[0] for name in TC_FLASH}
     del kernels
     torch.cuda.empty_cache()
     log("phase6b train 800m " + json.dumps(res))
@@ -1037,11 +1053,10 @@ def phase_adam8bit(llama, counted) -> dict:
 
     prof, kernels, events = step_profile(run)
     prof["tensor_core_launches_per_step"] = tensor_core_launches(
-        kernels, 1, {"flash_fwd_wgmma": 2 * L, "flash_dkv_wgmma": L},
-        "adam8bit training profile")
+        kernels, 1, {"flash_fwd_wgmma": 2 * L, "flash_dq_wgmma": L,
+                     "flash_dkv_wgmma": L}, "adam8bit training profile")
     prof["flash_device_us_per_launch"] = {
-        name: kernel_device_us(kernels, name)[0]
-        for name in ("flash_fwd_wgmma", "flash_dkv_wgmma", "dq_kernel")}
+        name: kernel_device_us(kernels, name)[0] for name in TC_FLASH}
     e0, e1 = opt_events[-1]
     prof["adam8bit_step_device_ms"] = e0.elapsed_time(e1)
     # The kernels under the optimizer's own profiler annotation.

@@ -4,7 +4,7 @@ Held against ``dlrover_tpu/models/llama.py``: :class:`LlamaConfig` and its
 presets (``llama2_7b``, ``tiny``, ``small_300m``, ``medium_800m``),
 :func:`init_params` (the same parameter tree, names, shapes and stds, with
 fp32 norm gains), :func:`_rope`, :func:`_swiglu`, :func:`block_apply`,
-:func:`_attention` (the flash path), :func:`segment_positions`,
+:func:`_attention` (the flash and reference paths), :func:`segment_positions`,
 :func:`forward_hidden`, :func:`forward`, :func:`uses_fused_lm_head`,
 :func:`split_batch`, :func:`loss_fn`, :func:`num_params` and
 :func:`flops_per_token`.
@@ -40,7 +40,8 @@ from dlrover_tpu_torch.ops.cross_entropy import (
     linear_softmax_cross_entropy,
     softmax_cross_entropy,
 )
-from dlrover_tpu_torch.ops.flash_attention import flash_attention
+from dlrover_tpu_torch.ops.flash_attention import flash_attention, \
+    reference_attention
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 
 TRAINING_SLICE = "a later training slice of the port (see ROADMAP.md)"
@@ -179,19 +180,27 @@ AttnFn = Callable[[torch.Tensor, Dict, LlamaConfig, torch.Tensor],
 def _attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
                positions: torch.Tensor, attn_impl: str = "auto",
                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Training attention, the reference's flash path: q/k/v projections,
-    rope, :func:`flash_attention` (causal, GQA in place, the config's
-    sliding window, ``segment_ids`` for packed sequences), ``wo``."""
+    """Training attention: q/k/v projections, rope, attention (causal, GQA,
+    the config's sliding window, ``segment_ids`` for packed sequences),
+    ``wo``.  ``attn_impl`` takes the reference's ``backend`` values:
+    ``"auto"`` and ``"pallas"`` run :func:`flash_attention` (the kernels on
+    the card, their plain versions on the CPU); ``"reference"`` runs
+    :func:`reference_attention`, the plain softmax differentiated by
+    autograd."""
     if attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={attn_impl!r} (sequence-parallel attention over a "
             f"mesh) comes with the multi-card slice of the port (see "
             f"ROADMAP.md)"
         )
-    if attn_impl != "auto":
+    if attn_impl in ("auto", "pallas"):
+        attend = flash_attention
+    elif attn_impl == "reference":
+        attend = reference_attention
+    else:
         raise ValueError(
-            f"attn_impl must be 'auto' (flash attention: the kernels on the "
-            f"card, the plain version on the CPU), got {attn_impl!r}"
+            f"attn_impl must be 'auto', 'pallas' or 'reference', got "
+            f"{attn_impl!r}"
         )
     B, S, _ = x.shape
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
@@ -201,9 +210,9 @@ def _attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
     v = (x @ layer["wv"].to(dt)).reshape(B, S, KV, D)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=True,
-                        segment_ids=segment_ids, window=cfg.sliding_window)
+    o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               causal=True, segment_ids=segment_ids,
+               window=cfg.sliding_window)
     out = o.transpose(1, 2).reshape(B, S, H * D)
     return out @ layer["wo"].to(dt)
 

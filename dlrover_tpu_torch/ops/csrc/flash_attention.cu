@@ -3,15 +3,14 @@
 //
 // Replaces the Pallas TPU kernels of dlrover_tpu/ops/flash_attention.py:
 //   flash_fwd_wgmma (bf16), fwd_kernel (fp32)  <- _fwd_kernel
-//   dq_kernel (bf16, fp32)                     <- _bwd_dq_kernel
+//   flash_dq_wgmma (bf16), dq_kernel (fp32)    <- _bwd_dq_kernel
 //   flash_dkv_wgmma (bf16), dkv_kernel (fp32)  <- _bwd_dkv_kernel
 // with the same arithmetic: every mask the finite NEG_INF = -1e30; l
 // floored at 1e-30 and lse = m + log(l); p = exp(s - lse) recomputed in the
 // backward; P (and dS) kept at fp32 precision for the PV, dV and dK
 // products; dq written once in q's dtype; dk/dv summed in fp32 over the
 // query heads of one KV head and cast once.  The C entry points route by
-// dtype: bf16 forward and dk/dv run on the tensor cores, fp32 (and dq in
-// both dtypes) on the CUDA cores.
+// dtype: bf16 runs on the tensor cores, fp32 on the CUDA cores.
 //
 // What bounds it: operations.  At the Llama-800M training shape (B 4, H 16,
 // S 2048, D 96, causal) the forward does 2 products over the S(S+1)/2
@@ -21,38 +20,41 @@
 // 4 (~104 us).
 //
 // Tensor-core kernels (bf16).  Hopper's warpgroup products (wgmma) on bf16
-// tiles in shared memory, filled by cp.async through a two-stage ring so
-// the next tile's copy overlaps this tile's products.  The forward
-// (flash_fwd_wgmma) gives each block 128 query rows of one (batch, head),
-// two warpgroups of 64 rows, over 64-key tiles: S = Q K^T from shared
-// memory into fp32 registers, then the masks and the online softmax in
-// fp32 registers.  The reference keeps P in fp32; a single bf16 P would err
-// by ~2^-9 of a row's weighted |v|, which breaks a 2-ulp tolerance where an
-// output cancels to near zero.  So P is split into two bf16 values, hi =
-// bf16(p) and lo = bf16(p - hi), and O += P_hi V + P_lo V runs as two
-// products with A taken from registers into one fp32 accumulator: ~2^-17
-// relative, fp32-grade, at 3 products instead of 2.  Q K^T is exact as it
-// stands (bf16 products summed in fp32).  The dk/dv kernel
-// (flash_dkv_wgmma) gives each block 64 keys of one (batch, KV head), one
-// warpgroup, K and V resident, and loops over the GQA group's query heads
-// and their visible query tiles, summing dK and dV in registers (no
-// atomics: the result is the same bit for bit on every run).  It computes
-// S^T = K Q^T and dP^T = V dO^T, so the accumulators already hold P^T and
-// dS^T in the layout of an A operand, and dV += P^T dO, dK += dS^T Q each
-// take the hi/lo split (6 products where the reference has 4).  D is
-// padded in shared memory (never in device memory) to 64, 96 or 128 with
-// zeros by the copy itself; rows past S are zero-filled the same way and
-// masked.
+// tiles in shared memory, filled by cp.async through a two-stage ring so the
+// next tile's copy overlaps this tile's products.  The forward
+// (flash_fwd_wgmma) gives each block 128 query rows of one (batch, head), two
+// warpgroups of 64 rows, over 64-key tiles: S = Q K^T from shared memory into
+// fp32 registers, then the masks and the online softmax in fp32 registers.  The
+// reference keeps P in fp32; a single bf16 P would err by ~2^-9 of a row's
+// weighted |v|, which breaks a 2-ulp tolerance where an output cancels to near
+// zero.  So P is split into two bf16 values, hi = bf16(p) and lo = bf16(p -
+// hi), and O += P_hi V + P_lo V runs as two products with A taken from
+// registers into one fp32 accumulator: ~2^-17 relative, fp32-grade, at 3
+// products instead of 2.  Q K^T is exact as it stands (bf16 products summed in
+// fp32).  The dq kernel (flash_dq_wgmma) is the forward's block and K/V ring
+// with dO resident beside Q and the saved lse in place of the online softmax: S
+// = Q K^T and dP = dO V^T from shared memory, dS = exp(S scale - lse) (dP -
+// delta) scale in fp32 registers, and dQ += dS_hi K + dS_lo K with K read
+// MN-major (4 products where the reference has 3; P itself enters no product
+// and needs no split).  The dk/dv kernel (flash_dkv_wgmma) gives each block 64
+// keys of one (batch, KV head), one warpgroup, K and V resident, and loops over
+// the GQA group's query heads and their visible query tiles, summing dK and dV
+// in registers (no atomics: the result is the same bit for bit on every run).
+// It computes S^T = K Q^T and dP^T = V dO^T, so the accumulators already hold
+// P^T and dS^T in the layout of an A operand, and dV += P^T dO, dK += dS^T Q
+// each take the hi/lo split (6 products where the reference has 4).  D is
+// padded in shared memory (never in device memory) to 64, 96 or 128 with zeros
+// by the copy itself; rows past S are zero-filled the same way and masked.
 //
-// CUDA-core kernels (fp32 forward and dk/dv; dq).  One block of 256
-// threads per (64-row tile, batch*head) for the forward and dq (grid x
-// walks the tiles last-first, so the longest causal rows start first), and
-// per (64-key tile, batch*KV head) for dk/dv.  Tiles stream through shared
-// memory as fp32; k, v (forward, dq) or q, g (dk/dv) are stored transposed
-// with a row pitch of 65 floats, so both the tile product and the
-// accumulation read shared memory without bank conflicts.  Each thread
-// owns a 4x4 micro-tile of the 64x64 score block and a 4 x D/16 slice of
-// the output; a row's 64 scores live in one half-warp.  Peak 67 TFLOP/s.
+// CUDA-core kernels (fp32).  One block of 256 threads per (64-row tile,
+// batch*head) for the forward and dq (grid x walks the tiles last-first, so the
+// longest causal rows start first), and per (64-key tile, batch*KV head) for
+// dk/dv.  Tiles stream through shared memory as fp32; k, v (forward, dq) or q,
+// g (dk/dv) are stored transposed with a row pitch of 65 floats, so both the
+// tile product and the accumulation read shared memory without bank conflicts.
+// Each thread owns a 4x4 micro-tile of the 64x64 score block and a 4 x D/16
+// slice of the output; a row's 64 scores live in one half-warp.  Peak 67
+// TFLOP/s.
 //
 // Both families skip causal blocks beyond the diagonal and, with a window,
 // blocks below it, as the reference does; read GQA's KV head (h / (H/KV))
@@ -65,8 +67,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int BQ = 64;     // query rows per tile
@@ -74,15 +74,6 @@ constexpr int BK = 64;     // keys per tile
 constexpr int NT = 256;    // threads per block: 16 row groups x 16 columns
 constexpr int LDT = 65;    // pitch of the transposed [D][64] tiles
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Element strides of one [B, H, S, D] operand; the D stride is 1.
 struct Str {
@@ -130,11 +121,11 @@ __device__ __forceinline__ bool visible(const Params& p, int qp, int kp,
   return ok;
 }
 
-// Key tiles [k0, k1) a query tile starting at q_start must visit.
+// Key tiles [k0, k1) of BK keys that `rows` queries from q_start visit.
 __device__ __forceinline__ void key_tiles(const Params& p, int q_start,
-                                          int* k0, int* k1) {
+                                          int rows, int* k0, int* k1) {
   int hi = (p.S + BK - 1) / BK;
-  if (p.causal) hi = min(hi, (q_start + BQ - 1) / BK + 1);
+  if (p.causal) hi = min(hi, (q_start + rows - 1) / BK + 1);
   int lo = 0;
   if (p.window > 0) {
     const int first = q_start - p.window + 1;
@@ -146,24 +137,22 @@ __device__ __forceinline__ void key_tiles(const Params& p, int q_start,
 
 // Row-major [rows][D] tile of a [S, D] slice at row0 into dst with pitch
 // ld; rows past S read zero.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
                                           long long stride, int row0,
                                           int S, int D, float mul) {
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, d = i - r * D, pos = row0 + r;
-    dst[r * ld + d] = pos < S ? to_float(src[pos * stride + d]) * mul : 0.f;
+    dst[r * ld + d] = pos < S ? src[pos * stride + d] * mul : 0.f;
   }
 }
 
 // Transposed [D][64] tile (pitch LDT) of a [S, D] slice at row0.
-template <typename T>
-__device__ __forceinline__ void load_cols(float* dst, const T* src,
+__device__ __forceinline__ void load_cols(float* dst, const float* src,
                                           long long stride, int row0, int S,
                                           int D) {
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, d = i - r * D, pos = row0 + r;
-    dst[d * LDT + r] = pos < S ? to_float(src[pos * stride + d]) : 0.f;
+    dst[d * LDT + r] = pos < S ? src[pos * stride + d] : 0.f;
   }
 }
 
@@ -171,7 +160,7 @@ __device__ __forceinline__ void load_cols(float* dst, const T* src,
 // Forward (CUDA cores; fp32 only, bf16 runs tc::flash_fwd_wgmma)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(NT) fwd_kernel(Params p) {
   extern __shared__ float sm[];
   const int D = p.D, S = p.S, ldq = D + 1;
@@ -185,9 +174,9 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Params p) {
   const int q_start = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
   const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
   const int kvh = h / (p.H / p.KV);
-  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
   const int* seg = p.seg != nullptr ? p.seg + static_cast<long long>(b) * S
                                     : nullptr;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -210,7 +199,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Params p) {
   }
 
   int k0, k1;
-  key_tiles(p, q_start, &k0, &k1);
+  key_tiles(p, q_start, BQ, &k0, &k1);
   for (int kb = k0; kb < k1; ++kb) {
     const int k_start = kb * BK;
     __syncthreads();  // the previous tile's readers are done
@@ -285,7 +274,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Params p) {
     }
   }
 
-  T* o = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
+  float* o = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q_start + ty * 4 + i;
@@ -294,7 +283,7 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) store(&o[qp * p.so.s + d], acc[i][j] / ls);
+        if (d < D) o[qp * p.so.s + d] = acc[i][j] / ls;
       }
       if (tx == 0) p.lse[static_cast<long long>(bh) * S + qp] = m[i] + logf(ls);
     }
@@ -302,10 +291,10 @@ __global__ void __launch_bounds__(NT) fwd_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward: dq (CUDA cores; fp32 and bf16)
+// Backward: dq (CUDA cores; fp32 only, bf16 runs tc::flash_dq_wgmma)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
   extern __shared__ float sm[];
   const int D = p.D, S = p.S, ldq = D + 1;
@@ -320,10 +309,10 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
   const int q_start = (nq - 1 - static_cast<int>(blockIdx.x)) * BQ;
   const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
   const int kvh = h / (p.H / p.KV);
-  const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const T* g = static_cast<const T*>(p.g) + b * p.sg.b + h * p.sg.h;
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const float* g = static_cast<const float*>(p.g) + b * p.sg.b + h * p.sg.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
   const int* seg = p.seg != nullptr ? p.seg + static_cast<long long>(b) * S
                                     : nullptr;
   const long long row0 = static_cast<long long>(bh) * S;
@@ -349,7 +338,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
   }
 
   int k0, k1;
-  key_tiles(p, q_start, &k0, &k1);
+  key_tiles(p, q_start, BQ, &k0, &k1);
   for (int kb = k0; kb < k1; ++kb) {
     const int k_start = kb * BK;
     __syncthreads();
@@ -419,7 +408,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
     }
   }
 
-  T* dq = static_cast<T*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+  float* dq = static_cast<float*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qp = q_start + ty * 4 + i;
@@ -427,7 +416,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = tx + 16 * j;
-        if (d < D) store(&dq[qp * p.sdq.s + d], acc[i][j]);
+        if (d < D) dq[qp * p.sdq.s + d] = acc[i][j];
       }
     }
   }
@@ -437,7 +426,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(Params p) {
 // Backward: dk, dv (CUDA cores; fp32 only, bf16 runs tc::flash_dkv_wgmma)
 // ---------------------------------------------------------------------------
 
-template <typename T, int NJ>
+template <int NJ>
 __global__ void __launch_bounds__(NT) dkv_kernel(Params p) {
   extern __shared__ float sm[];
   const int D = p.D, S = p.S, ldk = D + 1;
@@ -453,8 +442,8 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Params p) {
   const int k_start = blockIdx.x * BK;
   const int bkv = blockIdx.y, b = bkv / p.KV, kvh = bkv - b * p.KV;
   const int rep = p.H / p.KV;
-  const T* k = static_cast<const T*>(p.k) + b * p.sk.b + kvh * p.sk.h;
-  const T* v = static_cast<const T*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const float* k = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const float* v = static_cast<const float*>(p.v) + b * p.sv.b + kvh * p.sv.h;
   const int* seg = p.seg != nullptr ? p.seg + static_cast<long long>(b) * S
                                     : nullptr;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -481,8 +470,8 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Params p) {
 
   for (int r = 0; r < rep; ++r) {
     const int h = kvh * rep + r, bh = b * p.H + h;
-    const T* q = static_cast<const T*>(p.q) + b * p.sq.b + h * p.sq.h;
-    const T* g = static_cast<const T*>(p.g) + b * p.sg.b + h * p.sg.h;
+    const float* q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
+    const float* g = static_cast<const float*>(p.g) + b * p.sg.b + h * p.sg.h;
     const long long row0 = static_cast<long long>(bh) * S;
     for (int qb = q0; qb < q1; ++qb) {
       const int q_start = qb * BQ;
@@ -582,8 +571,8 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Params p) {
     }
   }
 
-  T* dkp = static_cast<T*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
-  T* dvp = static_cast<T*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
+  float* dkp = static_cast<float*>(p.dk) + b * p.sdk.b + kvh * p.sdk.h;
+  float* dvp = static_cast<float*>(p.dv) + b * p.sdv.b + kvh * p.sdv.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kp = k_start + ty * 4 + i;
@@ -592,8 +581,8 @@ __global__ void __launch_bounds__(NT) dkv_kernel(Params p) {
       for (int j = 0; j < NJ; ++j) {
         const int d = tx + 16 * j;
         if (d < D) {
-          store(&dkp[kp * p.sdk.s + d], dk[i][j]);
-          store(&dvp[kp * p.sdv.s + d], dv[i][j]);
+          dkp[kp * p.sdk.s + d] = dk[i][j];
+          dvp[kp * p.sdv.s + d] = dv[i][j];
         }
       }
     }
@@ -862,6 +851,42 @@ struct Fwd {
   static constexpr int SMEM = Q_BYTES + NST * STAGE;
 };
 
+// Key tile j (BN keys) into one stage of the forward's (and dq's) ring at
+// base: K, V, then the keys' segments.
+template <int DP>
+__device__ __forceinline__ void load_kv(uint32_t base, const bf16* k,
+                                        const bf16* v, const int* seg,
+                                        const Params& p, int j, int tid) {
+  using C = Fwd<DP>;
+  const int k_start = j * C::BN;
+  load_tile<C::BN, DP, C::NT>(base, k, p.sk.s, k_start, p.S, p.D, tid);
+  load_tile<C::BN, DP, C::NT>(base + C::T_BYTES, v, p.sv.s, k_start, p.S,
+                              p.D, tid);
+  if (seg != nullptr && tid < C::BN) {
+    const int kp = k_start + tid;
+    cp_async4(base + 2 * C::T_BYTES + 4 * tid, kp < p.S ? seg + kp : seg,
+              kp < p.S);
+  }
+}
+
+// Whether a warpgroup's 64 query rows from w_first see any key of the
+// 64-key tile at k_start (uniform over the warpgroup, so the whole
+// warpgroup skips or issues its products).
+__device__ __forceinline__ bool tile_live(const Params& p, int w_first,
+                                          int k_start) {
+  return w_first < p.S && (!p.causal || k_start <= w_first + 63) &&
+         (p.window == 0 || k_start + 63 > w_first - p.window);
+}
+
+// Whether some pair of those rows and that tile is masked, so that the
+// tile takes the per-element test.
+__device__ __forceinline__ bool tile_edge(const Params& p, int w_first,
+                                          int k_start) {
+  return p.seg != nullptr || k_start + 64 > p.S ||
+         (p.causal && k_start + 63 > w_first) ||
+         (p.window > 0 && w_first + 63 - k_start >= p.window);
+}
+
 template <int DP>
 __global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
   using C = Fwd<DP>;
@@ -882,7 +907,7 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
                                     : nullptr;
 
   // This warpgroup's 64 rows, and this thread's two of them.
-  const int w_first = q_start + wg * 64, w_last = w_first + 63;
+  const int w_first = q_start + wg * 64;
   const int r0 = w_first + warp * 16 + (lane >> 2), r1 = r0 + 8;
   const int cq = 2 * (lane & 3);  // first column of its pair in each chunk
   int seg0 = -1, seg1 = -1;
@@ -894,24 +919,13 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
   load_tile<C::BM, DP, C::NT>(s_q, q, p.sq.s, q_start, S, D, tid);
   cp_commit();
 
-  int k1 = (S + C::BN - 1) / C::BN, k0 = 0;
-  if (p.causal) k1 = min(k1, (q_start + C::BM - 1) / C::BN + 1);
-  if (p.window > 0) k0 = max(0, q_start - p.window + 1) / C::BN;
-
-  auto load_kv = [&](int j, int stage) {
-    const uint32_t base = s_ring + stage * C::STAGE;
-    load_tile<C::BN, DP, C::NT>(base, k, p.sk.s, j * C::BN, S, D, tid);
-    load_tile<C::BN, DP, C::NT>(base + C::T_BYTES, v, p.sv.s, j * C::BN, S,
-                                D, tid);
-    if (seg != nullptr && tid < C::BN) {
-      const int kp = j * C::BN + tid;
-      cp_async4(base + 2 * C::T_BYTES + 4 * tid, kp < S ? seg + kp : seg,
-                kp < S);
-    }
-  };
+  int k0, k1;
+  key_tiles(p, q_start, C::BM, &k0, &k1);
 #pragma unroll
   for (int st = 0; st < C::NST - 1; ++st) {
-    if (k0 + st < k1) load_kv(k0 + st, st);
+    if (k0 + st < k1) {
+      load_kv<DP>(s_ring + st * C::STAGE, k, v, seg, p, k0 + st, tid);
+    }
     cp_commit();
   }
 
@@ -926,7 +940,8 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
   for (int j = k0; j < k1; ++j) {
     const int it = j - k0;
     if (j + C::NST - 1 < k1) {
-      load_kv(j + C::NST - 1, (it + C::NST - 1) % C::NST);
+      load_kv<DP>(s_ring + (it + C::NST - 1) % C::NST * C::STAGE, k, v, seg,
+                  p, j + C::NST - 1, tid);
     }
     cp_commit();
     cp_wait<C::NST - 1>();
@@ -934,11 +949,7 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
     __syncthreads();
 
     const int k_start = j * C::BN;
-    // Warpgroup-uniform: does any of its pairs in this tile attend?
-    const bool live = w_first < S && (!p.causal || k_start <= w_last) &&
-                      (p.window == 0 ||
-                       k_start + C::BN - 1 > w_first - p.window);
-    if (live) {
+    if (tile_live(p, w_first, k_start)) {
       const int stage = it % C::NST;
       const uint32_t s_k = s_ring + stage * C::STAGE;
       const uint32_t s_v = s_k + C::T_BYTES;
@@ -956,10 +967,7 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
       mma_wait<0>();
       pin<32>(s);
 
-      const bool edge =
-          seg != nullptr || k_start + C::BN > S ||
-          (p.causal && k_start + C::BN - 1 > w_first) ||
-          (p.window > 0 && w_last - k_start >= p.window);
+      const bool edge = tile_edge(p, w_first, k_start);
       float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
@@ -1041,6 +1049,177 @@ __global__ void __launch_bounds__(256, 1) flash_fwd_wgmma(Params p) {
       const long long row = static_cast<long long>(bh) * S;
       if (r0 < S) p.lse[row + r0] = m0 + logf(ls0);
       if (r1 < S) p.lse[row + r1] = m1 + logf(ls1);
+    }
+  }
+}
+
+// ---- dQ -------------------------------------------------------------------
+
+// The forward's block and K/V ring, with dO resident beside Q: 128 KB of
+// shared memory at D 128.
+template <int DP>
+struct Dq : Fwd<DP> {
+  using F = Fwd<DP>;
+  static constexpr int SMEM = 2 * F::Q_BYTES + F::NST * F::STAGE;
+};
+
+// The forward with its softmax state replaced by the saved lse and delta:
+// S = Q K^T and dP = dO V^T from shared memory, P = exp(S scale - lse) and
+// dS = P (dP - delta) scale in fp32 registers, then dQ += dS_hi K + dS_lo K
+// with A from those registers and K read MN-major, as the forward reads V.
+// Each block owns its rows of dQ: no atomics, a repeat is bit-identical.
+template <int DP>
+__global__ void __launch_bounds__(256, 1) flash_dq_wgmma(Params p) {
+  using C = Dq<DP>;
+  constexpr int NO = DP / 2;  // dQ accumulator registers a thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s_q = smem_u32(smem), s_g = s_q + C::Q_BYTES;
+  const uint32_t s_ring = s_g + C::Q_BYTES;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int warp = (tid & 127) >> 5;
+  const int S = p.S, D = p.D;
+  const int nq = (S + C::BM - 1) / C::BM;
+  const int q_start = (nq - 1 - static_cast<int>(blockIdx.x)) * C::BM;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh - b * p.H;
+  const int kvh = h / (p.H / p.KV);
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.sq.b + h * p.sq.h;
+  const bf16* g = static_cast<const bf16*>(p.g) + b * p.sg.b + h * p.sg.h;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.sk.b + kvh * p.sk.h;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.sv.b + kvh * p.sv.h;
+  const int* seg = p.seg != nullptr ? p.seg + static_cast<long long>(b) * S
+                                    : nullptr;
+
+  // This warpgroup's 64 rows, and this thread's two of them with their lse
+  // and delta (0 past S: those rows are never stored).
+  const int w_first = q_start + wg * 64;
+  const int r0 = w_first + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const int cq = 2 * (lane & 3);
+  const long long row = static_cast<long long>(bh) * S;
+  int seg0 = -1, seg1 = -1;
+  float lse0 = 0.f, lse1 = 0.f, del0 = 0.f, del1 = 0.f;
+  if (r0 < S) {
+    lse0 = p.lse[row + r0];
+    del0 = p.delta[row + r0];
+    if (seg != nullptr) seg0 = seg[r0];
+  }
+  if (r1 < S) {
+    lse1 = p.lse[row + r1];
+    del1 = p.delta[row + r1];
+    if (seg != nullptr) seg1 = seg[r1];
+  }
+
+  load_tile<C::BM, DP, C::NT>(s_q, q, p.sq.s, q_start, S, D, tid);
+  load_tile<C::BM, DP, C::NT>(s_g, g, p.sg.s, q_start, S, D, tid);
+  cp_commit();
+
+  int k0, k1;
+  key_tiles(p, q_start, C::BM, &k0, &k1);
+#pragma unroll
+  for (int st = 0; st < C::NST - 1; ++st) {
+    if (k0 + st < k1) {
+      load_kv<DP>(s_ring + st * C::STAGE, k, v, seg, p, k0 + st, tid);
+    }
+    cp_commit();
+  }
+
+  float dq[NO], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  uint32_t fh[16], fl[16];  // dS as bf16 hi / lo pairs: 4 K-slices x 4
+
+  for (int j = k0; j < k1; ++j) {
+    const int it = j - k0;
+    if (j + C::NST - 1 < k1) {
+      load_kv<DP>(s_ring + (it + C::NST - 1) % C::NST * C::STAGE, k, v, seg,
+                  p, j + C::NST - 1, tid);
+    }
+    cp_commit();
+    cp_wait<C::NST - 1>();
+    async_fence();
+    __syncthreads();
+
+    const int k_start = j * C::BN;
+    if (tile_live(p, w_first, k_start)) {
+      const int stage = it % C::NST;
+      const uint32_t s_k = s_ring + stage * C::STAGE;
+      const uint32_t s_v = s_k + C::T_BYTES;
+      const int* segk = reinterpret_cast<const int*>(
+          smem + 2 * C::Q_BYTES + stage * C::STAGE + 2 * C::T_BYTES);
+
+      pin<32>(s);
+      pin<32>(dp);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<64>(s, desc_k<DP>(s_q, wg * 64, kk), desc_k<DP>(s_k, 0, kk),
+                     kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        wgmma_ss<64>(dp, desc_k<DP>(s_g, wg * 64, kk),
+                     desc_k<DP>(s_v, 0, kk), kk > 0);
+      }
+      mma_commit();
+      mma_wait<0>();
+      pin<32>(s);
+      pin<32>(dp);
+
+      // dS = exp(S scale - lse) (dP - delta) scale, as hi/lo pairs.
+      const bool edge = tile_edge(p, w_first, k_start);
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const bool second = (i & 2) != 0;
+        const float ls = second ? lse1 : lse0, dl = second ? del1 : del0;
+        float x0 = s[i] * p.scale, x1 = s[i + 1] * p.scale;
+        if (edge) {
+          const int kc = 8 * (i >> 2) + cq;  // key of s[i]; s[i + 1] is kc + 1
+          const int qp = second ? r1 : r0, sq = second ? seg1 : seg0;
+          if (!visible(p, qp, k_start + kc, sq,
+                       seg != nullptr ? segk[kc] : 0)) {
+            x0 = NEG_INF;
+          }
+          if (!visible(p, qp, k_start + kc + 1, sq,
+                       seg != nullptr ? segk[kc + 1] : 0)) {
+            x1 = NEG_INF;
+          }
+        }
+        const float p0 = exp2f((x0 - ls) * LOG2E);
+        const float p1 = exp2f((x1 - ls) * LOG2E);
+        split(p0 * (dp[i] - dl) * p.scale, p1 * (dp[i + 1] - dl) * p.scale,
+              &fh[i >> 1], &fl[i >> 1]);
+      }
+
+      pin<NO>(dq);
+      pin<16>(fh);
+      pin<16>(fl);
+      mma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs<DP>(dq, fh + 4 * kk, desc_mn<DP>(s_k, kk));
+        wgmma_rs<DP>(dq, fl + 4 * kk, desc_mn<DP>(s_k, kk));
+      }
+      mma_commit();
+      mma_wait<0>();
+      pin<NO>(dq);
+      pin<16>(fh);
+      pin<16>(fl);
+    }
+    __syncthreads();  // every warpgroup is done with this stage
+  }
+
+  if (w_first < S) {
+    bf16* out = static_cast<bf16*>(p.dq) + b * p.sdq.b + h * p.sdq.h;
+#pragma unroll
+    for (int c = 0; c < DP / 8; ++c) {
+      const int col = 8 * c + cq;
+      if (col < D) {
+        if (r0 < S) store2(out + r0 * p.sdq.s + col, dq[4 * c], dq[4 * c + 1]);
+        if (r1 < S) {
+          store2(out + r1 * p.sdq.s + col, dq[4 * c + 2], dq[4 * c + 3]);
+        }
+      }
     }
   }
 }
@@ -1340,44 +1519,39 @@ int set_smem(K kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-// CUDA-core kernels: the forward and dk/dv for fp32 only, dq for both.
-template <typename T, int NJ>
+// CUDA-core kernels (fp32): the forward, dq and dk/dv.
+template <int NJ>
 int launch(Which which, const Params& p, cudaStream_t stream) {
   const int nq = (p.S + BQ - 1) / BQ;
-  int err = static_cast<int>(cudaErrorInvalidValue);
-  if (which == kDq) {
-    const size_t smem = dq_smem(p.D);
-    err = set_smem(dq_kernel<T, NJ>, smem);
+  int err;
+  if (which == kFwd) {
+    const size_t smem = fwd_smem(p.D);
+    err = set_smem(fwd_kernel<NJ>, smem);
     if (err != 0) return err;
-    dq_kernel<T, NJ><<<dim3(nq, p.B * p.H), NT, smem, stream>>>(p);
-  } else if constexpr (std::is_same<T, float>::value) {
-    if (which == kFwd) {
-      const size_t smem = fwd_smem(p.D);
-      err = set_smem(fwd_kernel<T, NJ>, smem);
-      if (err != 0) return err;
-      fwd_kernel<T, NJ><<<dim3(nq, p.B * p.H), NT, smem, stream>>>(p);
-    } else {
-      const size_t smem = dkv_smem(p.D);
-      err = set_smem(dkv_kernel<T, NJ>, smem);
-      if (err != 0) return err;
-      const int nk = (p.S + BK - 1) / BK;
-      dkv_kernel<T, NJ><<<dim3(nk, p.B * p.KV), NT, smem, stream>>>(p);
-    }
+    fwd_kernel<NJ><<<dim3(nq, p.B * p.H), NT, smem, stream>>>(p);
+  } else if (which == kDq) {
+    const size_t smem = dq_smem(p.D);
+    err = set_smem(dq_kernel<NJ>, smem);
+    if (err != 0) return err;
+    dq_kernel<NJ><<<dim3(nq, p.B * p.H), NT, smem, stream>>>(p);
   } else {
-    return err;
+    const size_t smem = dkv_smem(p.D);
+    err = set_smem(dkv_kernel<NJ>, smem);
+    if (err != 0) return err;
+    const int nk = (p.S + BK - 1) / BK;
+    dkv_kernel<NJ><<<dim3(nk, p.B * p.KV), NT, smem, stream>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_d(Which which, const Params& p, cudaStream_t stream) {
-  if (p.D <= 32) return launch<T, 2>(which, p, stream);
-  if (p.D <= 64) return launch<T, 4>(which, p, stream);
-  if (p.D <= 96) return launch<T, 6>(which, p, stream);
-  return launch<T, 8>(which, p, stream);
+  if (p.D <= 32) return launch<2>(which, p, stream);
+  if (p.D <= 64) return launch<4>(which, p, stream);
+  if (p.D <= 96) return launch<6>(which, p, stream);
+  return launch<8>(which, p, stream);
 }
 
-// Tensor-core kernels (bf16 forward and dk/dv), D padded to DP.
+// Tensor-core kernels (bf16), D padded to DP.
 template <int DP>
 int launch_tc(Which which, const Params& p, cudaStream_t stream) {
   int err;
@@ -1387,6 +1561,13 @@ int launch_tc(Which which, const Params& p, cudaStream_t stream) {
     if (err != 0) return err;
     const int nq = (p.S + C::BM - 1) / C::BM;
     tc::flash_fwd_wgmma<DP><<<dim3(nq, p.B * p.H), C::NT, C::SMEM, stream>>>(
+        p);
+  } else if (which == kDq) {
+    using C = tc::Dq<DP>;
+    err = set_smem(tc::flash_dq_wgmma<DP>, C::SMEM);
+    if (err != 0) return err;
+    const int nq = (p.S + C::BM - 1) / C::BM;
+    tc::flash_dq_wgmma<DP><<<dim3(nq, p.B * p.H), C::NT, C::SMEM, stream>>>(
         p);
   } else {
     using C = tc::Dkv<DP>;
@@ -1439,11 +1620,8 @@ int run(Which which, Params& p, const long long* strides, int n_strided,
   p.window = window;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(which, p, s);
-  if (dtype == 1) {
-    if (which == kDq) return dispatch_d<__nv_bfloat16>(which, p, s);
-    return dispatch_tc(which, p, which == kFwd ? 3 : 4, s);
-  }
+  if (dtype == 0) return dispatch_d(which, p, s);
+  if (dtype == 1) return dispatch_tc(which, p, which == kFwd ? 3 : 4, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1452,10 +1630,9 @@ int run(Which which, Params& p, const long long* strides, int n_strided,
 // Every tensor is [B, H or KV, S, D] with a unit D stride; `strides` holds
 // (b, h, s) element strides for each strided tensor in argument order.
 // lse and delta are contiguous fp32 [B*H, S]; seg is [B, S] int32 or null.
-// dtype: 0 = fp32, 1 = bf16.  bf16 forward and dk/dv run on the tensor
-// cores and need 16-byte aligned inputs (cudaErrorMisalignedAddress
-// otherwise).  Each call launches on `stream` and returns cudaGetLastError()
-// (0 on success).
+// dtype: 0 = fp32, 1 = bf16.  bf16 runs on the tensor cores and needs
+// 16-byte aligned inputs (cudaErrorMisalignedAddress otherwise).  Each
+// call launches on `stream` and returns cudaGetLastError() (0 on success).
 
 extern "C" int dlr_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, const int* seg,

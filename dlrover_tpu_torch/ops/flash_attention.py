@@ -24,13 +24,12 @@ in ``<wrapper>.launches``.  :func:`flash_attention` is the public entry, a
 runs :func:`flash_dq` and :func:`flash_dkv`.
 
 Which kernel a CUDA tensor reaches is decided by its dtype, not by a
-fallback: bf16 forward and dk/dv run on the tensor cores
-(``flash_fwd_wgmma``, ``flash_dkv_wgmma``: Hopper ``wgmma`` on bf16 tiles,
+fallback: bf16 runs on the tensor cores (``flash_fwd_wgmma``,
+``flash_dq_wgmma``, ``flash_dkv_wgmma``: Hopper ``wgmma`` on bf16 tiles,
 P and dS split into two bf16 values so that they keep fp32 precision);
-fp32 forward and dk/dv, and dq in both dtypes, run on the CUDA cores.  A
-bf16 input the tensor-core kernels do not take (a base pointer or a
-stride that breaks their 16-byte copies) raises; it never reaches another
-kernel or the plain version.
+fp32 runs on the CUDA cores.  A bf16 input the tensor-core kernels do not
+take (a base pointer or a stride that breaks their 16-byte copies) raises;
+it never reaches another kernel or the plain version.
 
 Layout ``[B, H, S, D]`` as in the reference; the kernels take any strides
 with a unit last-dim stride, so the model's transposed views pass without a
@@ -325,8 +324,9 @@ def flash_fwd(q, k, v, *, causal: bool = True,
 
 def flash_dq(q, k, v, g, lse, delta, *, causal: bool = True,
              segment_ids: Optional[torch.Tensor] = None, window: int = 0):
-    """dq (in q's dtype): the dq kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """dq (in q's dtype): the dq kernel for CUDA tensors (bf16: the
+    tensor-core ``flash_dq_wgmma``; fp32: the CUDA-core kernel), the plain
+    version for CPU tensors."""
     kw = dict(causal=causal, segment_ids=segment_ids, window=window)
     check_shapes(q, k, v, causal, window)
     if _device_of(q, "flash_dq") == "cpu":
@@ -336,6 +336,8 @@ def flash_dq(q, k, v, g, lse, delta, *, causal: bool = True,
     dq = torch.empty_like(q)
     seg, strides, shape = _kernel_args(q, k, v, causal, segment_ids, window,
                                        (q, k, v, g, dq))
+    if q.dtype == torch.bfloat16:
+        _check_copy_aligned((q, k, v, g), "flash_dq")
     lib = _lib()
     with torch.cuda.device(q.device):
         rc = lib.dlr_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),

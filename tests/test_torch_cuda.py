@@ -13,8 +13,8 @@ fp32 outputs within 1e-4 of the largest plain value (fp32 sums of up to S
 products in another order); bf16 outputs within 2 bf16 ulps of the plain
 fp32 value (the plain version on the upcast inputs) plus 1e-5 of the
 largest (one rounding each side; entries that are sums of cancelling terms
-keep the fp32 sum-order error); lse within 1e-4.  The bf16 forward and
-dk/dv run on the tensor cores with P and dS split into two bf16 values
+keep the fp32 sum-order error); lse within 1e-4.  The bf16 forward, dq
+and dk/dv run on the tensor cores with P and dS split into two bf16 values
 and meet the same tolerances.  Cross-entropy: atol 1e-4
 on losses of ~log V (fp32 sums of V exponentials in another order).
 Blockwise int8 quantize: codes equal and scales bit-equal (the same IEEE
@@ -213,7 +213,7 @@ def test_flash_kernels_refuse_what_they_do_not_take(card):
         fa.flash_fwd(q, q.bfloat16(), q)
 
 
-# The tensor-core forward and dk/dv (bf16): B, H, KV, S, D, causal,
+# The tensor-core forward, dq and dk/dv (bf16): B, H, KV, S, D, causal,
 # window, segments, strided [B, S, H, D] views.
 TC_CASES = [
     (1, 4, 4, 77, 72, True, 0, False, False),
@@ -250,26 +250,29 @@ def _tc_inputs(case, device):
 @pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "-".join(
     str(x) for x in c))
 def test_tensor_core_flash_matches_plain(card, case):
-    """``flash_fwd_wgmma`` and ``flash_dkv_wgmma`` against the plain
-    versions on the upcast inputs, under the tolerances of the module
-    docstring (phase 4's)."""
+    """``flash_fwd_wgmma``, ``flash_dq_wgmma`` and ``flash_dkv_wgmma``
+    against the plain versions on the upcast inputs, under the tolerances
+    of the module docstring (phase 4's)."""
     q, k, v, do, kw = _tc_inputs(case, card)
-    before = (fa.flash_fwd.launches, fa.flash_dkv.launches)
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
     out, lse = fa.flash_fwd(q, k, v, **kw)
     delta = fa._delta(out, do)
+    dq = fa.flash_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert (fa.flash_fwd.launches, fa.flash_dkv.launches) == \
-        (before[0] + 1, before[1] + 1)
-    assert out.dtype == dk.dtype == dv.dtype == torch.bfloat16
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == tuple(n + 1 for n in before)
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
     f32 = [t.float() for t in (q, k, v, do)]
     p_out, p_lse = fa._flash_fwd_plain(*f32[:3], kw["causal"],
                                        kw["segment_ids"], kw["window"])
     assert float((lse - p_lse).abs().max()) <= 1e-4
     _close(out, p_out, torch.bfloat16, "out")
-    _, p_dk, p_dv = fa._bwd_parts(*f32, lse, delta, kw["causal"],
-                                  kw["segment_ids"], kw["window"], False,
-                                  True)
+    p_dq, p_dk, p_dv = fa._bwd_parts(*f32, lse, delta, kw["causal"],
+                                     kw["segment_ids"], kw["window"], True,
+                                     True)
+    _close(dq, p_dq, torch.bfloat16, "dq")
     _close(dk, p_dk, torch.bfloat16, "dk")
     _close(dv, p_dv, torch.bfloat16, "dv")
 
@@ -305,19 +308,36 @@ def test_tensor_core_dkv_repeats_bit_for_bit(card):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+def test_tensor_core_dq_repeats_bit_for_bit(card):
+    """Each block owns its rows of dq (no atomics): a repeat is equal bit
+    for bit, which block remat's recomputed backward relies on."""
+    q, k, v, do, kw = _tc_inputs((2, 8, 4, 640, 128, True, 0, True, True),
+                                 card)
+    out, lse = fa.flash_fwd(q, k, v, **kw)
+    delta = fa._delta(out, do)
+    first = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+    second = fa.flash_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_tensor_core_kernels_refuse_a_misaligned_input(card):
     """A bf16 input whose base breaks the 16-byte copies raises; it never
     reaches another kernel or the plain version."""
     buf = torch.randn(2 * 4 * 64 * 64 + 4, device=card).bfloat16()
     q = buf[4:].view(2, 4, 64, 64)  # 8 bytes past an aligned base
     ok = torch.randn(2, 4, 64, 64, device=card).bfloat16()
-    before = (fa.flash_fwd.launches, fa.flash_dkv.launches)
+    before = (fa.flash_fwd.launches, fa.flash_dq.launches,
+              fa.flash_dkv.launches)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_fwd(q, ok, ok)
     lse = torch.zeros(2, 4, 64, device=card)
     with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_dq(ok, q, ok, ok, lse, lse)
+    with pytest.raises(ValueError, match="16-byte"):
         fa.flash_dkv(ok, ok, ok, q, lse, lse)
-    assert (fa.flash_fwd.launches, fa.flash_dkv.launches) == before
+    assert (fa.flash_fwd.launches, fa.flash_dq.launches,
+            fa.flash_dkv.launches) == before
 
 
 @pytest.mark.parametrize("rows,V,dtype,ldtype", [

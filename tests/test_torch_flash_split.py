@@ -1,20 +1,21 @@
 """The rounding of the tensor-core flash kernels, emulated on the CPU and
 held against the JAX package's flash attention.
 
-``flash_fwd_wgmma`` and ``flash_dkv_wgmma`` (``dlrover_tpu_torch/ops/csrc/
-flash_attention.cu``) run on bf16 operands with fp32 sums, as the tensor
-cores do, and keep P (and dS) at fp32 precision by splitting each value
-into two bf16 values, ``hi = bf16(p)`` and ``lo = bf16(p - hi)``, whose two
-products add into one fp32 accumulator.  This file emulates that
-arithmetic in plain torch (bf16 inputs, fp32 products per 64-key tile with
-the online softmax, the hi/lo split) and compares it with the reference,
+``flash_fwd_wgmma``, ``flash_dq_wgmma`` and ``flash_dkv_wgmma``
+(``dlrover_tpu_torch/ops/csrc/flash_attention.cu``) run on bf16 operands
+with fp32 sums, as the tensor cores do, and keep P and dS at fp32
+precision by splitting each value into two bf16 values, ``hi = bf16(p)``
+and ``lo = bf16(p - hi)``, whose two products add into one fp32
+accumulator.  This file emulates that arithmetic in plain torch (bf16
+inputs, fp32 products per 64-key tile with the online softmax, the hi/lo
+split; dq cast once to bf16) and compares it with the reference,
 ``_flash_fwd`` and ``_flash_bwd_pallas`` in interpret mode under
 ``jax.jit`` on the same values in fp32, under the card's phase-4 tolerance
-(``chip_smoke.py`` ``close_check``): out, dk and dv within 2 bf16 ulps of
-the reference value plus 1e-5 of its largest magnitude, lse within 1e-4.
-So it pins, without a card, that the split meets the unchanged tolerance;
-and that a single bf16 P, as FlashAttention-2/3 use it, does not
-(``test_single_bf16_p_misses_the_tolerance`` prints by how much).
+(``chip_smoke.py`` ``close_check``): out, dq, dk and dv within 2 bf16 ulps
+of the reference value plus 1e-5 of its largest magnitude, lse within
+1e-4.  So it pins, without a card, that the split meets the unchanged
+tolerance; and that a single bf16 P or dS, as FlashAttention-2/3 use it,
+does not (``test_single_bf16_p_misses_the_tolerance`` prints by how much).
 """
 
 import functools
@@ -146,6 +147,26 @@ def _emulate_dkv(q, k, v, g, out, lse, causal, window, seg, split=True):
     return dk.bfloat16(), dv.bfloat16()
 
 
+def _emulate_dq(q, k, v, g, out, lse, causal, window, seg, split=True):
+    """The dq kernel's arithmetic from the forward's ``out`` and ``lse``,
+    one 64-key tile at a time: dq bf16."""
+    B, H, S, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    delta = torch.sum(out.float() * g, dim=-1)
+    k, v = _expand(k, H), _expand(v, H)
+    ok = _mask(S, causal, window, seg)
+    dq = torch.zeros(B, H, S, D)
+    for k0 in range(0, S, TILE):
+        kt, vt = k[:, :, k0:k0 + TILE], v[:, :, k0:k0 + TILE]
+        s = torch.matmul(q, kt.transpose(-1, -2)) * scale
+        s = torch.where(ok[..., k0:k0 + TILE], s, torch.tensor(NEG_INF))
+        p = torch.exp2((s - lse[..., None]) * LOG2E)
+        dp = torch.matmul(g, vt.transpose(-1, -2))
+        hi, lo = _split(p * (dp - delta[..., None]) * scale, split)
+        dq = dq + torch.matmul(hi, kt) + torch.matmul(lo, kt)
+    return dq.bfloat16()
+
+
 @functools.partial(jax.jit, static_argnums=(4, 5))
 def _jax_fwd(q, k, v, seg, causal, window):
     return jfa._flash_fwd(q, k, v, causal, TILE, TILE, True,
@@ -153,32 +174,31 @@ def _jax_fwd(q, k, v, seg, causal, window):
 
 
 @functools.partial(jax.jit, static_argnums=(7, 8))
-def _jax_dkv(q, k, v, out, lse, g, seg, causal, window):
-    _, dk, dv = jfa._flash_bwd_pallas(q, k, v, out, lse, g, causal, TILE,
-                                      TILE, True, segment_ids=seg,
-                                      window=window)
-    return dk, dv
+def _jax_bwd(q, k, v, out, lse, g, seg, causal, window):
+    return jfa._flash_bwd_pallas(q, k, v, out, lse, g, causal, TILE, TILE,
+                                 True, segment_ids=seg, window=window)
 
 
 @functools.lru_cache(maxsize=None)
 def _results(name, split=True):
     """Emulated outputs beside the reference's fp32 values: ``{what:
-    (emulated, reference)}`` for out, lse, dk and dv."""
+    (emulated, reference)}`` for out, lse, dq, dk and dv."""
     causal, window = CASES[name][5], CASES[name][6]
     q, k, v, g, seg = _inputs(name)
     jseg = None if seg is None else jnp.asarray(seg)
     tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
     out, lse = _emulate_fwd(tq, tk, tv, causal, window, seg, split)
     r_out, r_lse = _jax_fwd(q, k, v, jseg, causal, window)
+    dq = _emulate_dq(tq, tk, tv, tg, out, lse, causal, window, seg, split)
     dk, dv = _emulate_dkv(tq, tk, tv, tg, out, lse, causal, window, seg,
                           split)
     # The reference backward from the emulated forward's out and lse, as
-    # the card's phase 4 holds the kernels' dk/dv against the plain
+    # the card's phase 4 holds the kernels' dq, dk and dv against the plain
     # backward from the kernels' own lse and delta.
-    r_dk, r_dv = _jax_dkv(q, k, v, out.float().numpy(), lse.numpy(), g, jseg,
-                          causal, window)
-    return {"out": (out, r_out), "lse": (lse, r_lse), "dk": (dk, r_dk),
-            "dv": (dv, r_dv)}
+    r_dq, r_dk, r_dv = _jax_bwd(q, k, v, out.float().numpy(), lse.numpy(),
+                                g, jseg, causal, window)
+    return {"out": (out, r_out), "lse": (lse, r_lse), "dq": (dq, r_dq),
+            "dk": (dk, r_dk), "dv": (dv, r_dv)}
 
 
 def _excess(got: torch.Tensor, want) -> float:
@@ -216,15 +236,27 @@ def test_split_dkv_meets_the_card_tolerance(name):
         assert excess <= 1.0, what
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_split_dq_meets_the_card_tolerance(name):
+    got, want = _results(name)["dq"]
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == want.shape
+    excess = _excess(got, want)
+    print(f"{name} dq: largest error / phase-4 allowance {excess:.3f}")
+    assert excess <= 1.0
+
+
 def test_single_bf16_p_misses_the_tolerance():
     """The same emulation with P and dS rounded once to bf16 (no lo part)
     breaks the tolerance the split meets: the reason for the split."""
     worst = {}
     for name in CASES:
         res = _results(name, split=False)
-        for what in ("out", "dk", "dv"):
+        for what in ("out", "dq", "dk", "dv"):
             worst[f"{name}/{what}"] = _excess(*res[what])
-    print("single-bf16 P, largest error / phase-4 allowance:",
+    print("single-bf16 P and dS, largest error / phase-4 allowance:",
           {k: round(v, 2) for k, v in sorted(worst.items())})
     assert max(worst.values()) > 1.0
     assert worst["gqa_d96/out"] > 1.0
+    # dq with a single bf16 dS misses it in every case.
+    assert min(v for k, v in worst.items() if k.endswith("/dq")) > 1.0
