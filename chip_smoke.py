@@ -9,8 +9,10 @@ the sources in this checkout (one ``nvcc`` per source, all started
 together), then runs eight phases and exits non-zero if any fails:
 
 1. RMSNorm kernel vs plain: the kernel against its plain PyTorch version on
-   the card, at the serving path's shapes, with times (CUDA events), the
-   byte and operation bound, and one PyTorch library call as a yardstick.
+   the card, at the serving path's shapes, with times (CUDA events; the
+   call and one PyTorch library call as its yardstick in turns), the byte
+   and operation bound, and at the decode shape the call's host time
+   broken down into its parts.
 2. Full-width forward: one ``forward_step`` prefill of Llama-2-7B (bf16,
    full width and depth, random weights from a seed) with the kernel
    against the same with the plain RMSNorm; and a tiny fp32 model on the
@@ -26,8 +28,12 @@ together), then runs eight phases and exits non-zero if any fails:
    each row gives ``bound_share`` (bound / time); two dq and two dk/dv
    launches at phase 8's shape must each agree bit for bit; beside SDPA's
    backward, ``bwd_total_ms`` is the time of dq and dk/dv together.
-5. Cross-entropy kernel vs plain at [8192, 32000] (fp32, bf16) and at the
-   tiny model's training shapes.
+5. Cross-entropy kernel vs plain at [8192, 32000] (fp32, bf16), a ragged
+   V, a V too wide for the single-read cluster kernel (the two-pass route)
+   and the tiny model's training shapes: each shape on the route it names
+   (counted), labels outside [0, V) picking no target, a repeat
+   bit-identical, and at the large shapes the route's kernel by name in a
+   profile, with its device time and ``device_bound_share``.
 6. Training: (a) Llama-800M widths at 2 layers, one step's loss and
    gradients through the kernels against the plain versions on the card,
    and with per-block remat; (b) ``dlrover_tpu_torch.train.main`` trains
@@ -169,9 +175,90 @@ def plain_kernels():
          llama.softmax_cross_entropy) = saved
 
 
+def time_turns(fns: dict, pairs: int = 4, iters: int = 500) -> dict:
+    """``time_ms`` of each function in ``fns``, in turns (a b b a, ``pairs``
+    times over): the median of its ``2 * pairs`` times, and the times."""
+    names = list(fns)
+    runs = {name: [] for name in names}
+    for _ in range(pairs):
+        for name in names + names[::-1]:
+            runs[name].append(time_ms(fns[name], iters=iters))
+    return {name: (statistics.median(t), t) for name, t in runs.items()}
+
+
+def host_us(fn, n: int = 1000, reps: int = 5) -> float:
+    """Host µs of one ``fn()``: the host clock over ``n`` back-to-back
+    calls, median of ``reps`` such runs, the card synchronised between
+    runs (and outside the clock)."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    runs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def rmsnorm_host_breakdown(rms, x, w, eps) -> dict:
+    """Host µs of the RMSNorm call at ``x``'s shape and of its parts, each
+    timed alone: ``alloc`` the fresh output (``empty_like``), ``stream``
+    the caller's stream read as an int, ``launch`` the entry point called
+    with plain ints (it enqueues the kernel), and ``rest`` what is left of
+    the call (dispatch, checks, pointers).  Beside them, what the call
+    paid before the lean host call, timed the same way: a
+    ``torch.cuda.Stream`` object for the stream, a ``torch.cuda.device``
+    guard, and the entry point bound with ctypes ``argtypes``."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import _build, _launch
+
+    lo, dev, D = _launch.LO, x.get_device(), x.shape[-1]
+    out = torch.empty_like(x)
+    st = _launch.stream(dev)
+    args = [x.data_ptr(), w.data_ptr(), out.data_ptr()]
+    args = [h for p in args for h in (p & lo, p >> 32)] + [
+        x.numel() // D, D, ctypes.c_float(eps), 1, dev, st & lo, st >> 32]
+    fn = rms._kernel_fn()
+    typed = ctypes.CDLL(str(_build.build("rmsnorm", rms.SOURCES)))
+    typed = typed.dlr_rmsnorm_fwd
+    typed.argtypes = [ctypes.c_uint32] * 6 + [ctypes.c_int] * 2 + [
+        ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_uint32] * 2
+    typed.restype = ctypes.c_int
+    w_lib = w.to(x.dtype)
+
+    def guard():
+        with torch.cuda.device(x.device):
+            pass
+
+    res = {
+        "call": host_us(lambda: rms.rmsnorm(x, w, eps=eps)),
+        "alloc": host_us(lambda: torch.empty_like(x)),
+        "stream": host_us(lambda: _launch.stream(dev)),
+        "launch": host_us(lambda: fn(*args)),
+        "library_call": host_us(lambda: F.rms_norm(x, (D,), w_lib, eps)),
+        "before_stream_object": host_us(
+            lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        "before_device_guard": host_us(guard),
+        "before_argtypes_launch": host_us(lambda: typed(*args)),
+    }
+    res["rest"] = res["call"] - res["alloc"] - res["stream"] - res["launch"]
+    return res
+
+
 def phase_kernels(rms) -> dict:
     """RMSNorm kernel vs plain at the path's shapes; returns the record of
-    the decode shape (the launch the path makes most often)."""
+    the decode shape (the launch the path makes most often).  The call and
+    ``F.rms_norm`` are timed in turns; at the decode shape the call's host
+    time is broken down into its parts."""
     import torch
     import torch.nn.functional as F
 
@@ -201,11 +288,11 @@ def phase_kernels(rms) -> dict:
                     f"({tol})"
                 )
             w_lib = w.to(dtype)
-            ms = time_ms(lambda: rms.rmsnorm(x, w, eps=eps))
+            turns = time_turns({
+                "kernel": lambda: rms.rmsnorm(x, w, eps=eps),
+                "library": lambda: F.rms_norm(x, (D_MODEL,), w_lib, eps),
+            })
             plain_ms = time_ms(lambda: rms._reference(x, w, eps))
-            lib_ms = time_ms(
-                lambda: F.rms_norm(x, (D_MODEL,), w_lib, eps)
-            )
             esize = x.element_size()
             nbytes = 2 * rows * D_MODEL * esize + 4 * D_MODEL
             flops = 4 * rows * D_MODEL
@@ -214,14 +301,19 @@ def phase_kernels(rms) -> dict:
             row = {
                 "rows": rows, "d": D_MODEL, "dtype": str(dtype),
                 "max_abs_err": float(err.max()), "tolerance": tol,
-                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "ms": turns["kernel"][0], "plain_ms": plain_ms,
+                "library_ms": turns["library"][0],
+                "ms_turns": {k: v[1] for k, v in turns.items()},
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "bytes": nbytes,
             }
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             log("phase1 rmsnorm " + json.dumps(row))
             if dtype == torch.bfloat16 and rows == NORM_SHAPES[0]:
                 rec = row
+                log("phase1 rmsnorm host_us " + json.dumps(
+                    rmsnorm_host_breakdown(rms, x, w, eps)))
     return rec
 
 
@@ -623,15 +715,22 @@ XENT_SHAPES = (
     # rows, V, dtype, label dtype
     (8192, 32000, "float32", "int64"),
     (8192, 32000, "bfloat16", "int32"),
+    (8192, 32001, "float32", "int64"),  # ragged: single-element loads
+    (1024, 128256, "float32", "int64"),  # Llama 3's vocab: the two-pass route
     (64, 256, "float32", "int32"),
     (128, 256, "float32", "int32"),  # tiny training: 4 x 32 tokens
 )
+XENT_KERNELS = {"cluster": "xent_cluster_kernel",
+                "two_pass": "xent_fwd_kernel"}
 
 
 def phase_xent() -> dict:
     """Cross-entropy kernel vs plain (atol 1e-4 on losses of ~log V: fp32
-    sums of V exponentials in another order); returns the record at the
-    tiny training shape, the path phase 6c drives."""
+    sums of V exponentials in another order), each shape on the route its
+    shape names (counted), a repeat bit-identical; at the large shapes a
+    profile of five calls must show that route's kernel by name, and gives
+    its device time.  Returns the record at the tiny training shape, the
+    path phase 6c drives."""
     import torch
     import torch.nn.functional as F
 
@@ -644,20 +743,39 @@ def phase_xent() -> dict:
                   ).to(getattr(torch, dtype))
         labels = torch.randint(0, V, (rows,), generator=gen, device=DEV
                                ).to(getattr(torch, ldtype))
+        # Labels outside [0, V) pick no target (F.cross_entropy refuses
+        # them, so the timed inputs keep every label inside).
+        outside = labels.clone()
+        outside[:2] = torch.tensor([-1, V])
+        which = xent.route(rows, V, logits.element_size())
+        before = dict(xent.xent_fwd.route_launches)
         out = xent.xent_fwd(logits, labels)
+        again = xent.xent_fwd(logits, labels)
+        out_outside = xent.xent_fwd(logits, outside)
         ref = xent._reference(logits, labels)
+        ref_outside = xent._reference(logits, outside)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
+        ran = {k: v - before[k] for k, v in xent.xent_fwd.route_launches
+               .items()}
+        if ran != {k: 3 if k == which else 0 for k in ran}:
+            raise SystemExit(f"xent [{rows},{V}] {dtype}: routes {ran}, "
+                             f"want 3 on {which}")
+        err = max(float((out - ref).abs().max()),
+                  float((out_outside - ref_outside).abs().max()))
         if not err <= 1e-4:
             raise SystemExit(f"xent [{rows},{V}] {dtype}: max err {err} "
                              "(atol 1e-4)")
+        if not torch.equal(out, again):
+            raise SystemExit(f"xent [{rows},{V}] {dtype}: a repeat differs")
         nbytes = rows * V * logits.element_size() + \
             rows * labels.element_size() + 4 * rows
         ops = 4.0 * rows * V
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / FP32_FLOPS_PER_S * 1e3
         row = {"rows": rows, "v": V, "dtype": dtype, "labels": ldtype,
+               "route": which, "kernel": XENT_KERNELS[which],
                "max_abs_err": err, "tolerance": "atol 1e-4",
+               "repeat_bit_identical": True,
                "ms": time_ms(lambda: xent.xent_fwd(logits, labels)),
                "plain_ms": time_ms(lambda: xent._reference(logits, labels),
                                    iters=50),
@@ -666,9 +784,32 @@ def phase_xent() -> dict:
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "bytes": nbytes}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if rows >= 1024:
+            def five_calls():
+                for _ in range(5):
+                    xent.xent_fwd(logits, labels)
+                torch.cuda.synchronize()
+
+            # The route counters above count every launch; the profile
+            # shows by name which kernel ran (it may miss the first launch
+            # of its window) and gives its device time a launch.
+            _, kernels, _ = step_profile(five_calls, iters=5)
+            us, n = kernel_device_us(kernels, row["kernel"])
+            others = [e.key[:60] for e in kernels if "xent_" in e.key
+                      and row["kernel"] not in e.key]
+            if not n or others:
+                raise SystemExit(
+                    f"xent [{rows},{V}] {dtype}: the profile shows {n} "
+                    f"{row['kernel']} launches, and {others}")
+            row["profiled_launches"] = n
+            row["device_us"] = us
+            row["device_bound_share"] = row["bound_ms"] * 1e3 / us
         log("phase5 xent " + json.dumps(row))
         if (rows, V) == (128, 256):
             rec = row
+        del logits, labels, outside, out, again, out_outside, ref, \
+            ref_outside
     return rec
 
 

@@ -7,9 +7,11 @@ hash of the sources and flags, and loads it with ``ctypes``.  A library
 whose hash is already on disk is loaded as it is; a changed source builds
 anew.  A failed build raises: there is no fallback.
 
-No PyTorch header is compiled, so a build takes seconds, not minutes.  The
+A kernel's sources are its ``.cu`` files, which ``nvcc`` compiles, and the
+headers they include (``.cuh``), which count only in the hash.  No PyTorch
+header is compiled, so a build takes seconds, not minutes.  The flash
 wrappers pass pointers (``tensor.data_ptr()``) and PyTorch's current stream
-(``torch.cuda.current_stream().cuda_stream``) as ``ctypes.c_void_p``.
+as ``ctypes.c_void_p``; the other wrappers call through ``ops/_launch.py``.
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ def _digest(sources: Sequence[Path]) -> str:
 
 
 def build(name: str, sources: Sequence[str]) -> Path:
-    """Compile ``sources`` (file names under ``ops/csrc/``) into
+    """Compile the ``.cu`` files of ``sources`` (file names under
+    ``ops/csrc/``, with the headers they include) into
     ``build/kernels/lib<name>-<hash>.so`` unless it exists; returns the
     path.  Safe to call from several threads or processes at once: each
     compiles to a private file and renames it into place."""
@@ -70,7 +73,8 @@ def build(name: str, sources: Sequence[str]) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+    units = [str(p) for p in paths if p.suffix == ".cu"]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *units]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

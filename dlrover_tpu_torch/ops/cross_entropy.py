@@ -26,23 +26,43 @@ Held against ``dlrover_tpu/ops/cross_entropy.py``:
   so the logits are the reference's up to the order of the fp32 sum.
 
 :func:`xent_fwd` runs the plain version only for a tensor on the CPU; for
-a CUDA tensor it launches the kernel or raises.  ``xent_fwd.launches``
-counts the launches.
+a CUDA tensor it launches the kernel or raises.  The kernel has two routes,
+chosen by :func:`route` from the logits' shape alone:
+
+- ``"cluster"`` (``xent_cluster_kernel``): a thread-block cluster of up
+  to :data:`CLUSTER` CTAs owns a row and reads each logit from device
+  memory once, staged in shared memory (at most :data:`SLICE_BYTES` a CTA;
+  the cluster has as few CTAs as that allows).  It takes every row whose
+  ``V`` elements fit :data:`CLUSTER` x :data:`SLICE_BYTES` (V <= 65536
+  fp32, 131072 bf16), at up to ``2**31 / 8`` rows;
+- ``"two_pass"`` (``xent_fwd_kernel``): one block a row that reads it
+  twice, for wider rows (or more rows).
+
+A route is not a fallback: the wrapper launches the one the shape names,
+and a failed build or launch raises.  ``xent_fwd.launches`` counts the
+launches and ``xent_fwd.route_launches`` the launches of each route.  The
+launch takes the lean host call of ``ops/_launch.py``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.ops import _launch
+from dlrover_tpu_torch.ops._launch import INT_MAX, LO
 
-SOURCES = ("cross_entropy.cu",)
+SOURCES = ("cross_entropy.cu", "launch.cuh")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _LABEL_CODES = {torch.int32: 0, torch.int64: 1}
 DEFAULT_CHUNK_ROWS = 1024
+# The cluster route: CTAs a row at most, and the shared memory a CTA holds
+# of it at most (``kMaxCluster`` and ``kSliceBytes`` in
+# csrc/cross_entropy.cu).
+CLUSTER = 8
+SLICE_BYTES = 32 * 1024
+ROUTES = ("cluster", "two_pass")  # the entry point's route codes 0 and 1
 
 
 def _target(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -84,76 +104,86 @@ def build() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    fn = _build.load("cross_entropy", SOURCES).dlr_xent_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    return _launch.bind("cross_entropy", SOURCES, "dlr_xent_fwd")
 
 
-def _launch(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    if logits.dtype not in _DTYPE_CODES:
+def route(rows: int, V: int, element_size: int) -> str:
+    """The kernel route for ``rows`` rows of ``V`` logits of
+    ``element_size`` bytes (see the module docstring)."""
+    if V * element_size <= CLUSTER * SLICE_BYTES and \
+            rows <= INT_MAX // CLUSTER:
+        return "cluster"
+    return "two_pass"
+
+
+def _launch_kernel(logits: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """Checks (cheapest first), a fresh output, one launch of the shape's
+    route on the caller's stream for the logits' device."""
+    code = _DTYPE_CODES.get(logits.dtype)
+    if code is None:
         raise TypeError(
             f"cross-entropy kernel takes float32 or bfloat16 logits, got "
             f"{logits.dtype}"
         )
-    if labels.dtype not in _LABEL_CODES:
+    label64 = _LABEL_CODES.get(labels.dtype)
+    if label64 is None:
         raise TypeError(
             f"cross-entropy kernel takes int32 or int64 labels, got "
             f"{labels.dtype}"
         )
-    V = logits.shape[-1] if logits.dim() else 0
-    if V == 0 or tuple(labels.shape) != tuple(logits.shape[:-1]):
+    shape = logits.shape
+    V = shape[-1] if shape else 0
+    if V == 0 or labels.shape != shape[:-1]:
         raise ValueError(
-            f"cross-entropy: logits {tuple(logits.shape)} and labels "
+            f"cross-entropy: logits {tuple(shape)} and labels "
             f"{tuple(labels.shape)} do not match"
         )
-    if labels.device != logits.device:
+    dev = logits.get_device()
+    if labels.get_device() != dev:
         raise ValueError(
             f"labels on {labels.device}, logits on {logits.device}"
         )
     if not logits.is_contiguous():
         raise ValueError("cross-entropy kernel needs contiguous logits")
     labels = labels.contiguous()
+    loss = torch.empty_like(labels, dtype=torch.float32)
     rows = logits.numel() // V
-    loss = torch.empty(labels.shape, dtype=torch.float32,
-                       device=logits.device)
     if rows == 0:
         return loss
-    if rows > 0x7fffffff:
-        raise ValueError(f"cross-entropy kernel: {rows} rows is too many")
+    if rows > INT_MAX or V > INT_MAX:
+        raise ValueError(
+            f"cross-entropy kernel: logits {tuple(shape)} are too large")
+    which = route(rows, V, logits.element_size())
     fn = _kernel_fn()
-    with torch.cuda.device(logits.device):
-        rc = fn(
-            logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), rows, V,
-            _DTYPE_CODES[logits.dtype], _LABEL_CODES[labels.dtype],
-            torch.cuda.current_stream(logits.device).cuda_stream,
-        )
+    xp, lp, op, st = logits.data_ptr(), labels.data_ptr(), loss.data_ptr(), \
+        _launch.stream(dev)
+    rc = fn(xp & LO, xp >> 32, lp & LO, lp >> 32, op & LO, op >> 32, rows, V,
+            code, label64, ROUTES.index(which), dev, st & LO, st >> 32)
     if rc != 0:
         raise RuntimeError(
-            f"cross-entropy kernel launch failed: CUDA error {rc}"
+            f"cross-entropy kernel ({which}) launch failed: CUDA error {rc}"
         )
     xent_fwd.launches += 1
+    xent_fwd.route_launches[which] += 1
     return loss
 
 
 def xent_fwd(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Per-row loss (fp32): the kernel for CUDA tensors, the plain version
     for CPU tensors."""
-    if logits.device.type == "cpu":
+    if logits.is_cuda:
+        return _launch_kernel(logits, labels)
+    if logits.is_cpu:
         return _reference(logits, labels)
-    if logits.device.type != "cuda":
-        raise ValueError(
-            f"cross-entropy runs on cuda (kernel) or cpu (plain), got "
-            f"{logits.device}"
-        )
-    return _launch(logits, labels)
+    raise ValueError(
+        f"cross-entropy runs on cuda (kernel) or cpu (plain), got "
+        f"{logits.device}"
+    )
 
 
 xent_fwd.launches = 0
+xent_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 class SoftmaxCrossEntropy(torch.autograd.Function):

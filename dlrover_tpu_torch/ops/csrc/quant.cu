@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr int kBlock = 128;
@@ -119,17 +121,31 @@ void launch(const void* x, void* codes, void* scale, long long n,
 }  // namespace
 
 // x: contiguous flat input of n elements, dtype 0 = fp32, 1 = bf16;
-// codes: int8 [ceil(n / 128), 128]; scale: fp32 [ceil(n / 128)].
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int dlr_quant_blockwise(const void* x, void* codes, void* scale,
-                                   long long n, int dtype, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+// codes: int8 [ceil(n / 128), 128]; scale: fp32 [ceil(n / 128)]; all on CUDA
+// device `device`.  Each pointer, n and the stream arrive as two 32-bit
+// halves (launch.cuh).  Launches on `stream` with `device` current and
+// returns cudaGetLastError() (0 on success).
+extern "C" int dlr_quant_blockwise(uint32_t x_lo, uint32_t x_hi,
+                                   uint32_t codes_lo, uint32_t codes_hi,
+                                   uint32_t scale_lo, uint32_t scale_hi,
+                                   uint32_t n_lo, uint32_t n_hi, int dtype,
+                                   int device, uint32_t stream_lo,
+                                   uint32_t stream_hi) {
+  const void* x = dlr::join_ptr<const void>(x_lo, x_hi);
+  void* codes = dlr::join_ptr<void>(codes_lo, codes_hi);
+  void* scale = dlr::join_ptr<void>(scale_lo, scale_hi);
+  const long long n = static_cast<long long>(dlr::join(n_lo, n_hi));
+  if (n <= 0 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const long long rows = (n + kBlock - 1) / kBlock;
   if ((rows + kWarpsPerCta - 1) / kWarpsPerCta > 0x7fffffffLL ||
       (reinterpret_cast<uintptr_t>(codes) % 4) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t s = dlr::join_ptr<CUstream_st>(stream_lo, stream_hi);
+  dlr::DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x);
   if (dtype == 0) {
     if (addr % 16 == 0) {
@@ -137,14 +153,12 @@ extern "C" int dlr_quant_blockwise(const void* x, void* codes, void* scale,
     } else {
       launch<float, false>(x, codes, scale, n, rows, s);
     }
-  } else if (dtype == 1) {
+  } else {
     if (addr % 8 == 0) {
       launch<__nv_bfloat16, true>(x, codes, scale, n, rows, s);
     } else {
       launch<__nv_bfloat16, false>(x, codes, scale, n, rows, s);
     }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

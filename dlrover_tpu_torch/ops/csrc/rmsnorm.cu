@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
+
 namespace {
 
 template <typename T, int VEC>
@@ -133,15 +135,24 @@ void launch(const void* x, const void* w, void* out, long long rows, int D,
 
 }  // namespace
 
-// x, out: contiguous [rows, D] of dtype (0 = fp32, 1 = bf16); w: fp32 [D].
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int dlr_rmsnorm_fwd(const void* x, const void* w, void* out,
-                               long long rows, int D, float eps, int dtype,
-                               void* stream) {
-  if (rows <= 0 || rows > 0x7fffffffLL || D <= 0) {
+// x, out: contiguous [rows, D] of dtype (0 = fp32, 1 = bf16); w: fp32 [D];
+// all on CUDA device `device`.  Each pointer and the stream arrive as two
+// 32-bit halves (launch.cuh).  Launches on `stream` with `device` current
+// and returns cudaGetLastError() (0 on success).
+extern "C" int dlr_rmsnorm_fwd(uint32_t x_lo, uint32_t x_hi, uint32_t w_lo,
+                               uint32_t w_hi, uint32_t out_lo,
+                               uint32_t out_hi, int rows, int D, float eps,
+                               int dtype, int device, uint32_t stream_lo,
+                               uint32_t stream_hi) {
+  if (rows <= 0 || D <= 0 || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* x = dlr::join_ptr<const void>(x_lo, x_hi);
+  const void* w = dlr::join_ptr<const void>(w_lo, w_hi);
+  void* out = dlr::join_ptr<void>(out_lo, out_hi);
+  cudaStream_t s = dlr::join_ptr<CUstream_st>(stream_lo, stream_hi);
+  dlr::DeviceScope scope(device);
+  if (scope.status() != cudaSuccess) return static_cast<int>(scope.status());
   const uintptr_t addr = reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(w) |
                          reinterpret_cast<uintptr_t>(out);
@@ -152,14 +163,12 @@ extern "C" int dlr_rmsnorm_fwd(const void* x, const void* w, void* out,
     } else {
       launch<__nv_bfloat16, 1>(x, w, out, rows, D, eps, s);
     }
-  } else if (dtype == 0) {
+  } else {
     if (aligned && D % 4 == 0) {
       launch<float, 4>(x, w, out, rows, D, eps, s);
     } else {
       launch<float, 1>(x, w, out, rows, D, eps, s);
     }
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,14 +31,14 @@ Held against ``dlrover_tpu/ops/quant.py``:
   takes): the same per-parameter arithmetic (``per_leaf``) on moments
   held as dynamic 8-bit codes with fp32 block scales.
 
-``quantize_blockwise.launches`` counts the kernel's launches.  The 8-bit
+``quantize_blockwise.launches`` counts the kernel's launches; the launch
+takes the lean host call of ``ops/_launch.py``.  The 8-bit
 Adam update runs in plain PyTorch on the card and launches no kernel of
 this module: its moments use the dynamic codes, never the blockwise ones.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import Callable, List, NamedTuple, Optional, Tuple, Union
@@ -46,9 +46,10 @@ from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 import torch
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
-from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.ops import _launch
+from dlrover_tpu_torch.ops._launch import LO
 
-SOURCES = ("quant.cu",)
+SOURCES = ("quant.cu", "launch.cuh")
 BLOCK = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BACKENDS = ("auto", "cuda", "plain")
@@ -97,37 +98,33 @@ def build() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    fn = _build.load("quant", SOURCES).dlr_quant_blockwise
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    return _launch.bind("quant", SOURCES, "dlr_quant_blockwise")
 
 
-def _launch(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    if x.device.type != "cuda":
+def _launch_kernel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not x.is_cuda:
         raise ValueError(
             f"the blockwise quantize kernel runs on CUDA tensors, got one on "
             f"{x.device} (backend='auto' or 'plain' quantizes a CPU tensor)"
         )
-    if x.dtype not in _DTYPE_CODES:
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         # The reference casts every input to fp32 first; fp32 and bf16 are
         # read as they are (bf16 is widened in registers).
-        x = x.float()
+        x, code = x.float(), _DTYPE_CODES[torch.float32]
     x = x.contiguous()
     n = x.numel()
     rows = -(-n // BLOCK)
-    codes = torch.empty((rows, BLOCK), dtype=torch.int8, device=x.device)
-    scale = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    codes = x.new_empty((rows, BLOCK), dtype=torch.int8)
+    scale = x.new_empty((rows,), dtype=torch.float32)
     if n == 0:
         return codes, scale
     fn = _kernel_fn()
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), codes.data_ptr(), scale.data_ptr(), n,
-                _DTYPE_CODES[x.dtype],
-                torch.cuda.current_stream(x.device).cuda_stream)
+    dev = x.get_device()
+    xp, cp, sp, st = x.data_ptr(), codes.data_ptr(), scale.data_ptr(), \
+        _launch.stream(dev)
+    rc = fn(xp & LO, xp >> 32, cp & LO, cp >> 32, sp & LO, sp >> 32, n & LO,
+            n >> 32, code, dev, st & LO, st >> 32)
     if rc != 0:
         raise RuntimeError(
             f"blockwise quantize kernel launch failed: CUDA error {rc}"
@@ -167,7 +164,7 @@ def quantize_blockwise(x, *, stochastic: bool = False,
                          "quantized where it lies")
     if backend == "cuda" or (backend == "auto" and not stochastic
                              and x.device.type == "cuda"):
-        return _launch(x)
+        return _launch_kernel(x)
     if backend == "auto" and x.device.type not in ("cpu", "cuda"):
         raise ValueError(
             f"quantize_blockwise runs on cuda (kernel) or cpu (plain), got "

@@ -14,6 +14,10 @@ kernel either).
 CPU; for a CUDA tensor it launches the kernel or raises.
 ``rmsnorm.launches`` counts the kernel's launches.  When no gradient is
 wanted (the decode path) it calls the forward directly, outside autograd.
+The launch takes the lean host call of ``ops/_launch.py`` (the caller's
+stream read at every call, the device switched in C only when it differs,
+plain-int ctypes arguments): at the decode shape the call's host time, not
+the kernel, is what a decode step pays.
 """
 
 from __future__ import annotations
@@ -23,9 +27,10 @@ import functools
 
 import torch
 
-from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.ops import _launch
+from dlrover_tpu_torch.ops._launch import INT_MAX, LO
 
-SOURCES = ("rmsnorm.cu",)
+SOURCES = ("rmsnorm.cu", "launch.cuh")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -75,32 +80,31 @@ def build() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
-    fn = _build.load("rmsnorm", SOURCES).dlr_rmsnorm_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    return _launch.bind("rmsnorm", SOURCES, "dlr_rmsnorm_fwd")
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    if x.dtype not in _DTYPE_CODES:
+def _launch_kernel(x: torch.Tensor, w: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """Checks (cheapest first), a fresh output, one launch on the caller's
+    stream for ``x``'s device."""
+    code = _DTYPE_CODES.get(x.dtype)
+    if code is None:
         raise TypeError(
             f"rmsnorm kernel takes float32 or bfloat16 x, got {x.dtype}"
         )
     if not x.is_contiguous():
         raise ValueError("rmsnorm kernel needs a contiguous x")
-    D = x.shape[-1] if x.dim() else 0
+    shape = x.shape
+    D = shape[-1] if shape else 0
     if D == 0:
-        raise ValueError(f"rmsnorm over an empty last dim: {tuple(x.shape)}")
-    if w.dtype != torch.float32 or tuple(w.shape) != (D,):
+        raise ValueError(f"rmsnorm over an empty last dim: {tuple(shape)}")
+    if w.dtype != torch.float32 or w.shape != (D,):
         raise TypeError(
             f"rmsnorm gain must be float32 [{D}], got {w.dtype} "
             f"{tuple(w.shape)}"
         )
-    if w.device != x.device or not w.is_contiguous():
+    dev = x.get_device()
+    if w.get_device() != dev or not w.is_contiguous():
         raise ValueError(
             f"rmsnorm gain must be contiguous on {x.device}, got "
             f"{w.device}"
@@ -109,13 +113,13 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     rows = x.numel() // D
     if rows == 0:
         return out
+    if rows > INT_MAX or D > INT_MAX:
+        raise ValueError(f"rmsnorm kernel: shape {tuple(shape)} is too large")
     fn = _kernel_fn()
-    with torch.cuda.device(x.device):
-        rc = fn(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, D,
-            float(eps), _DTYPE_CODES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    xp, wp, op, st = x.data_ptr(), w.data_ptr(), out.data_ptr(), \
+        _launch.stream(dev)
+    rc = fn(xp & LO, xp >> 32, wp & LO, wp >> 32, op & LO, op >> 32, rows, D,
+            ctypes.c_float(eps), code, dev, st & LO, st >> 32)
     if rc != 0:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {rc}")
     rmsnorm.launches += 1
@@ -125,10 +129,10 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim; ``w`` is the fp32 [D] gain."""
-    if x.device.type == "cpu":
+    if x.is_cuda:
+        fwd = _launch_kernel
+    elif x.is_cpu:
         fwd = _reference
-    elif x.device.type == "cuda":
-        fwd = _launch
     else:
         raise ValueError(
             f"rmsnorm runs on cuda (kernel) or cpu (plain), got {x.device}"

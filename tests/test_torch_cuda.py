@@ -75,14 +75,22 @@ def test_rmsnorm_kernel_matches_plain(card, dtype, shape):
 def test_rmsnorm_kernel_refuses_what_it_does_not_take(card):
     x = torch.randn(4, 64, device=card)
     w = torch.ones(64, device=card)
+    before = rmsnorm.launches
     with pytest.raises(TypeError):
         rmsnorm(x.half(), w)
     with pytest.raises(TypeError):
         rmsnorm(x, w.bfloat16())
+    with pytest.raises(TypeError):
+        rmsnorm(x, torch.ones(63, device=card))
     with pytest.raises(ValueError):
         rmsnorm(x.t(), torch.ones(4, device=card))
     with pytest.raises(ValueError):
+        rmsnorm(torch.randn(4, 0, device=card), torch.ones(0, device=card))
+    with pytest.raises(ValueError):
         rmsnorm(x, w.cpu())
+    with pytest.raises(ValueError):
+        rmsnorm(x, torch.ones(128, device=card)[::2])
+    assert rmsnorm.launches == before
 
 
 def test_tiny_model_on_the_card_matches_the_cpu(card):
@@ -518,3 +526,200 @@ def _leaves(tree):
     if isinstance(tree, list):
         return [t for v in tree for t in _leaves(v)]
     return [tree]
+
+
+# ---------------------------------------------------------------------------
+# The lean host call of the RMSNorm, cross-entropy and quantize wrappers
+# (ops/_launch.py): the caller's stream, the tensor's device, fresh
+# outputs, the old errors and exact launch counts.
+# ---------------------------------------------------------------------------
+
+
+def _lean_case(name, device, seed):
+    """``(inputs, call, plain, check)`` of one wrapper at a path shape; the
+    first input is the one a test rewrites on a side stream."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if name == "rmsnorm":
+        x = (2.0 * torch.randn(8, 4096, generator=g, device=device)).bfloat16()
+        w = 1.0 + 0.1 * torch.randn(4096, generator=g, device=device)
+
+        def check(out, ref):
+            err = (out.double() - ref.double()).abs()
+            assert bool((err <= _bf16_ulp(ref)).all()), float(err.max())
+
+        return ([x, w], lambda x, w: rmsnorm(x, w, eps=1e-5),
+                lambda x, w: rms_mod._reference(x, w, 1e-5), check)
+    if name.startswith("xent"):
+        rows, V = (64, 32000) if name == "xent_cluster" else (8, 128256)
+        logits = 3.0 * torch.randn(rows, V, generator=g, device=device)
+        labels = torch.randint(0, V, (rows,), generator=g, device=device)
+
+        def check(out, ref):
+            assert float((out - ref).abs().max()) <= 1e-4
+
+        return [logits, labels], xent.xent_fwd, xent._reference, check
+    x = torch.randn(4 << 20, generator=g, device=device)
+
+    def check(out, ref):
+        assert torch.equal(out[0], ref[0])
+        assert torch.equal(out[1].view(torch.int32), ref[1].view(torch.int32))
+
+    return ([x], quant.quantize_blockwise,
+            lambda x: quant.quantize_blockwise(x, backend="plain"), check)
+
+
+LEAN = ["rmsnorm", "xent_cluster", "xent_two_pass", "quant"]
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.parametrize("name", LEAN)
+def test_lean_call_launches_on_the_callers_stream(card, name):
+    """On a side stream, a sleep and then a copy of new values into the
+    input, then the call: a kernel launched on any other stream than the
+    caller's current one runs at once and reads the old input."""
+    old, call, plain, check = _lean_case(name, card, 0)
+    new = _lean_case(name, card, 1)[0]
+    x = old[0].clone()
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)  # ~0.1 s of the side stream's time
+        x.copy_(new[0])
+        out = call(x, *new[1:])
+    torch.cuda.synchronize()
+    check(out, plain(*new))
+
+
+@pytest.mark.parametrize("name", LEAN)
+def test_lean_call_returns_fresh_outputs(card, name):
+    """Two calls return distinct tensors, and the second stays right after
+    the first is overwritten."""
+    inputs, call, plain, check = _lean_case(name, card, 2)
+    first, second = call(*inputs), call(*inputs)
+    ref = plain(*inputs)
+    torch.cuda.synchronize()
+    check(first, ref)
+    ptrs = {t.data_ptr() for t in _outputs(first) + _outputs(second)}
+    assert len(ptrs) == 2 * len(_outputs(first))
+    for t in _outputs(first):
+        t.zero_()
+    check(second, ref)
+
+
+@pytest.mark.parametrize("name", LEAN)
+def test_lean_call_counts_each_launch(card, name):
+    inputs, call, _, _ = _lean_case(name, card, 3)
+    wrapper = {"rmsnorm": rmsnorm, "quant": quant.quantize_blockwise}.get(
+        name, xent.xent_fwd)
+    routes = dict(xent.xent_fwd.route_launches)
+    before = wrapper.launches
+    for _ in range(3):
+        call(*inputs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 3
+    ran = {k: v - routes[k] for k, v in xent.xent_fwd.route_launches.items()}
+    if name.startswith("xent"):
+        route = name[len("xent_"):]
+        assert ran == {k: 3 if k == route else 0 for k in ran}
+    else:
+        assert not any(ran.values())
+
+
+def test_lean_call_launches_on_the_tensors_device(card):
+    """A tensor on cuda:1 launches on cuda:1 while cuda:0 is current (and
+    the other way round), on the caller's stream of that device, and the
+    caller's current device is the same afterwards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for name in LEAN:
+        for home, other in ((1, 0), (0, 1)):
+            inputs, call, plain, check = _lean_case(name, f"cuda:{home}", 4)
+            torch.cuda.synchronize(home)
+            with torch.cuda.device(other):
+                out = call(*inputs)
+                assert torch.cuda.current_device() == other
+            check(out, plain(*inputs))
+            new = _lean_case(name, f"cuda:{home}", 5)[0]
+            x = inputs[0].clone()
+            side = torch.cuda.Stream(device=home)
+            torch.cuda.synchronize(home)
+            with torch.cuda.stream(side):  # also makes cuda:<home> current
+                torch.cuda._sleep(200_000_000)
+                x.copy_(new[0])
+                with torch.cuda.device(other):
+                    out = call(x, *new[1:])
+                    assert torch.cuda.current_device() == other
+            torch.cuda.synchronize(home)
+            check(out, plain(*new))
+
+
+def test_xent_kernel_refuses_what_it_does_not_take(card):
+    logits = torch.randn(4, 64, device=card)
+    labels = torch.zeros(4, dtype=torch.long, device=card)
+    before = xent.xent_fwd.launches
+    with pytest.raises(TypeError):
+        xent.xent_fwd(logits.half(), labels)
+    with pytest.raises(TypeError):
+        xent.xent_fwd(logits, labels.float())
+    with pytest.raises(ValueError):
+        xent.xent_fwd(logits, labels[:3])
+    with pytest.raises(ValueError):
+        xent.xent_fwd(torch.randn(4, 0, device=card), labels)
+    with pytest.raises(ValueError):
+        xent.xent_fwd(logits, labels.cpu())
+    with pytest.raises(ValueError):
+        xent.xent_fwd(logits.t(), torch.zeros(64, dtype=torch.long,
+                                              device=card))
+    assert xent.xent_fwd.launches == before
+
+
+@pytest.mark.parametrize("rows,V,dtype,ldtype,route", [
+    (64, 32000, torch.float32, torch.int64, "cluster"),
+    (64, 32000, torch.bfloat16, torch.int32, "cluster"),
+    (33, 32001, torch.float32, torch.int32, "cluster"),
+    (40, 32001, torch.bfloat16, torch.int64, "cluster"),
+    (100, 256, torch.float32, torch.int32, "cluster"),
+    (100, 256, torch.bfloat16, torch.int64, "cluster"),
+    (16, 65536, torch.float32, torch.int64, "cluster"),
+    (16, 131072, torch.bfloat16, torch.int32, "cluster"),
+    (16, 65537, torch.float32, torch.int32, "two_pass"),
+    (8, 128256, torch.bfloat16, torch.int64, "cluster"),
+    (8, 262144, torch.bfloat16, torch.int64, "two_pass"),
+])
+def test_xent_routes_match_plain_and_repeat(card, rows, V, dtype, ldtype,
+                                            route):
+    """Each route against plain (atol 1e-4), labels -1 and V picking no
+    target, a repeat bit-identical, each launch counted on its route."""
+    g = torch.Generator(device=card).manual_seed(rows + V)
+    logits = (3.0 * torch.randn(rows, V, generator=g, device=card)).to(dtype)
+    labels = torch.randint(0, V, (rows,), generator=g, device=card)
+    labels[0], labels[1] = -1, V
+    labels = labels.to(ldtype)
+    assert xent.route(rows, V, logits.element_size()) == route
+    before = dict(xent.xent_fwd.route_launches)
+    out = xent.xent_fwd(logits, labels)
+    again = xent.xent_fwd(logits, labels)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in xent.xent_fwd.route_launches.items()}
+    assert ran == {k: 2 if k == route else 0 for k in ran}
+    assert torch.equal(out, again)
+    ref = xent._reference(logits, labels)
+    assert float((out - ref).abs().max()) <= 1e-4
+    lse = torch.logsumexp(logits[:2].double(), dim=-1)
+    assert float((out[:2].double() - lse).abs().max()) <= 1e-4
+
+
+def test_xent_cluster_route_takes_an_unaligned_row(card):
+    """Logits 4 bytes past an aligned base: single-element loads."""
+    g = torch.Generator(device=card).manual_seed(9)
+    buf = 3.0 * torch.randn(64 * 32000 + 1, generator=g, device=card)
+    logits = buf[1:].view(64, 32000)
+    labels = torch.randint(0, 32000, (64,), generator=g, device=card)
+    before = xent.xent_fwd.route_launches["cluster"]
+    out = xent.xent_fwd(logits, labels)
+    torch.cuda.synchronize()
+    assert xent.xent_fwd.route_launches["cluster"] == before + 1
+    assert float((out - xent._reference(logits, labels)).abs().max()) <= 1e-4
