@@ -6,7 +6,7 @@ NVIDIA H100.
 
 It builds every CUDA kernel of the port's serving and training paths from
 the sources in this checkout (one ``nvcc`` per source, all started
-together), then runs eight phases and exits non-zero if any fails:
+together), then runs nine phases and exits non-zero if any fails:
 
 1. RMSNorm kernel vs plain: the kernel against its plain PyTorch version on
    the card, at the serving path's shapes, with times (CUDA events; the
@@ -42,9 +42,11 @@ together), then runs eight phases and exits non-zero if any fails:
    flash kernels; step time, tokens/s, MFU, peak memory and a profiled
    step's device busy share, whose kernels must include 24
    ``flash_fwd_wgmma``, 24 ``flash_dq_wgmma`` and 24 ``flash_dkv_wgmma``
-   launches and no bf16 instance of a CUDA-core flash kernel; (c) the tiny
-   model's
-   training through the cross-entropy kernel, one launch per step.
+   launches and no bf16 instance of a CUDA-core flash kernel, and the
+   RMSNorm kernel at that step's shape ([8192, 1536] bf16): its device
+   time a launch from the profile, the call and ``F.rms_norm`` in turns,
+   its byte bound; (c) the tiny model's training through the
+   cross-entropy kernel, one launch per step.
 7. Blockwise int8 quantize: the op ``quantize_blockwise`` at the JAX
    kernel smoke's shape (4 Mi fp32 values, seed 4) with the kernel counts
    reset just before and read just after, its round trip within
@@ -60,7 +62,24 @@ together), then runs eight phases and exits non-zero if any fails:
    and a profiled step with the optimizer's device time, whose kernels
    must include 48 ``flash_fwd_wgmma``, 24 ``flash_dq_wgmma`` and 24
    ``flash_dkv_wgmma`` launches and no bf16 instance of a CUDA-core flash
-   kernel.
+   kernel.  Then its state goes through ``FlashCheckpointer`` (to memory,
+   then to storage), is restored into a freshly built state and held bit
+   for bit (the fp32 masters, the int8 codes, their scales, the step count
+   and the rounding generator), and one more step of each gives bit-equal
+   losses and states.
+9. Flash checkpoint: Llama-800M with AdamW (full width and depth, B 4 x S
+   2048) through ``train.main --ckpt_dir``: two uninterrupted runs of 3
+   steps agree bit for bit (else the op that is not deterministic is
+   named); a run stops after step 2 and its save; a child process
+   (``python -m dlrover_tpu_torch.train``) restores it from the shm arena
+   (warm), another from storage alone (cold), and each trains step 3,
+   whose loss and resulting state (every tensor's CRC-32) must equal the
+   uninterrupted run's, through the flash and RMSNorm kernels.  fsck finds
+   the directory clean; a byte flipped in a tensor of the newest step is
+   reported, quarantined by ``load`` and the older step restored.  The
+   stall (device-to-host and arena copy), the persist, the restores, the
+   bytes and ``torch.save`` of the same state beside the card's name and
+   power limit on a line ``phase9 checkpoint {...}``.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -75,10 +94,13 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -93,6 +115,9 @@ SEED = 0
 DEV = "cuda"
 A8_STEPS = 4  # phase 8; the first step carries set-up
 A8_BATCH, A8_SEQ = 16, 2048  # phase 8
+CKPT_MODEL = "800m"  # phase 9
+CKPT_K = 2  # phase 9: the interrupted run stops after step K
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 QUANT_OPS_PER_ELEMENT = 6  # |x|, max, divide, round, clip (2)
 
 
@@ -899,9 +924,26 @@ def run_train_cli(train, argv, counted) -> dict:
     done = [ln for ln in out.splitlines() if ln.startswith("TRAIN_DONE")]
     if rc != 0 or not done:
         raise SystemExit(f"train.main({argv}) failed: rc {rc}\n{out}")
-    stats = dict(kv.split("=", 1) for kv in done[-1].split()[1:])
+    stats = parse_train_output(out)
     stats["counts"] = {w.__name__: w.launches for w in counted}
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return stats
+
+
+def parse_train_output(out: str) -> dict:
+    """The fields of a training run's ``TRAIN_DONE`` line, its
+    ``CKPT_STATS`` (``ckpt``), its ``restored step=`` lines (``restored``)
+    and the stall of each save to memory (``memory_save_stall_ms``)."""
+    lines = out.splitlines()
+    done = [ln for ln in lines if ln.startswith("TRAIN_DONE")]
+    stats = dict(kv.split("=", 1) for kv in done[-1].split()[1:])
+    ckpt = [ln for ln in lines if ln.startswith("CKPT_STATS ")]
+    if ckpt:
+        stats["ckpt"] = json.loads(ckpt[-1].split(" ", 1)[1])
+    stats["restored"] = [ln for ln in lines if "restored step=" in ln]
+    stats["memory_save_stall_ms"] = [
+        float(ln.split("(stall ")[1].split()[0]) for ln in lines
+        if "to memory (stall " in ln]
     return stats
 
 
@@ -925,6 +967,48 @@ def profile_train_step(train, args) -> dict:
     res, kernels, _ = step_profile(run)
     del state, job
     return res, kernels
+
+
+def rmsnorm_train_row(kernels, cfg) -> dict:
+    """RMSNorm at the 800M training shape ([B·S, d_model] bf16, fp32 gain):
+    the device time a launch from the profiled step's kernels, the call
+    and ``F.rms_norm`` in turns (CUDA events), the plain version, the byte
+    bound (the rows read and written once, the gain read once) and the
+    kernel against the plain version (1 bf16 ulp)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import rmsnorm as rms
+
+    rows, D, eps = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.rms_eps
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 31)
+    x = (torch.randn(rows, D, generator=gen, device=DEV) * 2.0).to(
+        torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(D, generator=gen, device=DEV)
+    ref = rms._reference(x, w, eps)
+    err = (rms.rmsnorm(x, w, eps=eps).double() - ref.double()).abs()
+    if not bool((err <= bf16_ulp(ref)).all()):
+        raise SystemExit(f"rmsnorm kernel disagrees with plain at {rows}x{D}"
+                         f": max err {float(err.max())}")
+    w_lib = w.to(torch.bfloat16)
+    turns = time_turns({
+        "kernel": lambda: rms.rmsnorm(x, w, eps=eps),
+        "library": lambda: F.rms_norm(x, (D,), w_lib, eps),
+    }, pairs=2, iters=200)
+    device_us, launches = kernel_device_us(kernels, "rmsnorm_fwd_kernel")
+    nbytes = 2 * rows * D * x.element_size() + 4 * D
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"rows": rows, "d": D, "dtype": "bf16", "max_abs_err":
+           float(err.max()), "tolerance": "1 bf16 ulp of the plain value",
+           "device_us": device_us, "profile_launches": launches,
+           "ms": turns["kernel"][0], "library_ms": turns["library"][0],
+           "ms_turns": {k: v[1] for k, v in turns.items()},
+           "plain_ms": time_ms(lambda: rms._reference(x, w, eps), iters=50),
+           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes}
+    row["bound_share"] = bound_ms / row["ms"]
+    if device_us:
+        row["device_bound_share"] = bound_ms * 1e3 / device_us
+    return row
 
 
 def phase_train(llama, train, counted) -> dict:
@@ -972,6 +1056,7 @@ def phase_train(llama, train, counted) -> dict:
         "800m training profile")
     res["profile"]["flash_device_us_per_launch"] = {
         name: kernel_device_us(kernels, name)[0] for name in TC_FLASH}
+    res["rmsnorm_train_shape"] = rmsnorm_train_row(kernels, cfg)
     del kernels
     torch.cuda.empty_cache()
     log("phase6b train 800m " + json.dumps(res))
@@ -1206,8 +1291,317 @@ def phase_adam8bit(llama, counted) -> dict:
         if e.device_type == DeviceType.CPU and "Adam8bit.step" in e.key) / 1e3
     res["profile"] = prof
     log("phase8 adam8bit train " + json.dumps(res))
+    res["checkpoint"] = ckpt_adam8bit(job, state, batch)
+    log("phase8 adam8bit checkpoint " + json.dumps(res["checkpoint"]))
     del state, job, opt
     torch.cuda.empty_cache()
+    return res
+
+
+def state_diff(a, b) -> dict:
+    """Leaves of two training states (``tree_utils.flatten_to_shards``
+    keys) that are not bit-equal, with the count and bytes compared."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint import tree_utils
+
+    ta, _ = tree_utils.flatten_to_shards(a)
+    tb, _ = tree_utils.flatten_to_shards(b)
+    unequal = sorted(set(ta) ^ set(tb)) + [
+        k for k in ta if k in tb and not (
+            ta[k].dtype == tb[k].dtype and ta[k].shape == tb[k].shape
+            and torch.equal(ta[k], tb[k].to(ta[k].device)))]
+    return {"tensors": len(ta), "unequal": unequal,
+            "bytes": sum(t.numel() * t.element_size() for t in ta.values())}
+
+
+def ckpt_adam8bit(job, state, batch) -> dict:
+    """Phase 8's state (fp32 masters, int8 moments, their scales, the step
+    count and the rounding generator) through ``FlashCheckpointer``: saved
+    to memory and then to storage, restored into a freshly built state
+    (other seed), held bit-equal tensor by tensor, and then one more step
+    of each: the losses bit-equal and the two states still bit-equal."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint.checkpointer import FlashCheckpointer
+    from dlrover_tpu_torch.common.shm import unlink_arena
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_a8_")
+    ck = FlashCheckpointer(tmp, job_name=f"chip-smoke-a8-{os.getpid()}",
+                           max_to_keep=1)
+    try:
+        meta = {"step": state["step"]}
+        ck.save(state, meta=meta)
+        first = ck.engine.stats()
+        ck.save(state, meta=meta, storage=True)
+        if not ck.wait():
+            raise SystemExit("adam8bit checkpoint: the persist failed")
+        saved = ck.engine.stats()
+        fresh = job.create_state(
+            torch.Generator(device=DEV).manual_seed(SEED + 1))
+        if ck.load(fresh) is None or \
+                ck.engine.last_restore_source != "shm":
+            raise SystemExit(f"adam8bit checkpoint: no warm restore "
+                             f"({ck.engine.stats()})")
+        restore = {f: ck.engine.stats()[f] for f in (
+            "restore_ms", "restore_copy_ms")}
+        before = state_diff(state, fresh)
+        _, m1 = job.train_step(state, batch)
+        _, m2 = job.train_step(fresh, batch)
+        losses = [float(m1["loss"]), float(m2["loss"])]
+        after = state_diff(state, fresh)
+        del fresh
+        if before["unequal"] or after["unequal"] or losses[0] != losses[1]:
+            raise SystemExit(
+                f"adam8bit restore not bit-equal: restored "
+                f"{before['unequal'][:5]}, after a step "
+                f"{after['unequal'][:5]}, losses {losses}")
+    finally:
+        ck.close()
+        unlink_arena(ck.engine.arena.name)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"tensors": before["tensors"], "state_bytes": before["bytes"],
+            "first_save_stall_ms": first["stall_ms"],
+            "first_save_d2h_ms": first["d2h_ms"],
+            "first_save_arena_ms": first["arena_ms"],
+            "stall_ms": saved["stall_ms"], "d2h_ms": saved["d2h_ms"],
+            "arena_ms": saved["arena_ms"], "persist_ms": saved["persist_ms"],
+            "persist_mbps": saved["persist_mbps"],
+            "shard_bytes": saved["shard_bytes"],
+            "arena_bytes": saved["arena_bytes"],
+            "arena_backend": saved["arena_backend"],
+            "warm_restore": restore, "restored_bit_equal": True,
+            "next_step_losses": losses}
+
+
+def train_child(argv, what: str) -> dict:
+    """``python -m dlrover_tpu_torch.train argv`` in a process of its own;
+    its ``parse_train_output`` fields."""
+    import torch
+
+    torch.cuda.empty_cache()  # the child needs the card's memory
+    proc = subprocess.run(
+        [sys.executable, "-m", "dlrover_tpu_torch.train", *argv],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
+    out = proc.stdout
+    log("\n".join("  " + ln for ln in out.strip().splitlines()[-3:]))
+    if proc.returncode != 0 or "TRAIN_DONE" not in out:
+        raise SystemExit(f"{what}: rc {proc.returncode}\n{out[-3000:]}\n"
+                         f"{proc.stderr[-5000:]}")
+    return parse_train_output(out)
+
+
+def shard_crcs(ckpt_dir: str, step: int) -> dict:
+    """Each tensor's CRC-32 in the shard of ``step`` (meta only)."""
+    from dlrover_tpu_torch.checkpoint import shard_file
+    from dlrover_tpu_torch.common.storage import PosixDiskStorage
+
+    man = shard_file.read_shard_manifest(PosixDiskStorage(), ckpt_dir, step,
+                                         0)
+    if man is None:
+        raise SystemExit(f"no shard of step {step} in {ckpt_dir}")
+    return {k: tm["ref"]["crc32"] if isinstance(tm.get("ref"), dict)
+            else tm["crc32"] for k, tm in man.tensors.items()}
+
+
+def name_nondeterministic_op(llama, train, argv) -> str:
+    """Two forwards and backwards of one fresh state on one batch: where
+    they first differ."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint import tree_utils
+
+    args = train.parse_args(argv)
+    cfg, _, state = train.build(args)
+    toks = torch.from_numpy(train.synth_tokens(
+        range(args.batch_per_proc), args.seq_len, cfg.vocab_size)).to(DEV)
+    (l1, g1), (l2, g2) = (loss_and_grads(llama, state["params"],
+                                         {"tokens": toks}, cfg)
+                          for _ in range(2))
+    if l1 != l2:
+        return f"the forward (llama.loss_fn): {l1!r} then {l2!r}"
+    paths = [leaf.path for leaf in tree_utils.state_leaves(state["params"])]
+    for path, a, b in zip(paths, g1, g2):
+        if not torch.equal(a, b):
+            return f"the backward: two gradients of {path} differ"
+    return ("neither the forward nor the backward of a step: the optimizer "
+            "update or state carried across steps")
+
+
+def expected_launches(cfg, steps: int) -> dict:
+    return {"flash_fwd": cfg.n_layer * steps, "flash_dq": cfg.n_layer * steps,
+            "flash_dkv": cfg.n_layer * steps,
+            "rmsnorm": (2 * cfg.n_layer + 1) * steps}
+
+
+def phase_checkpoint(llama, train, counted, card: str) -> dict:
+    """Phase 9: flash checkpointing of Llama-800M (AdamW, full width and
+    depth, B 4 x S 2048) through the training CLI.  Two uninterrupted runs
+    of K + 1 steps (one checkpointing) must agree bit for bit; a run stops
+    after step K and its save; a restore in a child process from the arena
+    it left (warm) and one from storage alone (cold: a hard-linked copy of
+    the directory, whose arena namespace holds nothing) each train step K
+    + 1, whose loss must equal the uninterrupted run's bit for bit, and
+    whose saved state must equal the uninterrupted run's (every tensor's
+    CRC-32).  fsck finds the directory clean; a byte flipped in a tensor
+    of the newest step is reported, quarantined by ``load``, and the older
+    step restored, whose next step again gives the uninterrupted loss.
+    ``torch.save`` of the same state to the same disk is timed as a
+    yardstick."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint import fsck, shard_file
+    from dlrover_tpu_torch.checkpoint.checkpointer import FlashCheckpointer
+    from dlrover_tpu_torch.common.shm import arena_name, unlink_arena
+    from dlrover_tpu_torch.common.storage import PosixDiskStorage
+    from dlrover_tpu_torch.trainer.sampler import ElasticSampler
+
+    k = CKPT_K
+    base = ["--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ),
+            "--batch_per_proc", str(TRAIN_BATCH), "--device", DEV]
+    cfg = train.build_config(train.parse_args(base))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    dirs = {n: os.path.join(tmp, n) for n in ("straight", "run", "cold")}
+    arenas = {n: arena_name(train.ckpt_job_name(d), 0)
+              for n, d in dirs.items()}
+    res = {"card": card, "model": f"{CKPT_MODEL}, AdamW", "k": k,
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ}
+    try:
+        straight = run_train_cli(train, base + ["--steps", str(k + 1)],
+                                 counted)
+        ckpted = run_train_cli(train, base + [
+            "--steps", str(k + 1), "--ckpt_dir", dirs["straight"],
+            "--ckpt_interval", str(k + 1)], counted)
+        res["uninterrupted_losses"] = [straight["first_loss"],
+                                       straight["loss"]]
+        if (straight["first_loss"], straight["loss"]) != \
+                (ckpted["first_loss"], ckpted["loss"]):
+            torch.cuda.empty_cache()
+            other = [ckpted["first_loss"], ckpted["loss"]]
+            op = name_nondeterministic_op(llama, train, base)
+            raise SystemExit(
+                f"two uninterrupted runs differ "
+                f"({res['uninterrupted_losses']} vs {other}); not "
+                f"deterministic: {op}")
+        want_crcs = shard_crcs(dirs["straight"], k + 1)
+        shard_bytes = ckpted["ckpt"]["shard_bytes"]
+        shutil.rmtree(dirs["straight"])
+        unlink_arena(arenas["straight"])
+        free = shutil.disk_usage(tmp).free
+        if free < 3.2 * shard_bytes:
+            raise SystemExit(f"checkpoint phase needs ~{3.2 * shard_bytes:.0f}"
+                             f" bytes of disk under {tmp}, {free} are free")
+
+        run = run_train_cli(train, base + [
+            "--steps", str(k), "--ckpt_dir", dirs["run"],
+            "--ckpt_interval", str(k)], counted)
+        report = fsck.fsck(dirs["run"])
+        if report.damaged or report.committed_step != k:
+            raise SystemExit(f"fsck of the interrupted run: "
+                             f"{report.to_dict()}")
+        ck = run["ckpt"]
+        res.update({
+            "state_bytes": ck["staged_bytes"],
+            "shard_bytes": ck["shard_bytes"],
+            "arena_bytes": ck["arena_bytes"],
+            "arena_backend": ck["arena_backend"],
+            "first_save_stall_ms": run["memory_save_stall_ms"][0],
+            "stall_ms": ck["stall_ms"], "d2h_ms": ck["d2h_ms"],
+            "arena_ms": ck["arena_ms"], "persist_ms": ck["persist_ms"],
+            "persist_mbps": ck["persist_mbps"], "fsck": "clean"})
+        if ck["arena_backend"] != "native":
+            raise SystemExit(f"the shm arena ran on {ck['arena_backend']}, "
+                             "not the native backend")
+
+        shutil.copytree(dirs["run"], dirs["cold"], copy_function=os.link)
+        want = expected_launches(cfg, 1)
+        for name, src, source in (("warm", "run", "shm"),
+                                  ("cold", "cold", "storage")):
+            child = train_child(base + [
+                "--steps", str(k + 1), "--ckpt_dir", dirs[src],
+                "--ckpt_interval", str(k + 2)], f"{name} restore")
+            launches = {n: int(child[f"{n}_launches"]) for n in want}
+            row = {"restored": child["restored"],
+                   **{f: child["ckpt"][f] for f in (
+                       "restore_source", "restore_ms", "restore_copy_ms",
+                       "stall_ms", "persist_ms",
+                       "persist_mbps")},
+                   "first_loss": child["first_loss"], "launches": launches}
+            crcs = shard_crcs(dirs[src], k + 1)
+            row["state_after_step_equal"] = crcs == want_crcs
+            res[name] = row
+            if (child["restored"] != [f"[worker 0] restored step={k}"]
+                    or row["restore_source"] != source
+                    or child["first_loss"] != straight["loss"]
+                    or launches != want
+                    or not row["state_after_step_equal"]):
+                diff = [t for t in want_crcs if crcs.get(t) != want_crcs[t]]
+                raise SystemExit(
+                    f"{name} restore: {row} against the uninterrupted loss "
+                    f"{straight['loss']} and launches {want}; unequal "
+                    f"tensors {diff[:5]}")
+
+        # A flipped byte in the newest step: fsck names it, load
+        # quarantines it and restores the older step.
+        d = dirs["run"]
+        unlink_arena(arenas["run"])
+        man = shard_file.read_shard_manifest(PosixDiskStorage(), d, k + 1, 0)
+        key = "['params']['embed']|0"
+        tm = man.tensors[key]
+        with open(shard_file.shard_path(d, k + 1, 0), "r+b") as f:
+            f.seek(man.data_base + tm["offset"] + tm["nbytes"] // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+        report = fsck.fsck(d)
+        if not any(f.severity == fsck.SEV_DAMAGE and key in f.reason
+                   for f in report.findings):
+            raise SystemExit(f"fsck missed the flipped byte: "
+                             f"{report.to_dict()}")
+        args = train.parse_args(base)
+        _, job, state = train.build(args)
+        ckp = FlashCheckpointer(d, job_name=train.ckpt_job_name(d))
+        try:
+            got = ckp.load(state)
+            restore = {f: ckp.engine.stats()[f] for f in (
+                "restore_ms", "restore_copy_ms")}
+        finally:
+            ckp.close()
+        quarantined = os.path.isdir(shard_file.step_dir(d, k + 1)
+                                    + shard_file.QUARANTINE_SUFFIX)
+        if got is None or got[1]["step"] != k or not quarantined:
+            raise SystemExit(f"load after the damage: {got and got[1]}, "
+                             f"quarantined {quarantined}")
+        path = os.path.join(tmp, "torch_save.pt")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.save({"params": state["params"],
+                    "opt_state": state["opt_state"].state_dict(),
+                    "step": state["step"]}, path)
+        res["torch_save_ms"] = (time.perf_counter() - t0) * 1e3
+        res["torch_save_bytes"] = os.path.getsize(path)
+        os.remove(path)
+        sampler = ElasticSampler(args.dataset_size,
+                                 batch_size_per_process=args.batch_per_proc,
+                                 seed=17)
+        sampler.load_state_dict(got[1]["sampler"])
+        toks = train.synth_tokens(next(iter(sampler)), args.seq_len,
+                                  cfg.vocab_size)
+        _, m = job.train_step(state, {"tokens": toks})
+        loss = repr(float(m["loss"]))
+        del state, job
+        torch.cuda.empty_cache()
+        res["damaged_step"] = {"fsck_damage": True, "quarantined": True,
+                               "restored_step": k, **restore,
+                               "next_loss": loss}
+        if loss != straight["loss"]:
+            raise SystemExit(f"after the quarantine: loss {loss} != "
+                             f"{straight['loss']}")
+    finally:
+        for name in arenas.values():
+            unlink_arena(name)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("phase9 checkpoint " + json.dumps(res))
     return res
 
 
@@ -1242,6 +1636,11 @@ def main() -> int:
                rms.rmsnorm, quant.quantize_blockwise)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"build: {build_kernels([rms, fa, xent, quant]):.1f}s")
@@ -1266,6 +1665,7 @@ def main() -> int:
     trained = phase_train(llama, train, counted)
     qrec = phase_quant(quant, counted)
     phase_adam8bit(llama, counted)
+    phase_checkpoint(llama, train, counted, smi)
 
     fa_src = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_ref = "dlrover_tpu/ops/flash_attention.py"
@@ -1295,11 +1695,6 @@ def main() -> int:
         raise SystemExit("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

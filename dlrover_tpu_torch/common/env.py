@@ -1,7 +1,7 @@
 """Environment helpers — the port's own copy of the getters of
-``dlrover_tpu/common/env.py`` that ``trainer/bootstrap.py`` reads, with the
-names of ``dlrover_tpu/common/constants.py`` ``NodeEnv`` (the agent/worker
-environment contract)."""
+``dlrover_tpu/common/env.py`` that ``trainer/bootstrap.py`` and the
+checkpoint read, with the names of ``dlrover_tpu/common/constants.py``
+``NodeEnv`` (the agent/worker environment contract)."""
 
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ class NodeEnv:
     NODE_NUM = "DLROVER_TPU_NODE_NUM"
     PROCESS_ID = "DLROVER_TPU_PROCESS_ID"
     NUM_PROCESSES = "DLROVER_TPU_NUM_PROCESSES"
+    RUN_ID = "DLROVER_TPU_RUN_ID"
 
 
 def get_env_int(name: str, default: int = 0) -> int:
@@ -49,6 +50,19 @@ def get_master_addr() -> str:
 
 def get_job_name() -> str:
     return get_env_str(NodeEnv.JOB_NAME, "local-job")
+
+
+def get_run_id() -> str:
+    """Id of one launcher invocation: it namespaces host-local IPC objects
+    (shm arenas), so a fresh launch never warm-restores a previous job's
+    stale arena while restarts within a launch share it."""
+    return get_env_str(NodeEnv.RUN_ID)
+
+
+def run_scoped(name: str) -> str:
+    """Append the run id (when set) to an IPC object name."""
+    rid = get_run_id()
+    return f"{name}-{rid}" if rid else name
 
 
 def get_process_id() -> int:

@@ -1,11 +1,13 @@
 """Training entry point: Llama pretraining on one card.
 
 The port's counterpart of ``examples/llama_train.py`` with its own copy of
-``synth_tokens``, its flags and defaults (the LoRA and checkpoint
-settings only as far as the refusals below need them) and ``--device``:
+``synth_tokens``, its flags and defaults (the LoRA settings only as far as
+the refusals below need them) and ``--device``:
 
     python -m dlrover_tpu_torch.train --model 800m --seq_len 2048 --steps 5
     python -m dlrover_tpu_torch.train --model tiny --steps 20 --device cpu
+    python -m dlrover_tpu_torch.train --model tiny --device cpu \
+        --ckpt_dir /tmp/ckpt --ckpt_interval 5
 
 It builds ``llama.loss_fn`` over fp32 master parameters (random, seed 0),
 trains with ``adamw(lr)`` through ``accelerate()`` on the example's
@@ -14,15 +16,30 @@ every 10 steps and a final ``TRAIN_DONE`` line with the loss, the median
 step time, tokens/s and each kernel's launch count (0 on the CPU, where
 the plain versions run).
 
+With ``--ckpt_dir`` it checkpoints as the example does
+(``examples/llama_train.py:210-259``): at start it restores the newest
+state, from the shm arena left by an earlier run on this host, else from
+storage, and prints ``[worker 0] restored step=N``; every
+``--ckpt_interval`` steps it stages the state (and the sampler's position)
+into the arena; at the end it saves to storage and waits for the commit.
+The arena is namespaced by the checkpoint directory (as
+``dlrover_tpu/trainer/trainer.py:314-321`` does), so two jobs on one host
+never share one.  ``TRAIN_DONE`` then also gives ``restored_step`` and the
+last save's stall, and a ``CKPT_STATS`` line the last save's, persist's and
+restore's costs as JSON.
+
 Refused, each with the slice that brings it: ``--strategy auto``,
-``--fp8``, ``--quant_grads``, ``--lora_rank > 0``, ``--init_from`` and
-``--ckpt_dir`` (flash checkpointing).
+``--fp8``, ``--quant_grads``, ``--lora_rank > 0``, ``--init_from`` and a
+``--ckpt_dir`` on an object store (``gs://``, ``s3://``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
+import json
+import os
 import statistics
 import sys
 import time
@@ -32,6 +49,7 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common.storage import OBJECT_STORE_SLICE
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.cross_entropy import xent_fwd
 from dlrover_tpu_torch.ops.flash_attention import flash_dkv, flash_dq, \
@@ -73,6 +91,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--init_from", default="")
     p.add_argument("--dataset_size", type=int, default=4096)
     p.add_argument("--ckpt_dir", default="")
+    p.add_argument("--ckpt_interval", type=int, default=5)
     p.add_argument("--device", default="cuda",
                    help="cuda (default: the kernels) or cpu (plain versions)")
     return p.parse_args(argv)
@@ -87,8 +106,8 @@ def refuse_later_options(args: argparse.Namespace) -> None:
         (args.lora_rank > 0, "--lora_rank > 0 (LoRA)", LATER_SLICE),
         (bool(args.init_from), "--init_from (checkpoint import)",
          LATER_SLICE),
-        (bool(args.ckpt_dir), "--ckpt_dir (flash checkpointing)",
-         "the checkpoint slice of the port (see ROADMAP.md)"),
+        ("://" in args.ckpt_dir, "--ckpt_dir on an object store",
+         OBJECT_STORE_SLICE),
     ]
     for on, what, where in refused:
         if on:
@@ -134,9 +153,18 @@ def build(args: argparse.Namespace, num_processes: int = 1):
     return cfg, job, job.create_state(gen)
 
 
+def ckpt_job_name(ckpt_dir: str) -> str:
+    """The job name that namespaces the shm arena of ``ckpt_dir``."""
+    return "t" + hashlib.sha1(
+        os.path.abspath(ckpt_dir).encode()).hexdigest()[:10]
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     refuse_later_options(args)
+    if args.ckpt_interval < 1:
+        raise ValueError(f"--ckpt_interval must be >= 1, got "
+                         f"{args.ckpt_interval}")
     ctx = bootstrap.init()
     cfg, job, state = build(args, ctx.num_processes)
     sampler = ElasticSampler(
@@ -146,9 +174,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         process_id=ctx.process_id,
         seed=17,
     )
+    start_step = 0
+    ckpt = None
+    if args.ckpt_dir:
+        from dlrover_tpu_torch.checkpoint.checkpointer import \
+            FlashCheckpointer
+
+        ckpt = FlashCheckpointer(args.ckpt_dir,
+                                 job_name=ckpt_job_name(args.ckpt_dir))
+        restored = ckpt.load(target=state)
+        if restored is not None:
+            state, meta = restored
+            start_step = int(meta.get("step", 0))
+            print(f"[worker {ctx.process_id}] restored step={start_step}",
+                  flush=True)
+            sampler.load_state_dict(
+                meta.get("sampler", {"completed_steps": start_step}))
+
+    def save(storage: bool) -> None:
+        ckpt.save(state, meta={"step": step,
+                               "sampler": sampler.state_dict()},
+                  storage=storage)
+
     on_card = job.device.type == "cuda"
     launches0 = {n: fn.launches for n, fn in KERNELS.items()}
-    step, loss, first_loss = 0, float("nan"), float("nan")
+    step, loss, first_loss = start_step, float("nan"), float("nan")
     step_s = []
     it = iter(sampler)
     while step < args.steps:
@@ -165,22 +215,39 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             torch.cuda.synchronize(job.device)
         step_s.append(time.perf_counter() - t0)
         step += 1
-        if step == 1:
+        if len(step_s) == 1:
             first_loss = loss
         ctx.report_step(step)
+        if ckpt is not None and step % args.ckpt_interval == 0:
+            save(storage=False)
+            print(f"[worker {ctx.process_id}] saved step={step} to memory "
+                  f"(stall {ckpt.engine.last_stall_ms:.1f} ms)", flush=True)
         if step % 10 == 0 or step == args.steps:
             print(f"[worker {ctx.process_id}] step {step} loss "
                   f"{loss:.4f}", flush=True)
+    ckpt_done = ""
+    if ckpt is not None:
+        save(storage=True)
+        committed = ckpt.wait()
+        stats = ckpt.engine.stats()
+        ckpt.close()
+        if not committed:
+            raise RuntimeError(f"checkpoint of step {step} to "
+                               f"{args.ckpt_dir} was not committed")
+        print("CKPT_STATS " + json.dumps(stats), flush=True)
+        ckpt_done = (f" restored_step={start_step} "
+                     f"ckpt_stall_ms={stats['stall_ms']:.3f}")
     # The first step carries one-time set-up (allocator, library handles).
     steady = step_s[1:] or step_s
     step_ms = 1e3 * statistics.median(steady) if steady else float("nan")
     tokens = args.batch_per_proc * ctx.num_processes * args.seq_len
     launches = " ".join(f"{n}_launches={fn.launches - launches0[n]}"
                         for n, fn in KERNELS.items())
-    print(f"TRAIN_DONE step={step} loss={loss:.4f} "
-          f"first_loss={first_loss:.4f} step_ms={step_ms:.3f} "
+    # Losses in full (repr): a restored run is held to bit-equality.
+    print(f"TRAIN_DONE step={step} loss={loss!r} "
+          f"first_loss={first_loss!r} step_ms={step_ms:.3f} "
           f"tokens_per_s={1e3 * tokens / step_ms:.1f} device={job.device} "
-          f"{launches}", flush=True)
+          f"{launches}{ckpt_done}", flush=True)
     return 0
 
 

@@ -1,5 +1,6 @@
 """Hygiene of the PyTorch port ``dlrover_tpu_torch``: it imports neither JAX
-nor the JAX package, its entry points never drop to the CPU on their own,
+nor the JAX package (nor ``msgpack`` or ``ml_dtypes``, which the GPU
+machine does not have), its entry points never drop to the CPU on their own,
 options that later slices bring are refused loudly, and its configurations
 and parameter tree match the JAX package's."""
 
@@ -65,7 +66,8 @@ def _imported_roots(path: Path) -> set:
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "dlrover_tpu"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "dlrover_tpu",
+                                   "msgpack", "ml_dtypes"}
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
@@ -73,9 +75,11 @@ def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, dlrover_tpu_torch, dlrover_tpu_torch.serve, "
         "dlrover_tpu_torch.train, dlrover_tpu_torch.models.convert, "
-        "dlrover_tpu_torch.ops.quant, dlrover_tpu_torch.optim\n"
+        "dlrover_tpu_torch.ops.quant, dlrover_tpu_torch.optim, "
+        "dlrover_tpu_torch.checkpoint.checkpointer, "
+        "dlrover_tpu_torch.checkpoint.fsck\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'dlrover_tpu')]\n"
+        "('jax', 'jaxlib', 'dlrover_tpu', 'msgpack', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

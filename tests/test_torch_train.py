@@ -281,7 +281,8 @@ def test_default_device_raises_without_cuda():
 @pytest.mark.parametrize("flags,match", [
     (["--strategy", "auto"], "strategy"), (["--fp8"], "fp8"),
     (["--quant_grads"], "quant_grads"), (["--lora_rank", "4"], "LoRA"),
-    (["--init_from", "x"], "init_from"), (["--ckpt_dir", "x"], "ckpt_dir"),
+    (["--init_from", "x"], "init_from"),
+    (["--ckpt_dir", "gs://bucket/x"], "ckpt_dir"),
 ])
 def test_train_cli_refuses_later_options(flags, match):
     with pytest.raises(NotImplementedError, match=match):
