@@ -6,7 +6,7 @@ NVIDIA H100.
 
 It builds every CUDA kernel of the port's serving and training paths from
 the sources in this checkout (one ``nvcc`` per source, all started
-together), then runs nine phases and exits non-zero if any fails:
+together), then runs the phases below and exits non-zero if any fails:
 
 1. RMSNorm kernel vs plain: the kernel against its plain PyTorch version on
    the card, at the serving path's shapes, with times (CUDA events; the
@@ -18,9 +18,31 @@ together), then runs nine phases and exits non-zero if any fails:
    against the same with the plain RMSNorm; and a tiny fp32 model on the
    card against the same model on the CPU.
 3. Serving: ``DecodeServer(slots=8, max_len=512)`` serves seeded requests
-   of mixed lengths through the Llama-2-7B model.  Every kernel's launch
-   count is reset just before and read just after; RMSNorm must have run
-   65 times (2 per block + the final norm) per forward call.
+   of mixed lengths through the Llama-2-7B model, its decode step one CUDA
+   graph replay a round.  Every kernel's launch count is reset just before
+   and read just after.  RMSNorm's launches are the wrapper's count (the
+   eager prefills: 65 a forward, 2 per block + the final norm) plus the
+   graph's recorded nodes (65 x K, counted during its capture) times its
+   replays, one a round.
+3b. Serving slice 2 (run after phase 9, on the same 7B weights made again
+   from the seed) on the same requests (12 of 16-200 tokens,
+   32 new tokens, 8 slots, max_len 512): seven servers, slotted and paged
+   (blocks of 16), K = 1 and 8 tokens a dispatch, bf16 and int8 KV, and a
+   paged pool too tight for every request (it must preempt).  Each captures
+   its decode dispatch in a warm-up call, then serves; its RMSNorm
+   launches are counted as in phase 3, and a profile of the replays (5 at
+   K 1, 1 at K 8) must show 65 x K ``rmsnorm_fwd_kernel`` launches a
+   replay, less at most 1 % that the profiler lost.  One replay of the K=1
+   step against an eager ``forward_step`` on a copy of the same cache:
+   logits within 1e-3 relative (bit-equal expected).  Greedy outputs equal
+   across K 1 and 8, slotted and paged (tight pool included); int8 with
+   K 8 and paging equals int8 K 1 slotted; the int8 cache's prefill logits
+   within 0.05 of the dense cache's span through two 7B blocks in bf16 and
+   fp32 (the reference test's bound and depth; all 32 blocks reported).  Per variant: tokens/s, TTFT p50
+   and max, the dispatch eagerly and replayed (a step = a dispatch / K),
+   the busy share of a replay, peak memory, the KV bytes and, paged, the
+   peak blocks in use; its record is one line ``phase3b serve {...}``
+   before the kernel line.
 4. Flash attention kernels (forward, dq, dk/dv) vs plain at the
    Llama-800M training shape, phase 8's shape, a GQA shape with a ragged
    length, and an fp32 case with a window and packed segments.  bf16 runs
@@ -91,6 +113,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -491,12 +514,7 @@ def phase_serve(infer, rms, params, cfg, counted) -> dict:
         if len(o) != len(p) + mnt or not np.array_equal(o[:len(p)], p) \
                 or o.min() < 0 or o.max() >= cfg.vocab_size:
             raise SystemExit(f"bad output for a {len(p)}-token prompt")
-    per_fwd = 2 * cfg.n_layer + 1
-    if launches != per_fwd * st["forwards"] or launches == 0:
-        raise SystemExit(
-            f"rmsnorm launches {launches} != {per_fwd} x "
-            f"{st['forwards']} forward calls"
-        )
+    launches = graph_launch_check(srv, rms, launches, cfg, "phase3")
     new_tokens = sum(len(o) - len(p) for o, p in zip(outs, prompts))
 
     # One decode step (all 8 slots) with the kernel and with the plain
@@ -542,6 +560,283 @@ def phase_serve(infer, rms, params, cfg, counted) -> dict:
     }
     log("phase3 serve " + json.dumps(res))
     return res
+
+
+# Phase 3b: the decode dispatch as one CUDA graph, chunked, int8, paged.
+SERVE_VARIANTS = (
+    ("slotted_k1", {}),
+    ("slotted_k8", {"decode_chunk": 8}),
+    ("paged_k1", {"paged": True}),
+    ("paged_k8", {"paged": True, "decode_chunk": 8}),
+    ("paged_k8_tight", {"paged": True, "decode_chunk": 8, "tight": True}),
+    ("int8_k1", {"quant_kv": True}),
+    ("int8_paged_k8", {"quant_kv": True, "paged": True, "decode_chunk": 8}),
+)
+SERVE_REQUESTS, SERVE_MNT, SERVE_SLOTS, SERVE_MAX_LEN = 12, 32, 8, 512
+BLOCK = 16
+
+
+def serve_prompts(cfg):
+    """Phase 3's seeded requests: 12 prompts of 16-200 tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED)
+    lens = rng.randint(16, 201, size=SERVE_REQUESTS)
+    return [rng.randint(1, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+            for n in lens]
+
+
+def tight_pool(prompts) -> int:
+    """Blocks for the first ``SERVE_SLOTS`` requests at 70 % of their final
+    length: too few for all of them to grow to the end, so the pool
+    preempts; still more than the largest request needs alone."""
+    need = sum(-(-(len(p) + SERVE_MNT + 7) // BLOCK)
+               for p in prompts[:SERVE_SLOTS])
+    largest = max(-(-(len(p) + SERVE_MNT + 7) // BLOCK) for p in prompts)
+    return max(largest, int(0.7 * need))
+
+
+def graph_vs_eager(infer, srv, params, cfg) -> dict:
+    """One replay of the server's captured K=1 step against an eager
+    ``forward_step`` on a copy of the same cache, offsets and tokens (every
+    slot active)."""
+    import torch
+
+    with torch.inference_mode():
+        srv._act.fill_(True)
+        snap = [{k: t.clone() for k, t in lay.items()} for lay in srv._kv]
+        off, toks = srv._off.clone(), srv._toks.clone()
+        srv.decode_graph()
+        got = srv._logits.clone()
+        ref, _ = infer.forward_step(params, toks[:, None], cfg,
+                                    {"layers": snap, "offset": off})
+        ref = ref[:, -1, :]
+        torch.cuda.synchronize()
+    diff = float((got - ref).abs().max())
+    rel = diff / float(ref.abs().max())
+    res = {"max_abs_diff": diff, "rel": rel,
+           "bit_equal": bool(torch.equal(got, ref)),
+           "tokens_equal": bool(torch.equal(got.argmax(-1),
+                                            ref.argmax(-1)))}
+    del snap
+    if not rel <= 1e-3:
+        raise SystemExit(f"phase3b graph replay vs eager step: {res}")
+    return res
+
+
+def int8_vs_dense(infer, params, cfg, prompt, n_layer: int) -> dict:
+    """Prefill logits of the int8 cache against the dense cache's, as
+    ``max|d| / span`` (span = max|dense logit|), the measure of the
+    reference's ``test_quant_prefill_and_decode_logits_close`` (bound
+    0.05 on a 2-layer fp32 model), through the first ``n_layer`` blocks:
+    in bf16, and in fp32 on the same weights; and beside them the bf16
+    dense cache's own distance from the fp32 one."""
+    import torch
+
+    cfg = dataclasses.replace(cfg, n_layer=n_layer)
+    params = dict(params, layers=params["layers"][:n_layer])
+
+    toks = torch.from_numpy(prompt.astype("int64")).to(DEV)[None]
+    p32 = to_device(params, torch.float32)  # Tensor.to takes a dtype too
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    logits = {}
+    with torch.inference_mode():
+        for name, (p, c) in (("bf16", (params, cfg)), ("fp32", (p32, cfg32))):
+            for quant in (False, True):
+                cache = infer.init_cache(c, 1, len(prompt), device=DEV,
+                                         quant_kv=quant)
+                logits[name, quant] = infer.forward_step(p, toks, c,
+                                                         cache)[0].float()
+    del p32
+
+    def ratio(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    res = {"prompt_len": len(prompt), "n_layer": n_layer,
+           "bf16_int8_vs_dense": ratio(logits["bf16", True],
+                                       logits["bf16", False]),
+           "fp32_int8_vs_dense": ratio(logits["fp32", True],
+                                       logits["fp32", False]),
+           "bf16_dense_vs_fp32_dense": ratio(logits["bf16", False],
+                                             logits["fp32", False]),
+           "bf16_int8_vs_fp32_dense": ratio(logits["bf16", True],
+                                            logits["fp32", False])}
+    return res
+
+
+def serve_variant(infer, rms, params, cfg, prompts, name, kw) -> tuple:
+    """Serve the 12 requests through one server variant (graph captured in
+    a warm-up call first); returns (record, outputs)."""
+    import numpy as np
+    import torch
+
+    kw = dict(kw)
+    if kw.pop("tight", False):
+        kw["pool_blocks"] = tight_pool(prompts)
+    srv = infer.DecodeServer(params, cfg, slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, seed=SEED,
+                             block_size=BLOCK, **kw)
+    srv.serve(prompts[:2], 4)  # warm-up: captures the decode graph
+    graph = srv.decode_graph
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(rms.rmsnorm)
+    t0 = time.perf_counter()
+    outs = srv.serve(prompts, SERVE_MNT, on_token=lambda rid, _t:
+                     first.setdefault(rid, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = dict(srv.last_stats)
+    launches = graph_launch_check(srv, rms, rms.rmsnorm.launches, cfg,
+                                  f"phase3b {name}")
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + SERVE_MNT or not np.array_equal(o[:len(p)], p)\
+                or o.min() < 0 or o.max() >= cfg.vocab_size:
+            raise SystemExit(f"phase3b {name}: bad output for a {len(p)}-"
+                             "token prompt")
+    K = srv.decode_chunk
+    new_tokens = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    rec = {
+        "variant": name, "decode_chunk": K, "paged": srv.paged,
+        "quant_kv": srv.quant_kv, "new_tokens": new_tokens,
+        "serve_s": wall, "tokens_per_s": new_tokens / wall,
+        "ttft_p50_ms": 1e3 * statistics.median(first.values()),
+        "ttft_max_ms": 1e3 * max(first.values()),
+        "rounds": st["rounds"], "graph_replays": st["graph_replays"],
+        "prefills": st["prefills"], "forwards": st["forwards"],
+        "rmsnorm_launches": launches,
+        "rmsnorm_launches_eager": rms.rmsnorm.launches,
+        "rmsnorm_recorded_per_replay": graph.recorded["rmsnorm"],
+        "capture_s": graph.capture_s, "peak_mem_gib": peak / 2 ** 30,
+        "kv_bytes": sum(t.numel() * t.element_size()
+                        for lay in srv._kv for t in lay.values()),
+        "preemptions": srv.preemptions,
+    }
+    if srv.paged:
+        rec.update(pool_blocks=srv.pool_blocks,
+                   peak_blocks=st["peak_blocks"],
+                   block_stats=srv.block_stats())
+    if name == "slotted_k1":
+        rec["graph_vs_eager"] = graph_vs_eager(infer, srv, params, cfg)
+
+    # The dispatch eagerly and replayed, every slot at offset 200 and
+    # inactive (the same work; the offsets stay put), in turns.
+    with torch.inference_mode():
+        srv._act.zero_()
+        srv._off.fill_(200)
+        if srv.paged:
+            mb = srv.kv_arena.max_blocks
+            srv._table.copy_(torch.arange(SERVE_SLOTS * mb, device=DEV)
+                             .view(SERVE_SLOTS, mb) % srv.pool_blocks)
+        iters = max(4, 32 // K)
+        ms = {"eager": [], "replay": []}
+        for which in ("eager", "replay", "replay", "eager"):
+            fn = srv._dispatch if which == "eager" else graph.graph.replay
+            ms[which].append(time_ms(fn, iters=iters, warmup=2))
+
+        n_prof = 5 if K == 1 else 1
+
+        def replays():
+            for _ in range(n_prof):
+                graph.graph.replay()
+            torch.cuda.synchronize()
+
+        replays()
+        busy, kernels, _ = step_profile(replays, iters=n_prof, top=6)
+    norm_us, norm_n = kernel_device_us(kernels, "rmsnorm_fwd_kernel")
+    want = n_prof * (2 * cfg.n_layer + 1) * K
+    # The exact count is the capture's (graph_launch_check).  The profile
+    # shows the kernel nodes running, but the profiler can lose records:
+    # the first kernel of its window, and a few of the ~10^5 in a window
+    # of five K = 8 replays (seen on the card).  Up to 1 % short passes;
+    # the count is kept.
+    if not want - max(1, want // 100) <= norm_n <= want:
+        raise SystemExit(f"phase3b {name}: the profile of {n_prof} "
+                         f"replay(s) shows {norm_n} rmsnorm_fwd_kernel "
+                         f"launches, want {want}")
+    busy["rmsnorm_launches_profiled"] = [norm_n, want]
+    busy["rmsnorm_device_us_per_launch"] = norm_us
+    rec.update(dispatch_ms_eager=ms["eager"], dispatch_ms_replay=ms["replay"],
+               step_ms_eager=statistics.median(ms["eager"]) / K,
+               step_ms_replay=statistics.median(ms["replay"]) / K,
+               replay_profile=busy)
+    log(f"phase3b {name} " + json.dumps(
+        {k: v for k, v in rec.items() if k != "replay_profile"}
+        | {k: busy[k] for k in ("device_ms", "device_busy_share",
+                                "kernels")}))
+    del srv, graph
+    gc.collect()  # the server and its graph's bound dispatch form a cycle
+    torch.cuda.empty_cache()
+    return rec, outs
+
+
+def phase_serve_graph(infer, rms, params, cfg) -> dict:
+    """Phase 3b: the graphed decode dispatch, chunked and paged, bf16 and
+    int8, against each other token for token."""
+    import numpy as np
+
+    prompts = serve_prompts(cfg)
+    res = {"requests": len(prompts), "max_new_tokens": SERVE_MNT,
+           "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+           "block_size": BLOCK, "variants": []}
+    outs = {}
+    for name, kw in SERVE_VARIANTS:
+        rec, outs[name] = serve_variant(infer, rms, params, cfg, prompts,
+                                        name, kw)
+        res["variants"].append(rec)
+    for name, ref in (("slotted_k8", "slotted_k1"), ("paged_k1", "slotted_k1"),
+                      ("paged_k8", "slotted_k1"),
+                      ("paged_k8_tight", "slotted_k1"),
+                      ("int8_paged_k8", "int8_k1")):
+        same = [bool(np.array_equal(a, b))
+                for a, b in zip(outs[name], outs[ref])]
+        if not all(same):
+            raise SystemExit(f"phase3b: {name} differs from {ref} on "
+                             f"requests {[i for i, s in enumerate(same) if not s]}")
+    tight = [r for r in res["variants"] if r["variant"] == "paged_k8_tight"]
+    if not tight[0]["preemptions"] > 0:
+        raise SystemExit("phase3b: the tight pool preempted nothing")
+    # The reference holds the int8 cache within 0.05 of the dense cache's
+    # logit span on a 2-layer model; here at the 7B's width and two
+    # blocks, in bf16 and fp32.  Through all 32 random blocks the distance
+    # grows with depth (the bf16 dense cache's own distance from fp32
+    # passes 0.05 there too), so the full depth is reported, not held.
+    res["int8_vs_dense"] = [
+        int8_vs_dense(infer, params, cfg, prompts[0], n)
+        for n in (2, cfg.n_layer)]
+    held = res["int8_vs_dense"][0]
+    if not max(held["bf16_int8_vs_dense"],
+               held["fp32_int8_vs_dense"]) < 0.05:
+        raise SystemExit(f"phase3b int8 vs dense prefill logits: {held}")
+    res["int8_agrees_with_bf16_tokens"] = sum(
+        bool(np.array_equal(a, b))
+        for a, b in zip(outs["int8_k1"], outs["slotted_k1"]))
+    return res
+
+
+def graph_launch_check(srv, rms, eager, cfg, what: str) -> int:
+    """The RMSNorm launches of a serve run on the card: ``eager`` (the
+    wrapper's count: prefills and any graph warm-up, which run eagerly)
+    plus the graph's recorded nodes times its replays.  Fails unless the
+    capture recorded (2L+1) x K launches, the eager count is (2L+1) x the
+    eager forwards and each decode round was one replay.  Returns the
+    total."""
+    st = srv.last_stats
+    K = srv.decode_chunk
+    per_fwd = 2 * cfg.n_layer + 1
+    recorded = srv.decode_graph.recorded.get("rmsnorm", 0)
+    replays = st["graph_replays"]
+    eager_fwd = st["forwards"] - K * replays + st["graph_warmup_forwards"]
+    if recorded != per_fwd * K or replays != st["rounds"] or \
+            eager != per_fwd * eager_fwd or eager == 0:
+        raise SystemExit(
+            f"{what}: rmsnorm launches: {eager} eager (want {per_fwd} x "
+            f"{eager_fwd}), {recorded} recorded a replay (want {per_fwd} "
+            f"x {K}), {replays} replays for {st['rounds']} rounds"
+        )
+    return eager + recorded * replays
 
 
 def reset_launches(*wrappers) -> None:
@@ -1667,6 +1962,15 @@ def main() -> int:
     phase_adam8bit(llama, counted)
     phase_checkpoint(llama, train, counted, smi)
 
+    # Phase 3b runs last, on the same 7B weights made again from the seed:
+    # a profile taken after its graph replays, in phase 5, once lost every
+    # kernel record.
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    graphed = phase_serve_graph(infer, rms, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+
     fa_src = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_ref = "dlrover_tpu/ops/flash_attention.py"
     kernels = [
@@ -1695,6 +1999,7 @@ def main() -> int:
         raise SystemExit("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
+    log("phase3b serve " + json.dumps(graphed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,27 +1,44 @@
 """KV-cache decoding and the continuous-batching server for Llama, in PyTorch.
 
 Held against ``dlrover_tpu/models/llama_infer.py``: :func:`init_cache`,
-:func:`_cached_attention`, :func:`forward_step`, :func:`_filter_logits`,
-:func:`_make_sampler`, :func:`generate`, :func:`generate_ragged` and the
-plain slotted path of :class:`DecodeServer` (``submit``/``cancel``/
-``abort``, ``_prefill``, the single-token ``step``, ``serve``,
-``serve_incremental`` and the plain branch of ``_run``).
+:func:`_quantize_kv`, :func:`_cached_attention`, :func:`forward_step`,
+:func:`_filter_logits`, :func:`_make_sampler`, :func:`generate`,
+:func:`generate_ragged`, the paged-KV helpers (:func:`_paged_block_split`,
+:func:`_paged_dense_view`, :func:`_paged_scatter_back`,
+:func:`_paged_row_view`, :func:`_paged_row_scatter`,
+:func:`init_paged_pool`, :class:`PagedKvArena`) and :class:`DecodeServer`
+without speculation and prefixes (``submit``/``cancel``/``abort``, the
+single-token step and the ``decode_chunk`` chunk step, slotted or paged,
+``check_capacity``, ``block_stats``, ``serve``, ``serve_incremental`` and
+the plain, chunked and paged branches of ``_run``).
 
 The reference is functional: every step returns a new cache.  Here the
 cache tensors are updated in place (the step writes the new keys and
 values into its slots and returns the same layer dicts with a new
-offset), which keeps one copy of the cache on the card.
+offset), which keeps one copy of the cache on the card.  The paged helpers
+write the pool in place the same way.
 
 Numerics kept from the reference: attention scores are taken in fp32 from
 the cache's values and divided by ``sqrt(D)`` after the product; masks use
 the finite ``-1e30``; the probabilities are rounded to the cache dtype
 before the PV product, which accumulates in fp32; the attention output is
-cast to ``cfg.dtype`` before ``wo``; logits are fp32.
+cast to ``cfg.dtype`` before ``wo``; logits are fp32.  The int8 cache
+(``quant_kv``) stores codes with one fp32 absmax scale per (sequence, head,
+slot), reads the codes in ``cfg.dtype`` and applies the scales to the fp32
+scores (after the ``1/sqrt(D)``) and to the probabilities (before their
+rounding).  A sliding-window model decodes through a ring of
+``min(max_len, ring_len)`` slots with a per-slot position array (-1 =
+unwritten); ``ring=False`` keeps a dense cache, which the server and the
+ragged path use.
 
-Not ported yet, and refused with an error: the int8 KV cache
-(``quant_kv``), the sliding-window ring buffer (a windowed model decodes on
-the dense cache with the window mask, as the reference's server does),
-paged KV, speculative decoding, ``decode_chunk > 1`` and prefix caching.
+On a CUDA device the server's decode dispatch is one CUDA graph, captured
+once and replayed every round (``models/decode_graph.py``); on the CPU the
+same dispatch runs eagerly.
+
+Not ported yet, and refused with ``NotImplementedError``: speculative
+decoding (``draft``, ``spec_remote``), prefix caching (``shared_prefix``,
+``prefix_len``), the KV-segment handoff (``prefill_request``,
+``export_kv``, ``import_kv``) and :func:`serve_journaled`.
 """
 
 from __future__ import annotations
@@ -30,53 +47,98 @@ import collections
 import math
 import threading
 import time
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.models.decode_graph import DecodeGraph
 from dlrover_tpu_torch.models.llama import LlamaConfig, _rope, block_apply
+from dlrover_tpu_torch.ops import rmsnorm as _rmsnorm_mod
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 
 SERVING_SLICE = "a later serving slice of the port (see ROADMAP.md)"
 NEG_INF = -1e30
+# The reference's ``max|x| / 127.0`` as XLA compiles it: times fp32(1/127).
+_INV_127 = 1.0 / 127.0
 
 Offset = Union[int, torch.Tensor]
 
 
-def init_cache(cfg: LlamaConfig, batch: int, max_len: int, *,
-               device: DeviceLike = None, quant_kv: bool = False) -> Dict:
-    """Zeroed per-layer k/v cache ``[batch, n_kv_head, max_len, head_dim]``
-    in ``cfg.dtype`` plus the write offset (an int; a ``[batch]`` tensor
-    puts :func:`forward_step` in ragged mode)."""
+def _kv_arrays(cfg: LlamaConfig, lead: Tuple[int, ...], dev: torch.device,
+               quant_kv: bool) -> Dict[str, torch.Tensor]:
+    """Zeroed k/v arrays ``[*lead, head_dim]`` in ``cfg.dtype``, or int8
+    codes plus fp32 scales ``[*lead]`` under ``quant_kv``."""
+    shape = lead + (cfg.head_dim,)
     if quant_kv:
-        raise NotImplementedError(
-            f"the int8 KV cache (quant_kv) comes with {SERVING_SLICE}"
-        )
-    dev = resolve_device(device)
-    shape = (batch, cfg.n_kv_head, max_len, cfg.head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "ks": torch.zeros(lead, dtype=torch.float32, device=dev),
+            "vs": torch.zeros(lead, dtype=torch.float32, device=dev),
+        }
     return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    }
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int, *,
+               device: DeviceLike = None, ring_len: Optional[int] = None,
+               quant_kv: bool = False, ring: bool = True) -> Dict:
+    """Zeroed per-layer k/v cache ``[batch, n_kv_head, L, head_dim]`` plus
+    the write offset (an int; a ``[batch]`` tensor puts
+    :func:`forward_step` in ragged mode).
+
+    ``quant_kv``: int8 ``k``/``v`` codes and fp32 ``ks``/``vs`` scales
+    ``[batch, n_kv_head, L]``.  A sliding-window model with ``ring`` gets a
+    rolling buffer of ``L = min(max_len, ring_len)`` slots (``max_len``
+    when ``ring_len`` is None) and ``pos`` [L], the absolute position each
+    slot holds (-1 = unwritten); ``ring=False`` gives it a dense
+    ``max_len`` cache, with the window applied as a mask."""
+    dev = resolve_device(device)
+    L = max_len
+    if cfg.sliding_window > 0 and ring and ring_len is not None:
+        L = min(max_len, ring_len)
+    cache = {
         "layers": [
-            {
-                "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-                "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-            }
+            _kv_arrays(cfg, (batch, cfg.n_kv_head, L), dev, quant_kv)
             for _ in range(cfg.n_layer)
         ],
         "offset": 0,
     }
+    if cfg.sliding_window > 0 and ring:
+        cache["pos"] = torch.full((L,), -1, dtype=torch.long, device=dev)
+    return cache
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, KV, T, D] -> (int8 codes, fp32 absmax scale [B, KV, T]).  The
+    scale is ``max(max|x|, 1e-8) * fp32(1/127)``, the reference's division
+    by 127 as XLA compiles it; the codes round half to even."""
+    xf = x.float()
+    scale = torch.amax(xf.abs(), dim=-1).clamp(min=1e-8) * _INV_127
+    codes = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
 
 
 def _cached_attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
                       cache_layer: Dict, offset: Offset,
-                      positions: torch.Tensor) -> torch.Tensor:
-    """x: [B, T, C] new tokens; writes their k/v into ``cache_layer`` in
-    place and attends to the cache up to each query's position.
+                      positions: torch.Tensor,
+                      slot_pos: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                      ) -> torch.Tensor:
+    """x: [B, T, C] new tokens; writes their k/v (int8 codes and scales
+    under ``quant_kv``) into ``cache_layer`` in place and attends to the
+    cache up to each query's position.
 
     ``offset`` is an int (every row writes at ``offset..offset+T-1``) or a
-    ``[B]`` tensor (ragged: row b writes at its own ``offset[b]..``).  A
-    write past the cache's length raises; the caller checks capacity."""
+    ``[B]`` tensor (ragged: row b writes at its own ``offset[b]..``).
+    ``slot_pos`` (ring mode) is ``(slots [T], pos [L])``: the ring slots
+    the chunk writes and the already-updated absolute position of every
+    slot, which the masks read (-1 is masked).  A dense write past the
+    cache's length raises; the caller checks capacity."""
     B, T, _ = x.shape
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
     dt = cfg.dtype
@@ -85,36 +147,66 @@ def _cached_attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
     v = (x @ layer["wv"].to(dt)).reshape(B, T, KV, D)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
+    L = cache_layer["k"].shape[2]
 
-    kc, vc = cache_layer["k"], cache_layer["v"]
-    L = kc.shape[2]
-    if torch.is_tensor(offset):
-        slots = offset[:, None] + torch.arange(T, device=x.device)  # [B, T]
-        rows = torch.arange(B, device=x.device)[:, None]
-        # kc[rows, :, slots] is [B, T, KV, D] (advanced dims first).
-        kc[rows, :, slots] = k.to(kc.dtype)
-        vc[rows, :, slots] = v.to(vc.dtype)
+    def write(cur: torch.Tensor, new: torch.Tensor) -> None:
+        """``new`` [B, KV, T, ...] into ``cur`` [B, KV, L, ...] at the
+        mode's slots: one spelling for codes, scales and plain k/v."""
+        if torch.is_tensor(offset):
+            slots = offset[:, None] + torch.arange(T, device=x.device)
+            rows = torch.arange(B, device=x.device)[:, None]
+            # cur[rows, :, slots] is [B, T, KV, ...] (advanced dims first).
+            cur[rows, :, slots] = new.transpose(1, 2).to(cur.dtype)
+        elif slot_pos is not None:
+            cur[:, :, slot_pos[0]] = new.to(cur.dtype)
+        else:
+            if offset + T > L:
+                raise IndexError(
+                    f"cache write [{offset}, {offset + T}) past its {L} "
+                    "slots"
+                )
+            cur[:, :, offset:offset + T] = new.to(cur.dtype)
+
+    k_t, v_t = k.transpose(1, 2), v.transpose(1, 2)  # [B, KV, T, D]
+    quant = "ks" in cache_layer
+    if quant:
+        k_codes, k_scale = _quantize_kv(k_t)
+        v_codes, v_scale = _quantize_kv(v_t)
+        write(cache_layer["k"], k_codes)
+        write(cache_layer["v"], v_codes)
+        write(cache_layer["ks"], k_scale)
+        write(cache_layer["vs"], v_scale)
     else:
-        if offset + T > L:
-            raise IndexError(
-                f"cache write [{offset}, {offset + T}) past its {L} slots"
-            )
-        kc[:, :, offset:offset + T] = k.transpose(1, 2).to(kc.dtype)
-        vc[:, :, offset:offset + T] = v.transpose(1, 2).to(vc.dtype)
+        write(cache_layer["k"], k_t)
+        write(cache_layer["v"], v_t)
+    kc, vc = cache_layer["k"], cache_layer["v"]
 
     rep = H // KV
     # Grouped attention against the compact cache: query heads g*rep..
     # (g+1)*rep-1 read kv head g.  Scores in fp32 (the reference's
-    # preferred_element_type=float32), scaled after the product.
-    qg = q.transpose(1, 2).reshape(B, KV, rep * T, D).to(kc.dtype)
+    # preferred_element_type=float32) of operands in cfg.dtype (int8 codes
+    # are exact there), scaled after the product.
+    qg = q.transpose(1, 2).reshape(B, KV, rep * T, D).to(dt)
     s = torch.matmul(qg.float(), kc.float().transpose(-1, -2))
     s = (s / math.sqrt(D)).view(B, KV, rep, T, L)
-    kpos = torch.arange(L, device=x.device)
+    if quant:
+        # (q . codes_k) * scale_k == q . (codes_k * scale_k)
+        s = s * cache_layer["ks"][:, :, None, None, :]
     qpos = positions[:, None, None, :, None]
-    s = s.masked_fill(kpos > qpos, NEG_INF)
+    if slot_pos is not None:
+        kpos = slot_pos[1]
+        hidden = (kpos < 0) | (kpos > qpos)
+    else:
+        kpos = torch.arange(L, device=x.device)
+        hidden = kpos > qpos
     if cfg.sliding_window > 0:
-        s = s.masked_fill(qpos - kpos >= cfg.sliding_window, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(vc.dtype)
+        hidden = hidden | (qpos - kpos >= cfg.sliding_window)
+    s = s.masked_fill(hidden, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if quant:
+        # sum_k p_k (codes_vk scale_vk) == sum_k (p_k scale_vk) codes_vk
+        p = p * cache_layer["vs"][:, :, None, None, :]
+    p = p.to(dt)
     out = torch.matmul(p.view(B, KV, rep * T, L).float(), vc.float())
     out = (
         out.view(B, H, T, D).transpose(1, 2).reshape(B, T, H * D).to(dt)
@@ -123,28 +215,60 @@ def _cached_attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
 
 
 def forward_step(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig,
-                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
+                 cache: Dict, *, assume_empty_cache: bool = False
+                 ) -> Tuple[torch.Tensor, Dict]:
     """Score ``tokens`` [B, T] continuing the cached context.  Returns
     (logits [B, T, vocab] fp32, cache with the same layers, written in
-    place, and ``offset + T``)."""
+    place, and ``offset + T``; in ring mode ``pos`` updated in place).
+
+    Ring mode (a cache with ``pos``) needs ``T <= L`` and, for a chunk of
+    ``T > 1`` on a non-empty ring, ``window + T - 1 <= L``;
+    ``assume_empty_cache=True`` declares the offset-0 prefill, which may
+    fill the whole ring.  Ragged offsets with a ring raise."""
     B, T = tokens.shape
     dt = cfg.dtype
     offset = cache["offset"]
     x = params["embed"].to(dt)[tokens]
     steps = torch.arange(T, device=tokens.device)
     if torch.is_tensor(offset):
+        if "pos" in cache:
+            raise ValueError(
+                "ragged offsets are not supported with the sliding-window "
+                "ring cache"
+            )
         positions = offset[:, None] + steps[None, :]
     else:
         positions = (offset + steps)[None, :].expand(B, T)
+    ring = None
+    if "pos" in cache:
+        L = cache["pos"].shape[0]
+        W = cfg.sliding_window
+        if T > L:
+            raise ValueError(
+                f"chunk of {T} tokens exceeds the {L}-slot ring cache"
+            )
+        if T > 1 and W + T - 1 > L and not assume_empty_cache:
+            raise ValueError(
+                f"continuation chunk of {T} tokens needs ring_len >= "
+                f"window + T - 1 = {W + T - 1}, have {L}; pass "
+                "assume_empty_cache=True only for the offset-0 prefill"
+            )
+        absolute = offset + steps
+        slots = absolute % L
+        cache["pos"][slots] = absolute
+        ring = (slots, cache["pos"])
     for layer, cache_layer in zip(params["layers"], cache["layers"]):
         def attn_fn(h, layer_, cfg_, positions_, _cache=cache_layer):
             return _cached_attention(h, layer_, cfg_, _cache, offset,
-                                     positions_)
+                                     positions_, slot_pos=ring)
 
         x = block_apply(layer, x, cfg, positions, attn_fn=attn_fn)
     x = rmsnorm(x, params["ln_f"], eps=cfg.rms_eps)
     logits = (x @ params["lm_head"].to(dt)).float()
-    return logits, {"layers": cache["layers"], "offset": offset + T}
+    new_cache = {"layers": cache["layers"], "offset": offset + T}
+    if ring is not None:
+        new_cache["pos"] = cache["pos"]
+    return logits, new_cache
 
 
 def _filter_logits(scaled: torch.Tensor, top_k: int,
@@ -172,7 +296,11 @@ Picker = Callable[[torch.Tensor, Optional[torch.Generator]], torch.Tensor]
 def _make_sampler(temperature: float, top_k: int, top_p: float) -> Picker:
     """(logits [B, V], generator) -> [B] token ids: the first maximum at
     temperature 0, else a categorical draw from ``generator`` over the
-    top-k / top-p filtered distribution."""
+    top-k / top-p filtered distribution.
+
+    The draw is ``argmax(p / q)`` with ``q ~ Exp(1)`` from ``generator``:
+    what ``torch.multinomial(p, 1)`` computes after its checks, whose
+    ``.item()`` calls a CUDA graph cannot capture."""
 
     def pick(logits: torch.Tensor,
              generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -181,7 +309,8 @@ def _make_sampler(temperature: float, top_k: int, top_p: float) -> Picker:
         probs = torch.softmax(
             _filter_logits(logits / temperature, top_k, top_p), dim=-1
         )
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+        return torch.argmax(probs / q, dim=-1)
 
     return pick
 
@@ -200,16 +329,22 @@ def generate(params: Dict, cfg: LlamaConfig, prompts: torch.Tensor, *,
              max_new_tokens: int,
              generator: Optional[torch.Generator] = None,
              temperature: float = 0.0, top_k: int = 0,
-             top_p: float = 0.0) -> torch.Tensor:
+             top_p: float = 0.0, quant_kv: bool = False) -> torch.Tensor:
     """[B, P + max_new_tokens]: prompt + continuation.  The prompt is
-    scored in one pass, then one token per step against the cache."""
+    scored in one pass, then one token per step against the cache (a ring
+    of ``max(P, window)`` slots for a sliding-window model)."""
     if max_new_tokens == 0:
         return prompts
     B, P = prompts.shape
-    cache = init_cache(cfg, B, P + max_new_tokens, device=prompts.device)
+    ring_len = None
+    if cfg.sliding_window > 0:
+        ring_len = max(P, cfg.sliding_window)
+    cache = init_cache(cfg, B, P + max_new_tokens, device=prompts.device,
+                       ring_len=ring_len, quant_kv=quant_kv)
     pick = _make_sampler(temperature, top_k, top_p)
     gen = _generator(prompts.device, generator)
-    logits, cache = forward_step(params, prompts, cfg, cache)
+    logits, cache = forward_step(params, prompts, cfg, cache,
+                                 assume_empty_cache=True)
     tok = pick(logits[:, -1, :], gen)
     out = [tok]
     for _ in range(max_new_tokens - 1):
@@ -225,21 +360,22 @@ def generate_ragged(params: Dict, cfg: LlamaConfig, prompts: torch.Tensor,
                     eos_token: int = -1, pad_token: int = 0,
                     generator: Optional[torch.Generator] = None,
                     temperature: float = 0.0, top_k: int = 0,
-                    top_p: float = 0.0
+                    top_p: float = 0.0, quant_kv: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Ragged batched decode over right-padded ``prompts`` [B, P] with
-    true lengths ``prompt_lens`` [B]: per-row offsets and a per-row stop
-    on ``eos_token``; the loop ends once every row has emitted it.
-    Returns ``(tokens [B, P + max_new_tokens], lengths [B])``: row b is
-    its prompt, its continuation right after it (EOS kept), then
-    ``pad_token``."""
+    true lengths ``prompt_lens`` [B]: per-row offsets (on a dense cache,
+    ``ring=False``) and a per-row stop on ``eos_token``; the loop ends
+    once every row has emitted it.  Returns ``(tokens [B, P +
+    max_new_tokens], lengths [B])``: row b is its prompt, its continuation
+    right after it (EOS kept), then ``pad_token``."""
     B, P = prompts.shape
     N = max_new_tokens
     dev = prompts.device
     prompt_lens = prompt_lens.to(dev, torch.long)
     if N == 0:
         return prompts, prompt_lens
-    cache = init_cache(cfg, B, P + N, device=dev)
+    cache = init_cache(cfg, B, P + N, device=dev, quant_kv=quant_kv,
+                       ring=False)
     pick = _make_sampler(temperature, top_k, top_p)
     gen = _generator(dev, generator)
     logits, cache = forward_step(params, prompts, cfg, cache)
@@ -285,22 +421,277 @@ def generate_ragged(params: Dict, cfg: LlamaConfig, prompts: torch.Tensor,
     return out, lens
 
 
+# -- paged KV ----------------------------------------------------------------
+#
+# The pool holds fixed-size blocks; a per-slot block table maps logical
+# block i of slot s to a physical block.  The decode step gathers
+# ``pool[table]`` into the same dense [B, KV, max_len, D] view the slotted
+# step computes on, runs the same attention program, and scatters the view
+# back through the table, so greedy output is byte-identical to the slotted
+# server's.  Stale bytes in block slots not yet written are invisible: the
+# causal mask sends every position past the query to -1e30 before the
+# softmax, an exact 0.0 weight on both the score*ks and p*vs paths.
+#
+# Duplicate indices.  A table holds the scratch block (row ``n_blocks``) at
+# every unassigned entry, and (with prefix sharing) a block shared by
+# several slots, so the scatter writes some pool rows more than once.
+# JAX's ``.at[].set`` keeps any one of the writes; torch's ``index_put_``
+# without ``accumulate`` leaves the winner undefined as well (on the card
+# each element is written by one of the competing threads).  Neither
+# matters: a shared block only ever receives the values it already holds
+# (a slot writes at or past its first owned position, so the shared
+# prefix is written back unchanged), and the scratch block is read only at
+# positions the causal mask hides, where any finite value gives weight 0.
+
+
+def _paged_block_split(x: torch.Tensor, n_blocks: int,
+                       block_size: int) -> torch.Tensor:
+    """[KV, L(, D)] -> [n_blocks, KV, block_size(, D)] (L >= nb*bs)."""
+    x = x[:, : n_blocks * block_size]
+    x = x.reshape((x.shape[0], n_blocks, block_size) + tuple(x.shape[2:]))
+    return x.movedim(0, 1)
+
+
+def _paged_dense_view(pool_layers: List[Dict],
+                      table: torch.Tensor) -> List[Dict]:
+    """Gather the per-slot dense cache view through the block table:
+    pool [NB+1, KV, BS, ...] + table [B, MB] -> [B, KV, MB*BS, ...] (a
+    copy)."""
+    out = []
+    for pl in pool_layers:
+        lay = {}
+        for kk, arr in pl.items():
+            g = arr[table].movedim(2, 1)        # [B, KV, MB, BS, ...]
+            lay[kk] = g.reshape(
+                tuple(g.shape[:2]) + (g.shape[2] * g.shape[3],)
+                + tuple(g.shape[4:])
+            )
+        out.append(lay)
+    return out
+
+
+def _paged_scatter_back(pool_layers: List[Dict], dense_layers: List[Dict],
+                        table: torch.Tensor) -> List[Dict]:
+    """Inverse of :func:`_paged_dense_view`: write the dense view back
+    through the table, into the pool in place (see the note above on
+    repeated entries).  Returns ``pool_layers``."""
+    MB = table.shape[1]
+    for pl, dl in zip(pool_layers, dense_layers):
+        for kk, arr in pl.items():
+            d = dl[kk]                          # [B, KV, MB*BS, ...]
+            d = d.reshape(
+                tuple(d.shape[:2]) + (MB, d.shape[2] // MB)
+                + tuple(d.shape[3:])
+            ).movedim(1, 2)                     # [B, MB, KV, BS, ...]
+            arr[table] = d
+    return pool_layers
+
+
+def _paged_row_view(pool_layers: List[Dict],
+                    table_s: torch.Tensor) -> List[Dict]:
+    """One slot's dense [1, KV, MB*BS, ...] view (table_s: [MB]), a copy."""
+    out = []
+    for pl in pool_layers:
+        lay = {}
+        for kk, arr in pl.items():
+            g = arr[table_s].movedim(0, 1)      # [KV, MB, BS, ...]
+            lay[kk] = g.reshape(
+                (g.shape[0], g.shape[1] * g.shape[2]) + tuple(g.shape[3:])
+            )[None]
+        out.append(lay)
+    return out
+
+
+def _paged_row_scatter(pool_layers: List[Dict], dense_layers: List[Dict],
+                       table_s: torch.Tensor) -> List[Dict]:
+    """Write one slot's dense [1, KV, MB*BS, ...] rows back through its
+    table row, into the pool in place (the same duplicate-index argument
+    as the batch scatter).  Returns ``pool_layers``."""
+    MB = table_s.shape[0]
+    for pl, dl in zip(pool_layers, dense_layers):
+        for kk, arr in pl.items():
+            d = dl[kk][0]                       # [KV, MB*BS, ...]
+            arr[table_s] = _paged_block_split(d, MB, d.shape[1] // MB)
+    return pool_layers
+
+
+def init_paged_pool(cfg: LlamaConfig, n_blocks: int, block_size: int, *,
+                    quant_kv: bool = False,
+                    device: DeviceLike = None) -> Dict:
+    """Zeroed paged KV pool: per-layer [n_blocks + 1, KV, block_size, D]
+    arrays (+ absmax scales under ``quant_kv``), one block-id space shared
+    by every layer.  Row ``n_blocks`` is the scratch block: never
+    allocated; unassigned table entries point here so stray writes land
+    somewhere harmless."""
+    dev = resolve_device(device)
+    lead = (n_blocks + 1, cfg.n_kv_head, block_size)
+    return {"layers": [_kv_arrays(cfg, lead, dev, quant_kv)
+                       for _ in range(cfg.n_layer)]}
+
+
+class PagedKvArena:
+    """Host-side allocator for the paged KV pool: the free list, the
+    per-slot block table, and the per-block refcounts that make
+    copy-on-write prefix sharing safe.  Pure bookkeeping; the serve loop
+    uploads ``table`` before each dispatch.
+
+    Conservation law: every block is either on the free list or
+    referenced (by a slot table or a held template):
+    ``free_blocks + used_blocks == n_blocks``, where ``used_blocks``
+    counts each physical block once however many tables share it.
+    :meth:`scavenge`, run every serve-loop turn, rebuilds the free list
+    from the refcounts.  (The reference's fault-injection site in
+    ``_drop_ref``, ``serving.block_leak``, is not ported.)"""
+
+    def __init__(self, n_blocks: int, block_size: int, slots: int,
+                 max_len: int):
+        if max_len % block_size:
+            raise ValueError(
+                f"max_len {max_len} must be a multiple of block_size "
+                f"{block_size} (the gathered dense view must match the "
+                "slotted cache shape exactly for byte-identity)"
+            )
+        self.n_blocks = int(n_blocks)
+        self.block_size = int(block_size)
+        self.slots = int(slots)
+        self.max_blocks = max_len // block_size
+        #: Scratch sentinel: one past the last allocatable block (the
+        #: pool arrays carry an extra physical row for it).
+        self.scratch = self.n_blocks
+        self.leaks_repaired = 0
+        self.reset()
+
+    def reset(self) -> None:
+        self.table = np.full(
+            (self.slots, self.max_blocks), self.scratch, np.int32
+        )
+        self.lens = np.zeros((self.slots,), np.int64)
+        self.ref = np.zeros((self.n_blocks,), np.int64)
+        self._free = list(range(self.n_blocks - 1, -1, -1))
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        """Physical blocks referenced at least once (a shared block counts
+        once)."""
+        return int((self.ref > 0).sum())
+
+    def table_tokens(self) -> int:
+        """Logical tokens of table capacity mapped now (the sum of the
+        table lengths in blocks, times ``block_size``)."""
+        return int(self.lens.sum()) * self.block_size
+
+    def blocks_for(self, tokens: int) -> int:
+        return -(-int(tokens) // self.block_size)
+
+    def conserved(self) -> bool:
+        """``free_blocks + used_blocks == n_blocks`` and the free list
+        agrees with the refcounts."""
+        return (
+            len(self._free) + self.used_blocks == self.n_blocks
+            and all(self.ref[b] == 0 for b in self._free)
+        )
+
+    def scavenge(self) -> int:
+        """Rebuild the free list from the refcounts, reclaiming any block
+        whose free was dropped.  Returns the number of leaked blocks
+        repaired."""
+        free = [b for b in range(self.n_blocks) if self.ref[b] == 0]
+        leaked = len(free) - len(self._free)
+        if leaked > 0:
+            self.leaks_repaired += leaked
+        self._free = free
+        return max(0, leaked)
+
+    def _take(self) -> int:
+        blk = self._free.pop()
+        self.ref[blk] = 1
+        return blk
+
+    def alloc_upto(self, s: int, tokens: int) -> bool:
+        """Grow slot ``s``'s table to cover ``tokens`` logical positions
+        (grow on demand: a request holds only the blocks its current
+        offset and this round's writes need).  False, with no change, when
+        the pool cannot cover it."""
+        need = min(self.blocks_for(tokens), self.max_blocks)
+        add = need - int(self.lens[s])
+        if add <= 0:
+            return True
+        if add > len(self._free):
+            return False
+        for _ in range(add):
+            self.table[s, self.lens[s]] = self._take()
+            self.lens[s] += 1
+        return True
+
+    def share(self, s: int, blocks: list) -> None:
+        """Map slot ``s``'s first logical blocks onto ``blocks`` (prefix
+        sharing: refcount up, no copy).  Only on an empty slot row."""
+        assert self.lens[s] == 0
+        for i, b in enumerate(blocks):
+            self.table[s, i] = b
+            self.ref[b] += 1
+        self.lens[s] = len(blocks)
+
+    def hold(self, n: int) -> Optional[list]:
+        """Allocate ``n`` blocks owned by a prefix template (the refcount
+        is held by the store, not a slot).  None if the pool is too
+        tight."""
+        if n > len(self._free):
+            return None
+        return [self._take() for _ in range(n)]
+
+    def release(self, blocks: list) -> None:
+        """Drop a template's hold on ``blocks``."""
+        for b in blocks:
+            self._drop_ref(int(b))
+
+    def _drop_ref(self, blk: int) -> None:
+        self.ref[blk] -= 1
+        if self.ref[blk] == 0:
+            self._free.append(blk)
+
+    def free_slot(self, s: int) -> None:
+        """Return slot ``s``'s blocks (abort, finish, preemption):
+        refcount down, back on the free list at zero; shared blocks
+        survive for their other holders."""
+        for i in range(int(self.lens[s])):
+            self._drop_ref(int(self.table[s, i]))
+        self.table[s, :] = self.scratch
+        self.lens[s] = 0
+
+
 class DecodeServer:
     """Continuous-batching greedy/sampled decode over fixed slots: new
     prompts are admitted into slots as sequences finish, so a stream of
     requests keeps every slot busy.
 
-    One single-token step runs over all ``slots`` (ragged per-slot
-    offsets); admission scores a new prompt, right-padded to its bucket,
-    into one slot's cache rows.  The host loop only schedules.
+    One decode dispatch runs over all ``slots`` (ragged per-slot offsets):
+    a single-token step, or ``decode_chunk`` steps at once; admission
+    scores a new prompt, right-padded to its bucket, into one slot's cache
+    rows.  On a CUDA device the dispatch is one CUDA graph replay
+    (``models/decode_graph.py``); its inputs (tokens, offsets, the active
+    mask and, when paged, the block table) are static device buffers that
+    live as long as the server and are zeroed at every ``serve`` call.
 
         srv = DecodeServer(params, cfg, slots=8, max_len=512, eos_token=2)
         outs = srv.serve(list_of_prompt_arrays, max_new_tokens=128)
 
-    The cache lives on the device of ``params``.  Only the plain slotted
-    path is ported: ``quant_kv``, ``draft``, ``decode_chunk > 1``,
-    ``spec_remote``, ``paged`` and prefixes (``shared_prefix``,
-    ``prefix_len``) raise ``NotImplementedError``.
+    ``quant_kv``: the int8 cache.  ``decode_chunk = K > 1``: K tokens a
+    dispatch; a slot that finishes mid-chunk waits out the chunk and its
+    up to K - 1 extra writes are covered by the capacity check's headroom.
+    ``paged``: the cache is a pool of ``pool_blocks`` blocks of
+    ``block_size`` tokens (default: the slotted layout's memory) with a
+    block table per slot; admission takes only the blocks a prompt needs,
+    slots grow before each dispatch, and when the pool runs dry the
+    youngest admission is preempted and re-queued at the front.
+
+    The cache lives on the device of ``params``.  ``draft``,
+    ``spec_remote`` and prefixes (``shared_prefix``, ``prefix_len``) raise
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -321,16 +712,26 @@ class DecodeServer:
         decode_chunk: int = 1,
         spec_remote: bool = False,
         paged: bool = False,
+        block_size: int = 16,
+        pool_blocks: Optional[int] = None,
     ):
+        if spec_remote and draft is not None:
+            raise ValueError(
+                "spec_remote does not compose with a local draft model "
+                "(one proposal source per server)"
+            )
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got "
                              f"{decode_chunk}")
+        if decode_chunk > 1 and (draft is not None or spec_remote):
+            raise ValueError(
+                "decode_chunk > 1 does not compose with a draft model "
+                "(speculative rounds already batch tokens per dispatch); "
+                "set one or the other"
+            )
         refused = {
-            "quant_kv=True (int8 KV cache)": quant_kv,
             "draft (speculative decoding)": draft is not None,
-            "decode_chunk > 1": decode_chunk > 1,
             "spec_remote=True (remote-draft speculation)": spec_remote,
-            "paged=True (paged KV block arena)": paged,
         }
         for what, asked in refused.items():
             if asked:
@@ -346,9 +747,37 @@ class DecodeServer:
         self.temperature = temperature
         self.top_k = top_k
         self.top_p = top_p
+        self.quant_kv = bool(quant_kv)
+        self.decode_chunk = int(decode_chunk)
         self.buckets = tuple(
             b for b in sorted(prompt_buckets) if b <= max_len
         )
+        self.paged = bool(paged)
+        self.block_size = int(block_size)
+        if self.paged:
+            if block_size < 1:
+                raise ValueError(f"block_size must be >= 1, got "
+                                 f"{block_size}")
+            if max_len % self.block_size:
+                raise ValueError(
+                    f"paged mode needs max_len ({max_len}) to be a "
+                    f"multiple of block_size ({block_size}): the gathered "
+                    "view must match the slotted cache shape exactly for "
+                    "byte-identical output"
+                )
+        self.pool_blocks = (
+            int(pool_blocks) if pool_blocks is not None
+            else slots * (max_len // self.block_size)
+        ) if self.paged else 0
+        self.kv_arena: Optional[PagedKvArena] = (
+            PagedKvArena(self.pool_blocks, self.block_size, slots, max_len)
+            if self.paged else None
+        )
+        #: Preemptions in the last serve call.
+        self.preemptions = 0
+        #: rid -> tokens already delivered through on_token before a
+        #: preemption (re-admission mutes that many).
+        self._preempt_emitted: Dict[Any, int] = {}
         self._pick = _make_sampler(temperature, top_k, top_p)
         # One sampling stream for every prefill and step, on the device.
         self._gen = torch.Generator(device=self.device)
@@ -364,6 +793,100 @@ class DecodeServer:
         # Live views for active_rids/free_slots while a loop runs.
         self._live_active: Optional[np.ndarray] = None
         self._live_slot_req: Optional[list] = None
+        # Device state, made at the first serve call and kept for the
+        # server's life (a captured graph holds these addresses).
+        self._kv: Optional[List[Dict]] = None
+        self.decode_graph: Optional[DecodeGraph] = None
+
+    # -- device state and the decode dispatch --------------------------------
+
+    def _ensure_state(self) -> bool:
+        """Make the cache (or pool), the dispatch's static buffers and its
+        :class:`DecodeGraph` on first use, and capture the graph on a CUDA
+        device (before any admission: the warm-up run writes only at
+        offset 0 of idle rows, or the scratch block); then zero every
+        buffer.  Returns whether this call captured."""
+        B, K, dev = self.slots, self.decode_chunk, self.device
+        captured = False
+        if self._kv is None:
+            if self.paged:
+                self._kv = init_paged_pool(
+                    self.cfg, self.pool_blocks, self.block_size,
+                    quant_kv=self.quant_kv, device=dev,
+                )["layers"]
+                self._table = torch.full(
+                    (B, self.kv_arena.max_blocks), self.kv_arena.scratch,
+                    dtype=torch.long, device=dev,
+                )
+            else:
+                self._kv = init_cache(
+                    self.cfg, B, self.max_len, device=dev,
+                    quant_kv=self.quant_kv, ring=False,
+                )["layers"]
+            self._off = torch.zeros(B, dtype=torch.long, device=dev)
+            self._toks = torch.zeros(B, dtype=torch.long, device=dev)
+            self._act = torch.zeros(B, dtype=torch.bool, device=dev)
+            self._out = torch.zeros((B, K), dtype=torch.long, device=dev)
+            self._logits = torch.zeros((B, self.cfg.vocab_size),
+                                       dtype=torch.float32, device=dev)
+            self.decode_graph = DecodeGraph(
+                self._dispatch, dev,
+                generator=self._gen if self.temperature > 0.0 else None,
+                counted=(_rmsnorm_mod.rmsnorm,),
+            )
+        if dev.type == "cuda" and not self.decode_graph.captured:
+            self.decode_graph.capture()
+            captured = True
+        for lay in self._kv:
+            for t in lay.values():
+                t.zero_()
+        for t in (self._off, self._toks, self._act):
+            t.zero_()
+        if self.paged:
+            self._table.fill_(self.kv_arena.scratch)
+        return captured
+
+    def _dispatch(self) -> None:
+        """The decode dispatch over every slot, on the static buffers: K =
+        ``decode_chunk`` single-token steps (inactive slots keep their
+        offset; their rows are rewritten at the same slot and stay unread),
+        through the gathered dense view when paged.  Writes the new
+        offsets and tokens back, each step's tokens into ``_out`` [B, K]
+        and the last step's logits into ``_logits``."""
+        if self.paged:
+            layers = _paged_dense_view(self._kv, self._table)
+        else:
+            layers = self._kv
+        off, toks = self._off, self._toks
+        outs = []
+        for _ in range(self.decode_chunk):
+            logits, new = forward_step(
+                self.params, toks[:, None], self.cfg,
+                {"layers": layers, "offset": off},
+            )
+            last = logits[:, -1, :]
+            toks = self._pick(last, self._gen)
+            off = torch.where(self._act, new["offset"], off)
+            outs.append(toks)
+        if self.paged:
+            _paged_scatter_back(self._kv, layers, self._table)
+        self._logits.copy_(last)
+        self._off.copy_(off)
+        self._toks.copy_(toks)
+        self._out.copy_(torch.stack(outs, 1))
+
+    def _decode_round(self, active: np.ndarray,
+                      table: Optional[np.ndarray] = None) -> np.ndarray:
+        """Refresh the active mask (and the block table, when given), run
+        the dispatch (a graph replay on the card) and return its tokens
+        [B, K] on the host."""
+        self._act.copy_(torch.from_numpy(active))
+        if table is not None:
+            self._table.copy_(torch.from_numpy(table))
+        self.decode_graph()
+        return self._out.cpu().numpy()
+
+    # -- admission surface -----------------------------------------------------
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -374,23 +897,48 @@ class DecodeServer:
             f"{self.buckets[-1]}"
         )
 
+    def block_stats(self) -> Optional[Dict[str, Any]]:
+        """Live block-pool telemetry (None on a slotted server)."""
+        arena = self.kv_arena
+        if arena is None:
+            return None
+        return {
+            "total_blocks": arena.n_blocks,
+            "free_blocks": arena.free_blocks,
+            "block_occupancy": arena.used_blocks / max(1, arena.n_blocks),
+            "preemptions": self.preemptions,
+        }
+
     def pop_request_stats(self, rid) -> Optional[Dict[str, Any]]:
-        """Per-request speculation telemetry; the plain path records none,
-        so this is always None here."""
+        """Per-request speculation telemetry; no path here speculates, so
+        this is always None."""
         return None
+
+    def _write_slack(self) -> int:
+        """Cache-write headroom past the emission budget: a chunk writes up
+        to ``decode_chunk - 1`` slots past a mid-chunk finish."""
+        return self.decode_chunk - 1
 
     def check_capacity(self, prompt_len: int, max_new_tokens: int) -> None:
         """Raise ValueError if a request of this shape could write past
-        ``max_len``.  The plain path writes nothing past the emission
-        budget, so ``prompt_len + max_new_tokens <= max_len`` keeps every
-        cache index in range (a torch index out of range raises, or trips
-        a device-side assert on CUDA, where JAX would drop the write)."""
-        need = prompt_len + max_new_tokens
+        ``max_len`` (a torch index out of range raises, or trips a
+        device-side assert on CUDA, where JAX would drop the write), or,
+        when paged, needs more blocks than the whole pool holds."""
+        need = prompt_len + max_new_tokens + self._write_slack()
         if need > self.max_len:
             raise ValueError(
                 f"prompt {prompt_len} + max_new_tokens {max_new_tokens} "
-                f"= {need} exceeds max_len {self.max_len}"
+                f"+ headroom {self._write_slack()} = {need} exceeds "
+                f"max_len {self.max_len}"
             )
+        if self.paged:
+            blocks = self.kv_arena.blocks_for(need)
+            if blocks > self.pool_blocks:
+                raise ValueError(
+                    f"request needs {blocks} KV blocks ({need} tokens at "
+                    f"block_size {self.block_size}) but the pool holds "
+                    f"only {self.pool_blocks}"
+                )
 
     def _as_prompt(self, prompt) -> np.ndarray:
         p = np.asarray(prompt, np.int32)
@@ -418,6 +966,25 @@ class DecodeServer:
         self.check_capacity(len(p), max_new_tokens)
         with self._pending_mu:
             self._pending.append((rid, p, int(max_new_tokens)))
+
+    def prefill_request(self, *args, **kwargs):
+        """Prefill-role admission of the KV-segment handoff."""
+        raise NotImplementedError(
+            f"prefill_request (the KV-segment handoff) comes with "
+            f"{SERVING_SLICE}"
+        )
+
+    def export_kv(self, *args, **kwargs):
+        """Ship a prefilled request's KV segment."""
+        raise NotImplementedError(
+            f"export_kv (the KV-segment handoff) comes with {SERVING_SLICE}"
+        )
+
+    def import_kv(self, *args, **kwargs):
+        """Admit a request from a shipped KV segment."""
+        raise NotImplementedError(
+            f"import_kv (the KV-segment handoff) comes with {SERVING_SLICE}"
+        )
 
     def cancel(self, rid) -> bool:
         """Drop a not-yet-admitted request.  False when ``rid`` is unknown
@@ -468,28 +1035,55 @@ class DecodeServer:
         busy = int(act.sum()) if act is not None else 0
         return max(0, self.slots - busy - self.pending_count())
 
-    def _prefill(self, cache: Dict, s: int, prompt: np.ndarray
+    def _prefill(self, s: int, prompt: np.ndarray
                  ) -> Tuple[torch.Tensor, int]:
-        """Zero slot ``s``'s cache rows, score ``prompt`` into them, set
-        the slot's offset to its length and pick its first token.  A
-        prompt that fits a bucket is right-padded to it and scored in one
-        pass (the pad keys sit past the prompt and are causally hidden
-        until decode overwrites them); a longer one is scored in full
-        chunks of the largest bucket, the last chunk shifted back to end
-        at the prompt's end.  Returns (first token, forward calls)."""
+        """Score ``prompt`` into slot ``s``'s zeroed cache rows (paged:
+        through its table row, whose blocks are allocated), set the slot's
+        offset to its length and pick its first token.  A prompt that fits
+        a bucket is right-padded to it and scored in one pass (the pad
+        keys sit past the prompt and are causally hidden until decode
+        overwrites them); a longer one is scored in full chunks of the
+        largest bucket, the last chunk shifted back to end at the prompt's
+        end.  Returns (first token, forward calls)."""
         n = len(prompt)
-        rows = [{k: t[s:s + 1] for k, t in c.items()}
-                for c in cache["layers"]]
-        for c in rows:
-            for t in c.values():
-                t.zero_()
+        if self.paged:
+            tbl = torch.from_numpy(
+                self.kv_arena.table[s].astype(np.int64)
+            ).to(self.device)
+
+            def rows_view(zero: bool) -> List[Dict]:
+                rows = _paged_row_view(self._kv, tbl)
+                if zero:
+                    for c in rows:
+                        for t in c.values():
+                            t.zero_()
+                return rows
+
+            def commit(rows: List[Dict]) -> None:
+                _paged_row_scatter(self._kv, rows, tbl)
+        else:
+            slot_rows = [{k: t[s:s + 1] for k, t in c.items()}
+                         for c in self._kv]
+
+            def rows_view(zero: bool) -> List[Dict]:
+                if zero:
+                    for c in slot_rows:
+                        for t in c.values():
+                            t.zero_()
+                return slot_rows
+
+            def commit(rows: List[Dict]) -> None:
+                pass
+
         if n <= self.buckets[-1]:
             padded = np.zeros((1, self._bucket(n)), np.int64)
             padded[0, :n] = prompt
+            rows = rows_view(True)
             logits, _ = forward_step(
                 self.params, torch.from_numpy(padded).to(self.device),
                 self.cfg, {"layers": rows, "offset": 0},
             )
+            commit(rows)
             last, calls = logits[:, n - 1, :], 1
         else:
             # Every chunk is full; re-scoring the shifted-back positions
@@ -501,29 +1095,17 @@ class DecodeServer:
                 piece = torch.from_numpy(
                     prompt[start:start + C].astype(np.int64)
                 ).to(self.device)
+                rows = rows_view(start == 0)
                 logits, _ = forward_step(
                     self.params, piece[None, :], self.cfg,
                     {"layers": rows, "offset": start},
                 )
+                commit(rows)
                 calls += 1
                 if start + C >= n:
                     last = logits[:, (n - 1) - start, :]
-        cache["offset"][s] = n
+        self._off[s] = n
         return self._pick(last, self._gen)[0], calls
-
-    def _step(self, cache: Dict, toks: torch.Tensor, active: np.ndarray
-              ) -> Tuple[Dict, torch.Tensor]:
-        """One token for every slot; inactive slots keep their offset (their
-        rows are rewritten at the same slot and stay unread)."""
-        logits, new_cache = forward_step(
-            self.params, toks[:, None], self.cfg, cache
-        )
-        nxt = self._pick(logits[:, -1, :], self._gen)
-        act = torch.from_numpy(active).to(self.device)
-        new_cache["offset"] = torch.where(
-            act, new_cache["offset"], cache["offset"]
-        )
-        return new_cache, nxt
 
     def serve(self, prompts, max_new_tokens: int, on_finish=None,
               on_token=None, shared_prefix=None) -> list:
@@ -574,20 +1156,32 @@ class DecodeServer:
         and runs to drain) and :meth:`serve_incremental` (``tick`` feeds
         it).  Every request carries its own max_new_tokens budget."""
         self.last_stats = {}
-        B = self.slots
-        cache = init_cache(self.cfg, B, self.max_len, device=self.device)
-        cache["offset"] = torch.zeros(B, dtype=torch.long,
-                                      device=self.device)
-        toks = torch.zeros(B, dtype=torch.long, device=self.device)
+        B, K = self.slots, self.decode_chunk
+        arena = self.kv_arena
+        captured = self._ensure_state()
+        replays0 = self.decode_graph.replays
+        if self.paged:
+            arena.reset()
+            self.preemptions = 0
+        off = np.zeros(B, np.int64)  # host copy of the slots' offsets
         active = np.zeros(B, bool)
         slot_req: list = [None] * B
         slot_prompt: list = [None] * B
         slot_out: list = [None] * B
+        slot_item: list = [None] * B
         budget = [0] * B
+        # Paged bookkeeping: admission order (preemption sheds the
+        # youngest) and per-slot counts of already-delivered tokens to
+        # mute after a preempted request re-admits.
+        admit_seq = [0] * B
+        slot_mute = [0] * B
         results: Dict[Any, np.ndarray] = {}
-        counts = {"rounds": 0, "emitted": 0, "prefills": 0, "forwards": 0}
+        counts = {"rounds": 0, "emitted": 0, "prefills": 0, "forwards": 0,
+                  "admits": 0, "peak_blocks": 0}
 
         def free(s):
+            if self.paged:
+                arena.free_slot(s)
             active[s] = False
             slot_req[s] = slot_prompt[s] = slot_out[s] = None
 
@@ -605,51 +1199,110 @@ class DecodeServer:
             if on_finish is not None:
                 on_finish(rid, out)
 
+        def preempt(victim):
+            """Shed a slot when the pool runs dry: its blocks return at
+            once and its request re-queues at the front; greedy decode
+            regenerates the same stream, and the tokens already delivered
+            are muted on re-admission."""
+            rid = slot_req[victim]
+            self.preemptions += 1
+            self._preempt_emitted[rid] = len(slot_out[victim])
+            with self._pending_mu:
+                self._pending.appendleft(slot_item[victim])
+            free(victim)
+
+        def ensure_round_blocks(round_need: int) -> None:
+            """Grow every active slot to cover this round's writes (the
+            chunk's overshoot included), oldest admission first; when the
+            pool cannot cover one, preempt the youngest until the rest
+            fit."""
+            order = sorted((s for s in range(B) if active[s]),
+                           key=lambda s: admit_seq[s])
+            for s in order:
+                while active[s] and not arena.alloc_upto(
+                        s, int(off[s]) + round_need):
+                    if arena.scavenge():
+                        continue
+                    victim = max((v for v in range(B) if active[v]),
+                                 key=lambda v: admit_seq[v])
+                    preempt(victim)
+
         def admit(s, item):
             rid, prompt, mnt = item
-            first, calls = self._prefill(cache, s, prompt)
+            slot_item[s] = item
+            if self.paged and not arena.alloc_upto(s, len(prompt)):
+                raise RuntimeError(
+                    "paged admission allocation failed after the "
+                    "free-block gate: arena accounting bug"
+                )
+            first, calls = self._prefill(s, prompt)
+            off[s] = len(prompt)
             counts["prefills"] += 1
             counts["forwards"] += calls
-            toks[s] = first
+            counts["admits"] += 1
+            self._toks[s] = first
             first = int(first)
             active[s] = True
             slot_req[s] = rid
             slot_prompt[s] = prompt
             slot_out[s] = [first]
             budget[s] = mnt - 1
-            if on_token is not None:
+            admit_seq[s] = counts["admits"]
+            slot_mute[s] = self._preempt_emitted.pop(rid, 0)
+            if slot_mute[s] > 0:
+                slot_mute[s] -= 1
+            elif on_token is not None:
                 on_token(rid, first)
             if first == self.eos_token or budget[s] <= 0:
                 finish(s)
 
-        def emit(nxt):
-            """Append each active slot's new token; EOS or an exhausted
-            budget finishes the slot.  Returns tokens appended."""
+        def emit_rows(rows):
+            """Append each active slot's new tokens until its EOS or budget,
+            then finish the slot; its remaining tokens in the row are
+            discarded.  Returns tokens appended."""
             appended = 0
             for s in range(B):
                 if not active[s]:
                     continue
-                t = int(nxt[s])
-                slot_out[s].append(t)
-                appended += 1
-                budget[s] -= 1
-                if on_token is not None:
-                    on_token(slot_req[s], t)
-                if t == self.eos_token or budget[s] <= 0:
-                    finish(s)
+                for t in rows[s]:
+                    t = int(t)
+                    slot_out[s].append(t)
+                    appended += 1
+                    budget[s] -= 1
+                    if slot_mute[s] > 0:
+                        slot_mute[s] -= 1
+                    elif on_token is not None:
+                        on_token(slot_req[s], t)
+                    if t == self.eos_token or budget[s] <= 0:
+                        finish(s)
+                        break
             return appended
 
         def publish_stats():
             rounds, emitted = counts["rounds"], counts["emitted"]
             self.last_stats = {
-                "path": "plain",
+                "path": "decode_chunk" if K > 1 else "plain",
                 "rounds": rounds,
                 "emitted_tokens": emitted,
                 "tokens_per_round": emitted / rounds if rounds else 0.0,
                 "occupancy": float(active.sum()) / max(1, B),
                 "prefills": counts["prefills"],
                 "forwards": counts["forwards"],
+                "graph_replays": self.decode_graph.replays - replays0,
+                "graph_warmup_forwards": K if captured else 0,
             }
+            if self.paged:
+                used = arena.used_blocks
+                self.last_stats.update(
+                    paged=True,
+                    total_blocks=arena.n_blocks,
+                    free_blocks=arena.free_blocks,
+                    block_occupancy=used / max(1, arena.n_blocks),
+                    occupancy=used / max(1, arena.n_blocks),
+                    peak_blocks=counts["peak_blocks"],
+                    preemptions=self.preemptions,
+                    leaks_repaired=arena.leaks_repaired,
+                )
 
         self._live_active = active
         self._live_slot_req = slot_req
@@ -665,10 +1318,20 @@ class DecodeServer:
                     for s in range(B):
                         if active[s] and slot_req[s] in doomed:
                             free(s)
+                if self.paged:
+                    arena.scavenge()
                 for s in range(B):
                     if not active[s]:
                         item = self._pop_pending()
                         if item is None:
+                            break
+                        if self.paged and active.any() and \
+                                arena.free_blocks < \
+                                arena.blocks_for(len(item[1])):
+                            # The blocks it needs now are not free: wait
+                            # for decode to release some.
+                            with self._pending_mu:
+                                self._pending.appendleft(item)
                             break
                         admit(s, item)
                 if not active.any():
@@ -677,12 +1340,28 @@ class DecodeServer:
                             break
                         time.sleep(idle_wait)
                     continue
-                cache, toks = self._step(cache, toks, active)
+                table = None
+                if self.paged:
+                    ensure_round_blocks(K)
+                    if not active.any():
+                        continue
+                    table = arena.table
+                    counts["peak_blocks"] = max(counts["peak_blocks"],
+                                                arena.used_blocks)
+                rows = self._decode_round(active, table)
+                off[active] += K
                 counts["rounds"] += 1
-                counts["forwards"] += 1
-                counts["emitted"] += emit(toks.cpu().numpy())
+                counts["forwards"] += K
+                counts["emitted"] += emit_rows(rows)
         finally:
             self._live_active = None
             self._live_slot_req = None
         publish_stats()
         return results
+
+
+def serve_journaled(*args, **kwargs):
+    """Crash-safe batch serving over a request journal."""
+    raise NotImplementedError(
+        f"serve_journaled comes with {SERVING_SLICE}"
+    )

@@ -4,16 +4,27 @@ The port's counterpart of ``examples/llama_serve.py`` (plain server mode)
 with its own copy of ``examples/serve_common.py`` ``seeded_requests``:
 
     python -m dlrover_tpu_torch.serve --config llama2_7b --requests 8
+    python -m dlrover_tpu_torch.serve --config llama2_7b --decode_chunk 8 \
+        --paged --quant_kv
     python -m dlrover_tpu_torch.serve --config tiny --device cpu
 
+``--quant_kv`` and ``--decode_chunk`` are ``examples/llama_serve.py``'s
+(the int8 KV cache; tokens a decode dispatch), ``--paged``,
+``--block_size`` and ``--pool_blocks`` ``examples/llama_serve_fleet.py``'s
+(the paged KV arena; 0 blocks means the slotted layout's memory).  On the
+card the decode dispatch is one CUDA graph replay a round.
+
 Weights are random, drawn from ``--seed``; there is nothing to download.
-It prints tokens/s, the median time to first token and the number of
-RMSNorm kernel launches (0 on the CPU, where the plain version runs).
+It prints tokens/s, the median time to first token, the decode path, the
+preemptions (and, paged, the block pool's state) and the RMSNorm kernel
+launches: the eager ones (prefills) plus the graph's nodes times its
+replays (0 on the CPU, where the plain version runs).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import statistics
 import sys
 import time
@@ -57,6 +68,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain kernels)")
+    ap.add_argument("--quant_kv", action="store_true",
+                    help="int8 kv cache (half the decode HBM traffic)")
+    ap.add_argument("--decode_chunk", type=int, default=1,
+                    help="tokens per decode dispatch")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV: a block pool with per-request block "
+                         "tables")
+    ap.add_argument("--block_size", type=int, default=16,
+                    help="tokens per KV block under --paged")
+    ap.add_argument("--pool_blocks", type=int, default=0,
+                    help="KV blocks in the pool under --paged (0 = slots "
+                         "* max_len / block_size)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -65,10 +88,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
     prompts, _ = seeded_requests(cfg, args.requests, args.seed)
+    # + the chunk's headroom, rounded up to whole blocks when paged.
+    max_len = max(64, args.max_new_tokens + 24) + args.decode_chunk - 1
+    if args.paged:
+        max_len = -(-max_len // args.block_size) * args.block_size
     srv = DecodeServer(
-        params, cfg, slots=args.slots,
-        max_len=max(64, args.max_new_tokens + 24),
+        params, cfg, slots=args.slots, max_len=max_len,
         temperature=args.temperature, seed=args.seed,
+        quant_kv=args.quant_kv, decode_chunk=args.decode_chunk,
+        paged=args.paged, block_size=args.block_size,
+        pool_blocks=args.pool_blocks or None,
     )
     ttft: dict = {}
     launches0 = rmsnorm.launches
@@ -84,13 +113,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for i, o in enumerate(outs[:3]):
         print(f"request {i}: {len(o)} tokens -> {o[:12].tolist()}...")
     st = srv.last_stats
+    graph = srv.decode_graph
+    launches = rmsnorm.launches - launches0 + graph.recorded.get(
+        "rmsnorm", 0) * st["graph_replays"]
+    paged = (f" block_stats={json.dumps(srv.block_stats())}"
+             if args.paged else "")
     print(
         f"SERVE_DONE config={args.config} device={dev} "
         f"requests={len(outs)} slots={args.slots} new_tokens={total_new} "
         f"tokens_per_sec={total_new / wall:.1f} "
         f"ttft_p50_ms={1e3 * statistics.median(ttft.values()):.1f} "
+        f"path={st['path']} decode_chunk={args.decode_chunk} "
+        f"quant_kv={args.quant_kv} preemptions={srv.preemptions} "
         f"rounds={st['rounds']} forwards={st['forwards']} "
-        f"rmsnorm_launches={rmsnorm.launches - launches0}"
+        f"graph_replays={st['graph_replays']} "
+        f"rmsnorm_launches={launches}{paged}"
     )
     return 0
 

@@ -95,7 +95,9 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(card):
 
 def test_tiny_model_on_the_card_matches_the_cpu(card):
     """A tiny fp32 model: logits and greedy serving on the card (through
-    the kernel, 2 * n_layer + 1 launches per forward) equal the CPU's."""
+    the kernel, 2 * n_layer + 1 launches per forward: the eager prefills
+    and the graph warm-up by the wrapper's count, the decode rounds as
+    nodes of the captured graph, one replay a round) equal the CPU's."""
     cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
     cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
@@ -123,12 +125,75 @@ def test_tiny_model_on_the_card_matches_the_cpu(card):
     srv = llama_infer.DecodeServer(dev, cfg, slots=2, max_len=32,
                                    prompt_buckets=(8, 16))
     out = srv.serve(prompts, 6)
-    assert rmsnorm.launches - before == \
-        (2 * cfg.n_layer + 1) * srv.last_stats["forwards"]
+    st, per_fwd = srv.last_stats, 2 * cfg.n_layer + 1
+    assert srv.decode_graph.recorded == {"rmsnorm": per_fwd}
+    assert st["graph_replays"] == st["rounds"] > 0
+    assert rmsnorm.launches - before == per_fwd * (
+        st["forwards"] - st["graph_replays"] + st["graph_warmup_forwards"])
     ref = llama_infer.DecodeServer(cpu, cfg, slots=2, max_len=32,
                                    prompt_buckets=(8, 16)).serve(prompts, 6)
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(o, r)
+
+
+@pytest.mark.parametrize("kw", [{"decode_chunk": 3}, {"paged": True},
+                                {"paged": True, "decode_chunk": 3,
+                                 "quant_kv": True, "pool_blocks": 5}],
+                         ids=["chunk3", "paged", "paged_chunk3_int8_tight"])
+def test_graphed_decode_matches_the_cpu(card, kw):
+    """The chunked and paged decode dispatches captured as one graph on the
+    card emit the CPU's eager tokens; the capture records 2L+1 RMSNorm
+    launches per step of the chunk."""
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = {k: v.to(card) if torch.is_tensor(v) else v
+           for k, v in cpu.items()}
+    dev["layers"] = [{k: v.to(card) if torch.is_tensor(v) else
+                      {kk: vv.to(card) for kk, vv in v.items()}
+                      for k, v in lay.items()} for lay in cpu["layers"]]
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (5, 12, 3, 20)]
+    srv_kw = dict(slots=2, max_len=48, prompt_buckets=(8, 16),
+                  block_size=8, **kw)
+    ref_srv = llama_infer.DecodeServer(cpu, cfg, **srv_kw)
+    ref = ref_srv.serve(prompts, 9)
+    srv = llama_infer.DecodeServer(dev, cfg, **srv_kw)
+    for _ in range(2):  # the second call replays the first call's graph
+        out = srv.serve(prompts, 9)
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(o, r)
+    K = srv.decode_chunk
+    assert srv.decode_graph.recorded == {"rmsnorm": (2 * cfg.n_layer + 1)
+                                         * K}
+    assert srv.last_stats["graph_replays"] == srv.last_stats["rounds"]
+    assert srv.preemptions == ref_srv.preemptions
+    if srv.paged:
+        assert srv.kv_arena.conserved()
+
+
+def test_sampled_graph_draws_fresh_noise(card):
+    """At temperature > 0 the server's generator is registered with the
+    graph: replays draw fresh noise (streams do not collapse into a
+    repeated token), the draws are reproducible from the seed, and two
+    seeds differ."""
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator(device=card)
+                               .manual_seed(0), card)
+    prompts = [np.arange(1, 6, dtype=np.int32)] * 2
+
+    def run(seed):
+        srv = llama_infer.DecodeServer(params, cfg, slots=2, max_len=48,
+                                       prompt_buckets=(8,), temperature=1.0,
+                                       seed=seed)
+        srv.serve(prompts, 4)  # captures
+        return [o[5:].tolist() for o in srv.serve(prompts, 24)]
+
+    a, b, c = run(1), run(1), run(2)
+    assert a == b and a != c
+    for stream in a:
+        assert len(set(stream)) > 4, stream
+    assert a[0] != a[1]  # the two slots draw different noise
 
 
 def _close(out, plain32, dtype, what):

@@ -75,6 +75,7 @@ def test_import_leaves_jax_and_reference_out():
     code = (
         "import sys, dlrover_tpu_torch, dlrover_tpu_torch.serve, "
         "dlrover_tpu_torch.train, dlrover_tpu_torch.models.convert, "
+        "dlrover_tpu_torch.models.decode_graph, "
         "dlrover_tpu_torch.ops.quant, dlrover_tpu_torch.optim, "
         "dlrover_tpu_torch.checkpoint.checkpointer, "
         "dlrover_tpu_torch.checkpoint.fsck\n"
@@ -134,9 +135,19 @@ def test_chip_smoke_fails_without_cuda(no_cuda, tmp_path):
     {"spec_remote": True}, {"draft": ({}, None)},
 ])
 def test_server_refuses_later_slice_options(tiny, kw):
+    """Speculation still comes with a later slice and is refused; the
+    paged arena, the int8 cache and chunked decode came with serving slice
+    2 and now serve on the CPU."""
     cfg, params = tiny
-    with pytest.raises(NotImplementedError, match="later serving slice"):
-        tinfer.DecodeServer(params, cfg, **kw)
+    if "draft" in kw or "spec_remote" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="later serving slice"):
+            tinfer.DecodeServer(params, cfg, **kw)
+        return
+    srv = tinfer.DecodeServer(params, cfg, slots=2, max_len=32, **kw)
+    outs = srv.serve([np.ones(4, np.int32), np.arange(1, 7)], 5)
+    assert [len(o) for o in outs] == [9, 11]
+    assert srv.last_stats["emitted_tokens"] == 2 * 4
 
 
 def test_other_later_slice_paths_are_refused(tiny):
@@ -147,8 +158,15 @@ def test_other_later_slice_paths_are_refused(tiny):
         srv.serve([p], 2, shared_prefix=p)
     with pytest.raises(NotImplementedError, match="prefix_len"):
         srv.submit("a", p, 2, prefix_len=2)
-    with pytest.raises(NotImplementedError, match="quant_kv"):
-        tinfer.init_cache(cfg, 1, 8, device="cpu", quant_kv=True)
+    for name in ("prefill_request", "export_kv", "import_kv"):
+        with pytest.raises(NotImplementedError,
+                           match=f"{name} .*later serving slice"):
+            getattr(srv, name)("a", p, 2)
+    with pytest.raises(NotImplementedError, match="serve_journaled"):
+        tinfer.serve_journaled(params, cfg, [p], 2)
+    cache = tinfer.init_cache(cfg, 1, 8, device="cpu", quant_kv=True)
+    assert cache["layers"][0]["k"].dtype == torch.int8
+    assert tuple(cache["layers"][0]["ks"].shape) == (1, cfg.n_kv_head, 8)
     with pytest.raises(NotImplementedError, match="MoE"):
         tllama.LlamaConfig.tiny(num_experts=4)
     x = torch.zeros(1, 2, cfg.d_model)
@@ -159,6 +177,8 @@ def test_other_later_slice_paths_are_refused(tiny):
                                attn_impl=impl)
     with pytest.raises(ValueError, match="decode_chunk"):
         tinfer.DecodeServer(params, cfg, decode_chunk=0)
+    with pytest.raises(ValueError, match="draft"):
+        tinfer.DecodeServer(params, cfg, decode_chunk=2, draft=({}, None))
 
 
 def test_server_rejects_bad_prompts(tiny):
