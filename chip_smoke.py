@@ -43,6 +43,27 @@ together), then runs the phases below and exits non-zero if any fails:
    the busy share of a replay, peak memory, the KV bytes and, paged, the
    peak blocks in use; its record is one line ``phase3b serve {...}``
    before the kernel line.
+3c. Prefix caching and the KV-segment handoff (run after phase 9, just
+   before 3b, on the same 7B weights made again from the seed): 3b's 12
+   requests behind one shared 256-token prefix (combined 272-456 tokens,
+   above the 256 bucket, so the template path engages), served three ways
+   (``serve`` of the combined prompts, first and again last, between them
+   ``serve(shared_prefix=)`` and ``submit(prefix_len=256)`` into
+   ``serve_incremental``), slotted and paged (blocks of 16): greedy
+   outputs equal token for token across all eight runs; each templated run admits all 12 from one template prefill (the
+   store: 1 miss, 11 hits); RMSNorm launches counted as in phase 3, the
+   template prefills included.  Per run: tokens/s, TTFT p50 and max,
+   prefill forwards a request, the template's build time, hits and misses,
+   peak blocks and blocks shared (paged).  Then the handoff, slotted
+   bf16, slotted int8 and paged bf16 (a block list): a prefill server
+   runs ``prefill_request`` + ``export_kv`` for one request each turn of
+   a decode server's ``serve_incremental``, which ``import_kv``s it; the
+   streams equal that server serving the requests in place; the RMSNorm
+   launches are 65 a prefill forward on the prefill server and the graph's
+   nodes on the decode server.  Per variant: payload bytes against fp32
+   bytes, prefill, export (pack), unpack and import ms, and TTFT through
+   the handoff beside the in-place TTFT; lines ``phase3c prefix {...}``,
+   ``phase3c handoff {...}`` and ``phase3c prefix_handoff {...}``.
 4. Flash attention kernels (forward, dq, dk/dv) vs plain at the
    Llama-800M training shape, phase 8's shape, a GQA shape with a ragged
    length, and an fp32 case with a window and packed segments.  bf16 runs
@@ -816,9 +837,275 @@ def phase_serve_graph(infer, rms, params, cfg) -> dict:
     return res
 
 
+# Phase 3c: prefix caching and the prefill/decode KV-segment handoff.
+PREFIX_LEN = 256  # above the largest bucket once a request's own tokens join
+# The untemplated serve runs first and last on each layout, so that host
+# drift across the run shows beside the template's effect.
+PREFIX_HOWS = ("concat", "shared_prefix", "submit", "concat")
+HANDOFF_VARIANTS = (("slotted", {}), ("int8", {"quant_kv": True}),
+                    ("paged", {"paged": True}))
+
+
+def serve_all(srv, how, prompts, prefix, on_token) -> list:
+    """Serve the requests behind ``prefix`` one of three ways: ``serve`` of
+    the combined prompts, ``serve(shared_prefix=)``, or ``submit(
+    prefix_len=)`` into ``serve_incremental``; the outputs in order."""
+    import numpy as np
+
+    full = [np.concatenate([prefix, p]) for p in prompts]
+    if how == "concat":
+        return srv.serve(full, SERVE_MNT, on_token=on_token)
+    if how == "shared_prefix":
+        return srv.serve(prompts, SERVE_MNT, on_token=on_token,
+                         shared_prefix=prefix)
+    for i, p in enumerate(full):
+        srv.submit(i, p, SERVE_MNT, prefix_len=len(prefix))
+    got: dict = {}
+    srv.serve_incremental(
+        tick=lambda: bool(srv.pending_count() or srv.active_rids()),
+        on_finish=lambda r, t: got.__setitem__(r, t), on_token=on_token)
+    return [got[i] for i in range(len(full))]
+
+
+def prefix_variant(infer, rms, params, cfg, prompts, prefix, layout, how,
+                   kw) -> tuple:
+    """One server (graph captured in a warm-up call without the prefix)
+    serving the 12 requests behind the shared prefix; returns (record,
+    outputs)."""
+    import numpy as np
+    import torch
+
+    srv = infer.DecodeServer(params, cfg, slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, seed=SEED,
+                             block_size=BLOCK, **kw)
+    srv.serve(prompts[:2], 4)  # warm-up: captures the decode graph
+    first: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(rms.rmsnorm)
+    t0 = time.perf_counter()
+    outs = serve_all(srv, how, prompts, prefix, lambda rid, _t:
+                     first.setdefault(rid, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(srv.last_stats)
+    what = f"phase3c {layout} {how}"
+    launches = graph_launch_check(srv, rms, rms.rmsnorm.launches, cfg, what)
+    P0 = len(prefix)
+    for p, o in zip(prompts, outs):
+        if len(o) != P0 + len(p) + SERVE_MNT or \
+                not np.array_equal(o[:P0], prefix) or \
+                not np.array_equal(o[P0:P0 + len(p)], p) or \
+                o.min() < 0 or o.max() >= cfg.vocab_size:
+            raise SystemExit(f"{what}: bad output for a {len(p)}-token "
+                             "request")
+    templated = how != "concat"
+    if templated and not (st["templated"] == len(prompts)
+                          and st["template_forwards"] == 1):
+        raise SystemExit(f"{what}: {st['templated']} templated admissions "
+                         f"of {len(prompts)}, {st['template_forwards']} "
+                         "template prefills (want 1)")
+    new_tokens = sum(len(o) - P0 - len(p) for o, p in zip(outs, prompts))
+    prefill_fwd = st["forwards"] - srv.decode_chunk * st["rounds"]
+    rec = {
+        "layout": layout, "how": how, "new_tokens": new_tokens,
+        "serve_s": wall, "tokens_per_s": new_tokens / wall,
+        "ttft_p50_ms": 1e3 * statistics.median(first.values()),
+        "ttft_max_ms": 1e3 * max(first.values()),
+        "rounds": st["rounds"], "prefills": st["prefills"],
+        "prefill_forwards": prefill_fwd,
+        "template_forwards": st["template_forwards"],
+        "prefill_forwards_per_request": (
+            (prefill_fwd + st["template_forwards"]) / len(prompts)),
+        "templated": st["templated"], "rmsnorm_launches": launches,
+        "rmsnorm_launches_eager": rms.rmsnorm.launches,
+        "prefix_hits": srv.prefix_hits, "prefix_misses": srv.prefix_misses,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+    }
+    if how == "submit" and not (srv.prefix_misses == 1 and
+                                srv.prefix_hits == len(prompts) - 1):
+        raise SystemExit(f"{what}: {srv.prefix_hits} hits, "
+                         f"{srv.prefix_misses} misses")
+    if srv.paged:
+        rec.update(peak_blocks=st["peak_blocks"],
+                   shared_blocks=st["shared_blocks"])
+    if how == "shared_prefix":
+        # The template's build alone (one 256-token forward into a fresh
+        # 1-row cache), warm, by the host clock around a synchronize.
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            srv._template_layers(prefix)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t1))
+        rec["template_build_ms"] = ms
+    log(f"phase3c prefix {json.dumps(rec)}")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, outs
+
+
+def handoff_variant(infer, rms, params, cfg, prompts, name, kw) -> dict:
+    """A prefill server runs ``prefill_request`` + ``export_kv`` for each
+    request, a second server ``import_kv`` and decodes, one request handed
+    off each turn of its loop; its streams must equal the second server
+    serving the requests in place.  TTFT through the handoff runs from a
+    request's prefill to its first token out of the decode server."""
+    import numpy as np
+    import torch
+
+    dec = infer.DecodeServer(params, cfg, slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, seed=SEED,
+                             block_size=BLOCK, **kw)
+    dec.serve(prompts[:2], 4)  # warm-up: captures the decode graph
+    in_place: dict = {}
+    t0 = time.perf_counter()
+    ref = dec.serve(prompts, SERVE_MNT, on_token=lambda rid, _t:
+                    in_place.setdefault(rid, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    pf = infer.DecodeServer(params, cfg, slots=1, max_len=SERVE_MAX_LEN,
+                            seed=SEED, block_size=BLOCK, **kw)
+    pf.prefill_request("warm", prompts[0], SERVE_MNT)  # cuBLAS plans
+    pf.export_kv("warm")
+    reset_launches(rms.rmsnorm)
+    fwd0 = pf.prefill_forwards
+    times = {"prefill_ms": [], "export_ms": [], "unpack_ms": [],
+             "import_ms": []}
+    sizes = []
+    start: dict = {}
+    first: dict = {}
+    todo = list(range(len(prompts)))
+
+    def hand_off() -> bool:
+        """One request a loop turn: prefill it on the prefill server, ship
+        its segment, import it here (it is admitted in the same turn)."""
+        if todo:
+            i = todo.pop(0)
+            p = prompts[i]
+            start[i] = t1 = time.perf_counter()
+            pf.prefill_request(i, p, SERVE_MNT)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            payload, fp32_bytes = pf.export_kv(i)
+            t3 = time.perf_counter()
+            dec.import_kv(i, payload, p, SERVE_MNT)
+            t4 = time.perf_counter()
+            times["prefill_ms"].append(1e3 * (t2 - t1))
+            times["export_ms"].append(1e3 * (t3 - t2))
+            times["import_ms"].append(1e3 * (t4 - t3))
+            sizes.append((len(p), len(payload), fp32_bytes))
+        return bool(todo or dec.pending_count() or dec.active_rids())
+
+    got: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec.serve_incremental(
+        tick=hand_off, on_finish=lambda r, t: got.__setitem__(r, t),
+        on_token=lambda rid, _t: first.setdefault(
+            rid, time.perf_counter() - start[rid]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(dec.last_stats)
+    prefill_fwd = pf.prefill_forwards - fwd0
+    per_fwd = 2 * cfg.n_layer + 1
+    eager = rms.rmsnorm.launches
+    if prefill_fwd < len(prompts) or st["imported"] != len(prompts) or \
+            st["prefills"] != 0:
+        raise SystemExit(f"phase3c handoff {name}: {prefill_fwd} prefill "
+                         f"forwards, {st['imported']} imports, "
+                         f"{st['prefills']} decode-side prefills")
+    # The prefill server's forwards launch the kernel eagerly; the decode
+    # server runs no forward of its own and only replays its graph.
+    recorded = dec.decode_graph.recorded.get("rmsnorm", 0)
+    if eager != per_fwd * prefill_fwd or \
+            recorded != per_fwd * dec.decode_chunk or \
+            st["graph_replays"] != st["rounds"] or st["rounds"] == 0:
+        raise SystemExit(
+            f"phase3c handoff {name}: rmsnorm launches: {eager} eager (want "
+            f"{per_fwd} x {prefill_fwd} prefill forwards), {recorded} "
+            f"recorded a replay, {st['graph_replays']} replays for "
+            f"{st['rounds']} rounds")
+    decode = recorded * st["graph_replays"]
+    bad = [i for i, r in enumerate(ref) if not np.array_equal(got[i], r)]
+    if bad:
+        raise SystemExit(f"phase3c handoff {name}: requests {bad} differ "
+                         "from the same server serving them in place")
+    # Unpack alone, on the largest request's segment.
+    big = max(range(len(prompts)), key=lambda i: len(prompts[i]))
+    pf.prefill_request("big", prompts[big], SERVE_MNT)
+    payload, _ = pf.export_kv("big")
+    for _ in range(3):
+        t1 = time.perf_counter()
+        infer.unpack_kv_segment(payload)
+        times["unpack_ms"].append(1e3 * (time.perf_counter() - t1))
+    pay = sum(s[1] for s in sizes)
+    f32 = sum(s[2] for s in sizes)
+    n_big, b_big, f_big = sizes[big]
+    rec = {
+        "variant": name, "requests": len(prompts),
+        "payload_bytes": pay, "fp32_bytes": f32,
+        "payload_vs_fp32": pay / f32,
+        "largest": {"tokens": n_big, "payload_bytes": b_big,
+                    "fp32_bytes": f_big},
+        **{k: {"median": statistics.median(v), "max": max(v)}
+           for k, v in times.items()},
+        "handoff_s": wall, "tokens_per_s": len(prompts) * SERVE_MNT / wall,
+        "ttft_p50_ms": 1e3 * statistics.median(first.values()),
+        "ttft_max_ms": 1e3 * max(first.values()),
+        "in_place_ttft_p50_ms": 1e3 * statistics.median(in_place.values()),
+        "in_place_ttft_max_ms": 1e3 * max(in_place.values()),
+        "prefill_forwards": prefill_fwd,
+        "rmsnorm_launches_prefill": per_fwd * prefill_fwd,
+        "rmsnorm_launches_decode": decode,
+        "streams_equal_in_place": len(prompts),
+    }
+    log(f"phase3c handoff {json.dumps(rec)}")
+    del dec, pf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_prefix_handoff(infer, rms, params, cfg) -> dict:
+    """Phase 3c: phase 3b's 12 requests behind a shared 256-token prefix,
+    served three ways, slotted and paged, all greedy-equal; then the
+    KV-segment handoff, slotted bf16, slotted int8 and paged (a block
+    list), equal to serving in place."""
+    import numpy as np
+
+    prompts = serve_prompts(cfg)
+    prefix = np.random.RandomState(SEED + 1).randint(
+        1, cfg.vocab_size, size=PREFIX_LEN).astype(np.int32)
+    res = {"requests": len(prompts), "prefix_len": PREFIX_LEN,
+           "max_new_tokens": SERVE_MNT, "slots": SERVE_SLOTS,
+           "max_len": SERVE_MAX_LEN, "block_size": BLOCK, "prefix": [],
+           "handoff": []}
+    outs = {}
+    for layout, kw in (("slotted", {}), ("paged", {"paged": True})):
+        for turn, how in enumerate(PREFIX_HOWS):
+            rec, outs[layout, turn, how] = prefix_variant(
+                infer, rms, params, cfg, prompts, prefix, layout, how, kw)
+            rec["turn"] = turn
+            res["prefix"].append(rec)
+    ref = outs["slotted", 0, "concat"]
+    for key, got in outs.items():
+        bad = [i for i, (a, b) in enumerate(zip(got, ref))
+               if not np.array_equal(a, b)]
+        if bad:
+            raise SystemExit(f"phase3c {key}: requests {bad} differ from "
+                             "the slotted serve of the combined prompts")
+    for name, kw in HANDOFF_VARIANTS:
+        res["handoff"].append(handoff_variant(infer, rms, params, cfg,
+                                              prompts, name, kw))
+    return res
+
+
 def graph_launch_check(srv, rms, eager, cfg, what: str) -> int:
     """The RMSNorm launches of a serve run on the card: ``eager`` (the
-    wrapper's count: prefills and any graph warm-up, which run eagerly)
+    wrapper's count: prefills, template prefills and any graph warm-up,
+    which run eagerly)
     plus the graph's recorded nodes times its replays.  Fails unless the
     capture recorded (2L+1) x K launches, the eager count is (2L+1) x the
     eager forwards and each decode round was one replay.  Returns the
@@ -828,7 +1115,8 @@ def graph_launch_check(srv, rms, eager, cfg, what: str) -> int:
     per_fwd = 2 * cfg.n_layer + 1
     recorded = srv.decode_graph.recorded.get("rmsnorm", 0)
     replays = st["graph_replays"]
-    eager_fwd = st["forwards"] - K * replays + st["graph_warmup_forwards"]
+    eager_fwd = st["forwards"] - K * replays + st["graph_warmup_forwards"] \
+        + st["template_forwards"]
     if recorded != per_fwd * K or replays != st["rounds"] or \
             eager != per_fwd * eager_fwd or eager == 0:
         raise SystemExit(
@@ -1967,6 +2255,7 @@ def main() -> int:
     # kernel record.
     params = llama.init_params(
         cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
+    prefixed = phase_prefix_handoff(infer, rms, params, cfg)
     graphed = phase_serve_graph(infer, rms, params, cfg)
     del params
     torch.cuda.empty_cache()
@@ -1999,6 +2288,7 @@ def main() -> int:
         raise SystemExit("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
+    log("phase3c prefix_handoff " + json.dumps(prefixed))
     log("phase3b serve " + json.dumps(graphed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

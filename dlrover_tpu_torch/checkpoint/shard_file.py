@@ -5,7 +5,8 @@ over torch tensors: ``pack_shard``, ``unpack_shard``, ``verify_shard``,
 ``write_shard_from_views``, ``read_shard_manifest``, ``read_shard_meta``,
 ``read_shard_pieces``, ``read_shard``, ``commit``, ``resolve_keep_last``,
 ``referenced_steps``, ``quarantine_step``, ``list_steps``,
-``list_quarantined``, ``latest_step`` and ``ShardCorruptionError``.
+``list_quarantined``, ``latest_step``, ``shard_version`` and
+``ShardCorruptionError``.
 
 One shard file per process per step::
 
@@ -87,6 +88,16 @@ class ShardCorruptionError(Exception):
         self.reason = reason
         self.path = path
         super().__init__(f"{path}: {reason}" if path else reason)
+
+
+def shard_version(data: bytes) -> Optional[int]:
+    """Format version by magic (1 or 2), or ``None`` for foreign bytes."""
+    magic = bytes(data[:8])
+    if magic == _MAGIC:
+        return 2
+    if magic == _MAGIC_V1:
+        return 1
+    return None
 
 
 _NATIVE_CRC_FASTER: Optional[bool] = None

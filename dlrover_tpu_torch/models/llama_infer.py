@@ -3,14 +3,20 @@
 Held against ``dlrover_tpu/models/llama_infer.py``: :func:`init_cache`,
 :func:`_quantize_kv`, :func:`_cached_attention`, :func:`forward_step`,
 :func:`_filter_logits`, :func:`_make_sampler`, :func:`generate`,
-:func:`generate_ragged`, the paged-KV helpers (:func:`_paged_block_split`,
-:func:`_paged_dense_view`, :func:`_paged_scatter_back`,
-:func:`_paged_row_view`, :func:`_paged_row_scatter`,
-:func:`init_paged_pool`, :class:`PagedKvArena`) and :class:`DecodeServer`
-without speculation and prefixes (``submit``/``cancel``/``abort``, the
-single-token step and the ``decode_chunk`` chunk step, slotted or paged,
-``check_capacity``, ``block_stats``, ``serve``, ``serve_incremental`` and
-the plain, chunked and paged branches of ``_run``).
+:func:`generate_ragged`, :func:`prefix_fingerprint` (its own copy of
+``serving/replica.py`` ``_prompt_hash``), the KV-segment wire format
+(:class:`KvSegmentError`, :func:`pack_kv_segment`,
+:func:`unpack_kv_segment`, byte for byte), the paged-KV helpers
+(:func:`_paged_block_split`, :func:`_paged_dense_view`,
+:func:`_paged_scatter_back`, :func:`_paged_row_view`,
+:func:`_paged_row_scatter`, :func:`init_paged_pool`,
+:class:`PagedKvArena`) and :class:`DecodeServer` without speculation
+(``submit``/``cancel``/``abort``, the single-token step and the
+``decode_chunk`` chunk step, slotted or paged, ``check_capacity``,
+``block_stats``, ``serve`` with ``shared_prefix``, ``serve_incremental``,
+the prefix-template store, ``prefill_request``/``export_kv``/``import_kv``
+and every non-speculative branch of ``_run``, templated and imported
+admission included).
 
 The reference is functional: every step returns a new cache.  Here the
 cache tensors are updated in place (the step writes the new keys and
@@ -35,24 +41,35 @@ On a CUDA device the server's decode dispatch is one CUDA graph, captured
 once and replayed every round (``models/decode_graph.py``); on the CPU the
 same dispatch runs eagerly.
 
+A template, an imported segment and a paged block copy are written into
+the server's own cache or pool in place (``copy_``, ``index_copy_``): the
+captured graph holds their addresses.  Staged prefill rows and unpacked
+segments are CPU tensors (bf16 as ``uint16`` bits on the wire).
+
 Not ported yet, and refused with ``NotImplementedError``: speculative
-decoding (``draft``, ``spec_remote``), prefix caching (``shared_prefix``,
-``prefix_len``), the KV-segment handoff (``prefill_request``,
-``export_kv``, ``import_kv``) and :func:`serve_journaled`.
+decoding (``draft``, ``spec_remote``) and :func:`serve_journaled`.
 """
 
 from __future__ import annotations
 
 import collections
+import hashlib
 import math
 import threading
 import time
+import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.common import msgpack_lite
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.common.tensor_bytes import (
+    byte_view,
+    dtype_key,
+    torch_dtype,
+)
 from dlrover_tpu_torch.models.decode_graph import DecodeGraph
 from dlrover_tpu_torch.models.llama import LlamaConfig, _rope, block_apply
 from dlrover_tpu_torch.ops import rmsnorm as _rmsnorm_mod
@@ -421,6 +438,229 @@ def generate_ragged(params: Dict, cfg: LlamaConfig, prompts: torch.Tensor,
     return out, lens
 
 
+# -- prefix fingerprints and the KV-segment wire format -----------------------
+
+
+def prefix_fingerprint(tokens) -> str:
+    """Fingerprint of a shared prefix template: what requests carry for
+    prefix-aware routing and what keys the server's template store.  The
+    first 16 hex digits of the SHA-1 of the tokens' int32 bytes, the
+    reference's ``serving/replica.py`` ``_prompt_hash``."""
+    return hashlib.sha1(
+        np.asarray(tokens, np.int32).tobytes()
+    ).hexdigest()[:16]
+
+
+class KvSegmentError(ValueError):
+    """A packed KV segment failed verification (torn bytes, a CRC
+    mismatch, or a shape, dtype or config that disagrees with the
+    importing server).  Such a segment is never admitted; the fleet
+    prefills the request again."""
+
+    #: Marker the replica runner branches on without importing this module.
+    KV_REJECT = True
+
+
+KV_SEGMENT_VERSION = 1
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    """A CPU tensor of ``arr`` (a tensor anywhere, or a numpy array)."""
+    if torch.is_tensor(arr):
+        return arr.detach().cpu()
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def pack_kv_segment(layers, n: int, first_token: int, quant: bool,
+                    block_size: int = 0) -> Tuple[bytes, int]:
+    """Pack a prefilled KV segment for the prefill-to-decode handoff.
+    ``layers`` is the per-layer list of arrays (tensors or numpy arrays)
+    sliced to the ``n`` written slots: ``[1, KV, n, D]`` codes (int8
+    with fp32 ``[1, KV, n]`` scales when ``quant``, the model dtype
+    otherwise).
+
+    ``block_size > 0`` (paged servers) frames the data as a block list:
+    the slot axis is cut into ``ceil(n / block_size)`` blocks (the last
+    zero-padded), each block's bytes contiguous with its own CRC-32 in
+    the meta.  :func:`unpack_kv_segment` gives the same trimmed layers
+    from either framing.
+
+    Returns ``(payload, fp32_bytes)``: the msgpack blob (the data's CRC-32
+    inside; bytes equal to the reference's ``pack_kv_segment`` for the
+    same arrays: keys sorted, dtypes named as numpy names them, a bf16
+    array as its ``uint16`` bits under ``"bfloat16"``) and the k/v
+    codes' size at 4 bytes an element."""
+    layers = [{kk: _host_tensor(a) for kk, a in lay.items()}
+              for lay in layers]
+    keys = sorted(layers[0]) if layers else []
+    shapes: Dict[str, list] = {}
+    if block_size > 0:
+        bs = int(block_size)
+        nblk = -(-int(n) // bs)
+        for kk in keys:
+            arr = layers[0][kk]
+            shapes[kk] = [list(arr.shape[:2]) + [bs] + list(arr.shape[3:]),
+                          dtype_key(arr.dtype)]
+
+        def units(a: torch.Tensor, kk: str) -> torch.Tensor:
+            """[1, KV, slots(, D)] -> its zero-padded blocks, block major:
+            [nblk, 1, KV, bs(, D)], so a block's piece is a view."""
+            a = a[:, :, :nblk * bs]
+            if a.shape[2] < nblk * bs:
+                full = a.new_zeros(a.shape[:2] + (nblk * bs,) + a.shape[3:])
+                full[:, :, :a.shape[2]] = a
+                a = full
+            return a.reshape(a.shape[:2] + (nblk, bs)
+                             + a.shape[3:]).movedim(2, 0).contiguous()
+    else:
+        nblk = 1
+        for kk in keys:
+            arr = layers[0][kk]
+            shapes[kk] = [list(arr.shape), dtype_key(arr.dtype)]
+
+        def units(a: torch.Tensor, kk: str) -> torch.Tensor:
+            if list(a.shape) != shapes[kk][0]:
+                raise ValueError(
+                    f"ragged KV segment: layer {kk} shape {tuple(a.shape)} "
+                    f"!= {shapes[kk][0]}"
+                )
+            return a.contiguous()[None]
+
+    arrays = []
+    for lay in layers:
+        for kk in keys:
+            arrays.append(units(lay[kk], kk))
+    # Block major, then layer, then key: the reference's frame order.
+    data = b"".join(byte_view(x[b]) for b in range(nblk) for x in arrays)
+    meta_extra: Dict[str, Any] = {}
+    if block_size > 0:
+        frame = len(data) // nblk if nblk else 0
+        view = memoryview(data)
+        meta_extra = {"bs": bs, "nblk": nblk,
+                      "bcrc": [zlib.crc32(view[b * frame:(b + 1) * frame])
+                               for b in range(nblk)]}
+    # The k/v codes at 4 bytes an element (the scales of the int8 layout
+    # have no fp32 counterpart).
+    fp32_bytes = 0
+    for kk in ("k", "v"):
+        if kk in shapes:
+            fp32_bytes += nblk * len(layers) * int(
+                np.prod(shapes[kk][0])) * 4
+    meta = {
+        "v": KV_SEGMENT_VERSION,
+        "n": int(n),
+        "first": int(first_token),
+        "quant": bool(quant),
+        "layers": len(layers),
+        "keys": keys,
+        "shapes": shapes,
+        **meta_extra,
+    }
+    payload = msgpack_lite.packb(
+        {"meta": meta, "crc": zlib.crc32(data), "data": data})
+    return payload, fp32_bytes
+
+
+def unpack_kv_segment(payload: bytes) -> Dict[str, Any]:
+    """Verify and unpack a :func:`pack_kv_segment` blob (the port's or the
+    reference's).  Raises :class:`KvSegmentError` on any damage (an
+    unparseable envelope, a CRC mismatch, sizes or types that disagree): a
+    torn segment is rejected, never decoded from.  Returns ``{"layers":
+    [...], "n", "first", "quant"}`` (and ``"block_size"``, ``"blocks"``
+    for a block list) with per-layer CPU tensors."""
+    try:
+        obj = msgpack_lite.unpackb(payload)
+        meta = obj["meta"]
+        crc = int(obj["crc"])
+        data = obj["data"]
+        keys = list(meta["keys"])
+        shapes = meta["shapes"]
+        n_layers = int(meta["layers"])
+    except Exception as e:  # any malformed envelope is a torn segment
+        raise KvSegmentError(f"undecodable KV segment: {e}") from None
+    if meta.get("v") != KV_SEGMENT_VERSION:
+        raise KvSegmentError(
+            f"KV segment version {meta.get('v')} != {KV_SEGMENT_VERSION}"
+        )
+    if not isinstance(data, bytes) or zlib.crc32(data) != crc:
+        raise KvSegmentError("KV segment CRC mismatch (torn payload)")
+    try:
+        sizes = {
+            kk: int(np.prod([int(d) for d in shapes[kk][0]]))
+            * torch.empty((), dtype=torch_dtype(shapes[kk][1])).element_size()
+            for kk in keys
+        }
+        n = int(meta["n"])
+        first = int(meta["first"])
+        quant = bool(meta["quant"])
+    except Exception as e:  # a meta that names no size is a torn segment
+        raise KvSegmentError(f"KV segment meta incoherent: {e}") from None
+    frame_size = sum(sizes.values()) * n_layers
+    blocks = "bs" in meta
+    if blocks:
+        # Block list: each block's CRC first (a torn transfer is found in
+        # the block that tore), then the blocks join along the slot axis
+        # and are trimmed to ``n``.
+        bs = int(meta["bs"])
+        nblk = int(meta["nblk"])
+        bcrc = list(meta["bcrc"])
+        if bs < 1 or nblk < 1 or len(bcrc) != nblk or \
+                not (nblk - 1) * bs < n <= nblk * bs:
+            raise KvSegmentError(
+                f"KV segment block meta incoherent: n={n} bs={bs} "
+                f"nblk={nblk} crcs={len(bcrc)}"
+            )
+        if frame_size * nblk != len(data):
+            raise KvSegmentError(
+                f"KV segment size mismatch: {nblk} blocks of {frame_size} "
+                f"bytes promised, have {len(data)}"
+            )
+        view = memoryview(data)
+        for b in range(nblk):
+            if zlib.crc32(view[b * frame_size:(b + 1) * frame_size]) != \
+                    int(bcrc[b]):
+                raise KvSegmentError(
+                    f"KV segment block {b}/{nblk} CRC mismatch (torn block)"
+                )
+    else:
+        # Monolithic: one frame holding whole arrays.
+        nblk = 1
+        if frame_size != len(data):
+            raise KvSegmentError(
+                f"KV segment size mismatch: meta promises {frame_size} "
+                f"bytes, have {len(data)}"
+            )
+    # Read-only: every array below is a copy of its columns.
+    frames = np.frombuffer(data, np.uint8).reshape(nblk, frame_size)
+    layers = []
+    off = 0
+    try:
+        for _ in range(n_layers):
+            lay = {}
+            for kk in keys:
+                shape, dt = shapes[kk]
+                # Column ``off`` of every frame: [nblk, *shape], joined
+                # along the slot axis (axis 2).
+                t = torch.from_numpy(
+                    frames[:, off:off + sizes[kk]].copy()).view(
+                    torch_dtype(dt)).view([nblk] + list(shape))
+                off += sizes[kk]
+                if blocks:
+                    t = t.movedim(0, 2)
+                    t = t.reshape(tuple(t.shape[:2]) + (nblk * t.shape[3],)
+                                  + tuple(t.shape[4:]))[:, :, :n]
+                else:
+                    t = t[0]
+                lay[kk] = t
+            layers.append(lay)
+    except (TypeError, ValueError, RuntimeError, IndexError) as e:
+        raise KvSegmentError(f"KV segment arrays incoherent: {e}") from None
+    seg = {"layers": layers, "n": n, "first": first, "quant": quant}
+    if blocks:
+        seg.update(block_size=bs, blocks=nblk)
+    return seg
+
+
 # -- paged KV ----------------------------------------------------------------
 #
 # The pool holds fixed-size blocks; a per-slot block table maps logical
@@ -689,9 +929,19 @@ class DecodeServer:
     slots grow before each dispatch, and when the pool runs dry the
     youngest admission is preempted and re-queued at the front.
 
-    The cache lives on the device of ``params``.  ``draft``,
-    ``spec_remote`` and prefixes (``shared_prefix``, ``prefix_len``) raise
-    ``NotImplementedError``.
+    Prefix caching: ``serve(shared_prefix=)`` prefills the prefix once into
+    a template and ``submit(prefix_len=)`` keeps one template per prefix
+    fingerprint (an LRU of ``prefix_cache_cap``).  A template is a 1-row
+    cache of ``max_len`` rows; an admission copies its rows into the slot
+    (paged: shares its whole blocks below the first re-scored position and
+    copies the rest) and scores only from the first chunk that holds its
+    own tokens.  The handoff: ``prefill_request`` prefills one request
+    alone and stages its rows, ``export_kv`` packs them
+    (:func:`pack_kv_segment`) and another server's ``import_kv`` verifies
+    the segment and admits the request from it with no prefill.
+
+    The cache lives on the device of ``params``.  ``draft`` and
+    ``spec_remote`` raise ``NotImplementedError``.
     """
 
     def __init__(
@@ -711,6 +961,7 @@ class DecodeServer:
         draft: Optional[Tuple[Dict, LlamaConfig]] = None,
         decode_chunk: int = 1,
         spec_remote: bool = False,
+        prefix_cache_cap: int = 4,
         paged: bool = False,
         block_size: int = 16,
         pool_blocks: Optional[int] = None,
@@ -778,6 +1029,22 @@ class DecodeServer:
         #: rid -> tokens already delivered through on_token before a
         #: preemption (re-admission mutes that many).
         self._preempt_emitted: Dict[Any, int] = {}
+        # Prefix templates: fp -> {"prefix", "p0", "layers"} in LRU order
+        # (mutated under _pending_mu); hits and misses count lookups.
+        self.prefix_cache_cap = max(1, int(prefix_cache_cap))
+        self._prefix_store: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        #: Forward calls spent prefilling templates, and by
+        #: ``prefill_request``, over the server's life.
+        self.template_forwards = 0
+        self.prefill_forwards = 0
+        #: Serve-call counter: a paged template's pool blocks belong to
+        #: one run (the pool is zeroed at every serve call).
+        self._paged_run_seq = 0
+        # rid -> the prefilled rows staged for export_kv (CPU tensors).
+        self._kv_exports: Dict[Any, Dict[str, Any]] = {}
         self._pick = _make_sampler(temperature, top_k, top_p)
         # One sampling stream for every prefill and step, on the device.
         self._gen = torch.Generator(device=self.device)
@@ -919,15 +1186,19 @@ class DecodeServer:
         to ``decode_chunk - 1`` slots past a mid-chunk finish."""
         return self.decode_chunk - 1
 
-    def check_capacity(self, prompt_len: int, max_new_tokens: int) -> None:
-        """Raise ValueError if a request of this shape could write past
-        ``max_len`` (a torch index out of range raises, or trips a
-        device-side assert on CUDA, where JAX would drop the write), or,
-        when paged, needs more blocks than the whole pool holds."""
-        need = prompt_len + max_new_tokens + self._write_slack()
+    def check_capacity(self, prompt_len: int, max_new_tokens: int,
+                       prefix_len: int = 0) -> None:
+        """Raise ValueError if a request of this shape (after a shared
+        prefix of ``prefix_len``) could write past ``max_len`` (a torch
+        index out of range raises, or trips a device-side assert on CUDA,
+        where JAX would drop the write), or, when paged, needs more blocks
+        than the whole pool holds."""
+        need = prefix_len + prompt_len + max_new_tokens + \
+            self._write_slack()
         if need > self.max_len:
             raise ValueError(
-                f"prompt {prompt_len} + max_new_tokens {max_new_tokens} "
+                (f"prefix {prefix_len} + " if prefix_len else "")
+                + f"prompt {prompt_len} + max_new_tokens {max_new_tokens} "
                 f"+ headroom {self._write_slack()} = {need} exceeds "
                 f"max_len {self.max_len}"
             )
@@ -953,38 +1224,209 @@ class DecodeServer:
             )
         return p
 
+    def _prefix_of(self, p: np.ndarray, prefix_len: int) -> int:
+        p0 = int(prefix_len)
+        if not 0 < p0 < len(p):
+            raise ValueError(
+                f"prefix_len {prefix_len} out of range for a {len(p)}-token "
+                "prompt"
+            )
+        return p0
+
     def submit(self, rid, prompt, max_new_tokens: int,
-               prefix_len: int = 0) -> None:
+               prefix_len: int = 0, prefix_fp: str = "") -> None:
         """Enqueue one request for incremental admission (any hashable
         ``rid``); the running ``serve_incremental`` loop admits it when a
-        slot frees.  Raises ValueError at once if it can never fit."""
-        if prefix_len:
-            raise NotImplementedError(
-                f"prefix templates (prefix_len) come with {SERVING_SLICE}"
-            )
+        slot frees.  Raises ValueError at once if it can never fit.
+
+        ``prefix_len > 0`` declares ``prompt[:prefix_len]`` a shared
+        template, keyed by ``prefix_fp`` (default: its
+        :func:`prefix_fingerprint`): a warm template admits with a row
+        copy and the scoring of the request's own chunk, a cold one is
+        prefilled once and kept.  Outputs equal the untemplated path's."""
         p = self._as_prompt(prompt)
         self.check_capacity(len(p), max_new_tokens)
+        extra = None
+        if prefix_len:
+            p0 = self._prefix_of(p, prefix_len)
+            extra = {"prefix_len": p0,
+                     "prefix_fp": prefix_fp or prefix_fingerprint(p[:p0])}
         with self._pending_mu:
-            self._pending.append((rid, p, int(max_new_tokens)))
+            self._pending.append((rid, p, int(max_new_tokens), extra))
 
-    def prefill_request(self, *args, **kwargs):
-        """Prefill-role admission of the KV-segment handoff."""
-        raise NotImplementedError(
-            f"prefill_request (the KV-segment handoff) comes with "
-            f"{SERVING_SLICE}"
+    # -- prefix templates and the KV-segment handoff -------------------------
+
+    def warm_prefix_fps(self) -> list:
+        """Fingerprints of the templates held now, oldest first (what a
+        replica reports so that the gateway routes matching requests
+        here)."""
+        with self._pending_mu:
+            return list(self._prefix_store)
+
+    def clear_prefix_templates(self) -> None:
+        """Drop every template and zero the hit and miss counts."""
+        with self._pending_mu:
+            for entry in self._prefix_store.values():
+                self._release_template_blocks(entry)
+            self._prefix_store.clear()
+            self.prefix_hits = 0
+            self.prefix_misses = 0
+
+    @torch.inference_mode()
+    def _template_layers(self, prefix: np.ndarray) -> List[Dict]:
+        """Prefill ``prefix`` in one forward into a fresh 1-row cache of
+        ``max_len`` rows (zeros past the prefix) and return its layers: the
+        template build of the batch path and of the store."""
+        tc = init_cache(self.cfg, 1, self.max_len, device=self.device,
+                        quant_kv=self.quant_kv, ring=False)
+        toks = torch.from_numpy(prefix.astype(np.int64)).to(self.device)
+        forward_step(self.params, toks[None], self.cfg, tc)
+        self.template_forwards += 1
+        return tc["layers"]
+
+    def _ensure_prefix_template(self, prefix, fp: str) -> Dict[str, Any]:
+        """The store's entry for ``fp``: a hit returns it (most recent in
+        the LRU); a miss, or an entry whose prefix differs from
+        ``prefix`` (a collision), prefills the template once and keeps it,
+        evicting the oldest past ``prefix_cache_cap``."""
+        prefix = np.asarray(prefix, np.int32)
+        with self._pending_mu:
+            entry = self._prefix_store.get(fp)
+            if entry is not None and (
+                entry["p0"] != len(prefix)
+                or not np.array_equal(entry["prefix"], prefix)
+            ):
+                # Never serve another prefix's rows.
+                del self._prefix_store[fp]
+                self._release_template_blocks(entry)
+                entry = None
+            if entry is not None:
+                self.prefix_hits += 1
+                self._prefix_store.move_to_end(fp)
+                return entry
+            self.prefix_misses += 1
+        # The build runs outside the lock.
+        entry = {"prefix": prefix, "p0": len(prefix),
+                 "layers": self._template_layers(prefix)}
+        with self._pending_mu:
+            self._prefix_store[fp] = entry
+            while len(self._prefix_store) > self.prefix_cache_cap:
+                _, old = self._prefix_store.popitem(last=False)
+                self._release_template_blocks(old)
+        return entry
+
+    def _release_template_blocks(self, entry: Dict[str, Any]) -> None:
+        """Drop the store's hold on an entry's pool blocks (paged, this
+        run's only); blocks a slot still shares live on its refcount."""
+        pb = entry.pop("_paged", None)
+        if pb is not None and self.kv_arena is not None and \
+                pb["run"] == self._paged_run_seq:
+            self.kv_arena.release(pb["ids"])
+
+    @torch.inference_mode()
+    def prefill_request(self, rid, prompt, max_new_tokens: int,
+                        prefix_len: int = 0, prefix_fp: str = "") -> int:
+        """The prefill role of the handoff: score ``prompt`` into a fresh
+        1-row cache (a template when ``prefix_len`` is given and the
+        prompt is longer than the largest bucket; bucketed or chunked as
+        the server's own admission), pick the first token and stage host
+        copies of the written rows for :meth:`export_kv`.  Returns the
+        first token."""
+        p = self._as_prompt(prompt)
+        n = len(p)
+        self.check_capacity(n, max_new_tokens)
+        C = self.buckets[-1]
+        c_start = None
+        if prefix_len and n > C:
+            p0 = self._prefix_of(p, prefix_len)
+            tmpl = self._ensure_prefix_template(
+                p[:p0], prefix_fp or prefix_fingerprint(p[:p0]))
+            # The template stays as it is: score on a copy.
+            layers = [{k: t.clone() for k, t in lay.items()}
+                      for lay in tmpl["layers"]]
+            c_start = min(C * (p0 // C), n - C)
+        else:
+            layers = init_cache(self.cfg, 1, self.max_len,
+                                device=self.device, quant_kv=self.quant_kv,
+                                ring=False)["layers"]
+        last, calls = self._score(p, lambda zero: layers, lambda rows: None,
+                                  c_start)
+        self.prefill_forwards += calls
+        first = int(self._pick(last, self._gen)[0])
+        self._kv_exports[rid] = {
+            "layers": [{k: t[:, :, :n].contiguous().cpu()
+                        for k, t in lay.items()} for lay in layers],
+            "n": n, "first": first,
+        }
+        return first
+
+    def export_kv(self, rid) -> Tuple[bytes, int]:
+        """``(payload, fp32_bytes)`` of :func:`pack_kv_segment` for the
+        rows :meth:`prefill_request` staged for ``rid`` (a paged server
+        ships a block list).  The staged entry is consumed."""
+        info = self._kv_exports.pop(rid, None)
+        if info is None:
+            raise ValueError(f"no staged prefill for request {rid!r}")
+        return pack_kv_segment(
+            info["layers"], info["n"], info["first"], self.quant_kv,
+            block_size=self.block_size if self.paged else 0,
         )
 
-    def export_kv(self, *args, **kwargs):
-        """Ship a prefilled request's KV segment."""
-        raise NotImplementedError(
-            f"export_kv (the KV-segment handoff) comes with {SERVING_SLICE}"
-        )
-
-    def import_kv(self, *args, **kwargs):
-        """Admit a request from a shipped KV segment."""
-        raise NotImplementedError(
-            f"import_kv (the KV-segment handoff) comes with {SERVING_SLICE}"
-        )
+    def import_kv(self, rid, payload: bytes, prompt,
+                  max_new_tokens: int) -> None:
+        """The decode role of the handoff: verify the segment (its CRCs;
+        ``n`` against the prompt; quantization, layer count, keys, and
+        every array's shape and dtype against this server's own layout,
+        never the payload's) and queue the request for admission from its
+        rows.  Raises :class:`KvSegmentError` on any mismatch."""
+        seg = unpack_kv_segment(payload)
+        p = self._as_prompt(prompt)
+        n = seg["n"]
+        if n != len(p):
+            raise KvSegmentError(
+                f"KV segment covers {n} tokens but the grant prompt has "
+                f"{len(p)}"
+            )
+        if seg["quant"] != self.quant_kv:
+            raise KvSegmentError(
+                f"KV segment quant={seg['quant']} but this server has "
+                f"quant_kv={self.quant_kv}"
+            )
+        self.check_capacity(n, max_new_tokens)
+        cfg = self.cfg
+        if len(seg["layers"]) != cfg.n_layer:
+            raise KvSegmentError(
+                f"KV segment has {len(seg['layers'])} layers, model has "
+                f"{cfg.n_layer}"
+            )
+        want = _kv_arrays(cfg, (1, cfg.n_kv_head, n), torch.device("meta"),
+                          self.quant_kv)
+        # Paged admission writes whole blocks: pad to the block boundary.
+        tail = (self.kv_arena.blocks_for(n) * self.block_size - n
+                if self.paged else 0)
+        rows = []
+        for lay in seg["layers"]:
+            if set(lay) != set(want):
+                raise KvSegmentError(
+                    f"KV segment keys {sorted(lay)} != {sorted(want)}"
+                )
+            out = {}
+            for kk, arr in lay.items():
+                ref = want[kk]
+                if arr.shape != ref.shape or arr.dtype != ref.dtype:
+                    raise KvSegmentError(
+                        f"KV segment {kk}: shape {tuple(arr.shape)} dtype "
+                        f"{arr.dtype} != expected {tuple(ref.shape)} "
+                        f"{ref.dtype}"
+                    )
+                if tail:
+                    arr = torch.cat([arr, arr.new_zeros(
+                        arr.shape[:2] + (tail,) + arr.shape[3:])], dim=2)
+                out[kk] = arr
+            rows.append(out)
+        extra = {"kv": {"layers": rows, "n": n, "first": seg["first"]}}
+        with self._pending_mu:
+            self._pending.append((rid, p, int(max_new_tokens), extra))
 
     def cancel(self, rid) -> bool:
         """Drop a not-yet-admitted request.  False when ``rid`` is unknown
@@ -1035,17 +1477,13 @@ class DecodeServer:
         busy = int(act.sum()) if act is not None else 0
         return max(0, self.slots - busy - self.pending_count())
 
-    def _prefill(self, s: int, prompt: np.ndarray
-                 ) -> Tuple[torch.Tensor, int]:
-        """Score ``prompt`` into slot ``s``'s zeroed cache rows (paged:
-        through its table row, whose blocks are allocated), set the slot's
-        offset to its length and pick its first token.  A prompt that fits
-        a bucket is right-padded to it and scored in one pass (the pad
-        keys sit past the prompt and are causally hidden until decode
-        overwrites them); a longer one is scored in full chunks of the
-        largest bucket, the last chunk shifted back to end at the prompt's
-        end.  Returns (first token, forward calls)."""
-        n = len(prompt)
+    def _slot_rows(self, s: int):
+        """``(rows_view, commit)`` over slot ``s``'s cache rows:
+        ``rows_view(zero)`` gives per-layer ``[1, ...]`` rows (zeroed when
+        asked) that a forward writes, and ``commit(rows)`` puts them back.
+        Slotted: views of the cache, nothing to put back; paged: a copy
+        gathered through the slot's table row (its blocks allocated) and
+        scattered back."""
         if self.paged:
             tbl = torch.from_numpy(
                 self.kv_arena.table[s].astype(np.int64)
@@ -1061,21 +1499,36 @@ class DecodeServer:
 
             def commit(rows: List[Dict]) -> None:
                 _paged_row_scatter(self._kv, rows, tbl)
-        else:
-            slot_rows = [{k: t[s:s + 1] for k, t in c.items()}
-                         for c in self._kv]
 
-            def rows_view(zero: bool) -> List[Dict]:
-                if zero:
-                    for c in slot_rows:
-                        for t in c.values():
-                            t.zero_()
-                return slot_rows
+            return rows_view, commit
+        slot_rows = [{k: t[s:s + 1] for k, t in c.items()} for c in self._kv]
 
-            def commit(rows: List[Dict]) -> None:
-                pass
+        def rows_view(zero: bool) -> List[Dict]:
+            if zero:
+                for c in slot_rows:
+                    for t in c.values():
+                        t.zero_()
+            return slot_rows
 
-        if n <= self.buckets[-1]:
+        return rows_view, lambda rows: None
+
+    def _score(self, prompt: np.ndarray, rows_view, commit,
+               c_start: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+        """Score ``prompt`` into the rows of ``rows_view`` / ``commit`` (see
+        :meth:`_slot_rows`); returns (the last position's logits [1, V],
+        forward calls).
+
+        ``c_start`` None: fresh rows.  A prompt that fits a bucket is
+        right-padded to it and scored in one pass on zeroed rows (the pad
+        keys sit past the prompt and are causally hidden until decode
+        overwrites them); a longer one is scored in full chunks of the
+        largest bucket, the rows zeroed before the first, the last chunk
+        shifted back to end at the prompt's end.  ``c_start`` an int: the
+        rows already hold a template's keys below it; the chunks start
+        there and zero nothing."""
+        n = len(prompt)
+        C = self.buckets[-1]
+        if c_start is None and n <= C:
             padded = np.zeros((1, self._bucket(n)), np.int64)
             padded[0, :n] = prompt
             rows = rows_view(True)
@@ -1084,27 +1537,33 @@ class DecodeServer:
                 self.cfg, {"layers": rows, "offset": 0},
             )
             commit(rows)
-            last, calls = logits[:, n - 1, :], 1
-        else:
-            # Every chunk is full; re-scoring the shifted-back positions
-            # recomputes the same keys from the same complete prefix.
-            C = self.buckets[-1]
-            calls = 0
-            for c0 in range(0, n, C):
-                start = c0 if c0 + C <= n else n - C
-                piece = torch.from_numpy(
-                    prompt[start:start + C].astype(np.int64)
-                ).to(self.device)
-                rows = rows_view(start == 0)
-                logits, _ = forward_step(
-                    self.params, piece[None, :], self.cfg,
-                    {"layers": rows, "offset": start},
-                )
-                commit(rows)
-                calls += 1
-                if start + C >= n:
-                    last = logits[:, (n - 1) - start, :]
-        self._off[s] = n
+            return logits[:, n - 1, :], 1
+        # Every chunk is full; re-scoring the shifted-back positions
+        # recomputes the same keys from the same complete prefix.
+        calls = 0
+        for c0 in range(c_start or 0, n, C):
+            start = c0 if c0 + C <= n else n - C
+            piece = torch.from_numpy(
+                prompt[start:start + C].astype(np.int64)
+            ).to(self.device)
+            rows = rows_view(c_start is None and start == 0)
+            logits, _ = forward_step(
+                self.params, piece[None, :], self.cfg,
+                {"layers": rows, "offset": start},
+            )
+            commit(rows)
+            calls += 1
+            if start + C >= n:
+                last = logits[:, (n - 1) - start, :]
+        return last, calls
+
+    def _prefill(self, s: int, prompt: np.ndarray,
+                 c_start: Optional[int] = None) -> Tuple[torch.Tensor, int]:
+        """Score ``prompt`` into slot ``s``'s rows (:meth:`_score`), set the
+        slot's offset to its length and pick its first token.  Returns
+        (first token, forward calls)."""
+        last, calls = self._score(prompt, *self._slot_rows(s), c_start)
+        self._off[s] = len(prompt)
         return self._pick(last, self._gen)[0], calls
 
     def serve(self, prompts, max_new_tokens: int, on_finish=None,
@@ -1114,19 +1573,42 @@ class DecodeServer:
 
         ``on_finish(rid, tokens)`` fires when request ``rid`` (its index)
         completes; ``on_token(rid, token)`` fires for every emitted token,
-        the first (sampled at prefill) included."""
+        the first (sampled at prefill) included.
+
+        ``shared_prefix`` (a 1-D int array): prefix caching for one system
+        prompt shared by every request.  The output is exactly
+        ``serve([prefix + p for p in prompts])``; when some combined prompt
+        is longer than the largest bucket, the prefix is prefilled once
+        into a template and each such admission copies its rows (paged:
+        shares its blocks) and scores only from the first chunk holding its
+        own tokens."""
+        prefix = None
         if shared_prefix is not None:
-            raise NotImplementedError(
-                f"prefix caching (shared_prefix) comes with {SERVING_SLICE}"
-            )
+            prefix = np.asarray(shared_prefix, np.int32)
+            if prefix.ndim != 1 or prefix.size == 0:
+                raise ValueError(
+                    "shared_prefix must be a non-empty 1-D token array"
+                )
+        P0 = 0 if prefix is None else len(prefix)
         items = []
         for rid, prompt in enumerate(prompts):
             try:
-                p = self._as_prompt(prompt)
-                self.check_capacity(len(p), max_new_tokens)
+                if prefix is None:
+                    p = self._as_prompt(prompt)
+                else:
+                    # The request's own tokens may be empty; the combined
+                    # prompt is what is served.
+                    p = np.asarray(prompt, np.int32)
+                    if p.ndim != 1:
+                        raise ValueError(
+                            f"a prompt is a 1-D token array, got shape "
+                            f"{p.shape}"
+                        )
+                    self._as_prompt(np.concatenate([prefix, p]))
+                self.check_capacity(len(p), max_new_tokens, P0)
             except ValueError as e:
                 raise ValueError(f"request {rid}: {e}") from None
-            items.append((rid, p, int(max_new_tokens)))
+            items.append((rid, p, int(max_new_tokens), None))
         with self._pending_mu:
             if self._pending:
                 raise RuntimeError(
@@ -1135,34 +1617,57 @@ class DecodeServer:
                     "them first (serve()/serve_incremental are exclusive "
                     "modes)"
                 )
+        forwards0 = self.template_forwards
+        template = None
+        if prefix is not None and any(P0 + len(it[1]) > self.buckets[-1]
+                                      for it in items):
+            # (When every combined prompt fits one bucket, each admission
+            # prefills from scratch and a template would go unused.)
+            template = self._template_layers(prefix)
+        with self._pending_mu:
             self._pending.extend(items)
-        results = self._run(on_finish=on_finish, on_token=on_token)
+        results = self._run(on_finish=on_finish, on_token=on_token,
+                            prefix=prefix, template=template,
+                            template_forwards0=forwards0)
         return [results[i] for i in range(len(items))]
 
     def serve_incremental(self, tick=None, on_finish=None, on_token=None,
                           idle_wait: float = 0.002) -> dict:
-        """Serve requests fed in by :meth:`submit`.  ``tick()`` runs once
-        per loop turn (the admission point); returning ``False`` drains
-        the loop: admitted and already submitted requests finish, then
-        the call returns.  Completions are delivered through
+        """Serve requests fed in by :meth:`submit` and :meth:`import_kv`.
+        ``tick()`` runs once per loop turn (the admission point); returning
+        ``False`` drains the loop: admitted and already submitted requests
+        finish, then the call returns.  Completions are delivered through
         ``on_finish`` only; returns {}."""
         return self._run(on_finish=on_finish, on_token=on_token,
                          tick=tick, idle_wait=idle_wait)
 
     @torch.inference_mode()
     def _run(self, on_finish=None, on_token=None, tick=None,
-             idle_wait: float = 0.002) -> dict:
+             idle_wait: float = 0.002, prefix: Optional[np.ndarray] = None,
+             template: Optional[List[Dict]] = None,
+             template_forwards0: Optional[int] = None) -> dict:
         """The decode loop of :meth:`serve` (the queue is filled up front
         and runs to drain) and :meth:`serve_incremental` (``tick`` feeds
-        it).  Every request carries its own max_new_tokens budget."""
+        it).  Every request carries its own max_new_tokens budget.  Queue
+        items are ``(rid, prompt, max_new_tokens, extra)``: ``extra`` is
+        None, a prefix declaration (``prefix_len``, ``prefix_fp``) or a
+        verified KV segment (``kv``).  ``prefix`` (with the batch path's
+        ``template`` layers, if it built one) goes before every prompt."""
         self.last_stats = {}
         B, K = self.slots, self.decode_chunk
+        C = self.buckets[-1]
         arena = self.kv_arena
+        if template_forwards0 is None:
+            template_forwards0 = self.template_forwards
         captured = self._ensure_state()
         replays0 = self.decode_graph.replays
         if self.paged:
             arena.reset()
+            # The pool was just zeroed: a template's blocks of an earlier
+            # run are gone.
+            self._paged_run_seq += 1
             self.preemptions = 0
+        P0 = 0 if prefix is None else len(prefix)
         off = np.zeros(B, np.int64)  # host copy of the slots' offsets
         active = np.zeros(B, bool)
         slot_req: list = [None] * B
@@ -1177,7 +1682,11 @@ class DecodeServer:
         slot_mute = [0] * B
         results: Dict[Any, np.ndarray] = {}
         counts = {"rounds": 0, "emitted": 0, "prefills": 0, "forwards": 0,
-                  "admits": 0, "peak_blocks": 0}
+                  "admits": 0, "peak_blocks": 0, "templated": 0,
+                  "imported": 0, "shared_blocks": 0}
+        # The batch template's pool blocks (paged), as a store entry holds
+        # its own.
+        batch_memo: Dict[str, Any] = {}
 
         def free(s):
             if self.paged:
@@ -1227,21 +1736,138 @@ class DecodeServer:
                                  key=lambda v: admit_seq[v])
                     preempt(victim)
 
-        def admit(s, item):
-            rid, prompt, mnt = item
-            slot_item[s] = item
-            if self.paged and not arena.alloc_upto(s, len(prompt)):
+        def write_blocks(rows_layers: List[Dict], ids: list) -> None:
+            """The first ``len(ids)`` blocks of dense ``[1, KV, >= n*BS,
+            ...]`` rows into pool blocks ``ids``, in place (template
+            materialization and segment import)."""
+            idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+            for pl, rl in zip(self._kv, rows_layers):
+                for kk, arr in pl.items():
+                    blocks = _paged_block_split(
+                        rl[kk][0].to(self.device), len(ids), self.block_size)
+                    arr.index_copy_(0, idx, blocks.to(arr.dtype))
+
+        def paged_template_ids(tmpl_layers, p0, store_entry):
+            """A template's pool blocks, written once a run from its dense
+            layers and held (a refcount of the store) until it is evicted
+            or the run ends.  None when the pool is too tight: the caller
+            admits untemplated."""
+            memo = store_entry if store_entry is not None else batch_memo
+            pb = memo.get("_paged")
+            if pb is not None and pb["run"] == self._paged_run_seq:
+                return pb["ids"]
+            ids = arena.hold(arena.blocks_for(p0))
+            if ids is None:
+                return None
+            write_blocks(tmpl_layers, ids)
+            memo["_paged"] = {"run": self._paged_run_seq, "ids": ids}
+            return ids
+
+        def drop_template_holds():
+            """Release every template's blocks: the last resort when even
+            an untemplated admission does not fit an empty batch
+            (``check_capacity`` guarantees it fits the bare pool)."""
+            with self._pending_mu:
+                memos = [batch_memo] + list(self._prefix_store.values())
+            for memo in memos:
+                pb = memo.pop("_paged", None)
+                if pb is not None and pb["run"] == self._paged_run_seq:
+                    arena.release(pb["ids"])
+
+        def paged_admit_need(item, bare=False) -> int:
+            """Blocks this admission takes from the pool now; ``bare``
+            prices it without its template."""
+            _, prompt_, _, extra_ = item
+            extra_ = extra_ or {}
+            if "kv" in extra_:
+                return arena.blocks_for(extra_["kv"]["n"])
+            n = len(prompt_) + P0
+            need = arena.blocks_for(n)
+            if bare:
+                return need
+            p0, entry = 0, None
+            if prefix is not None and n > C and template is not None:
+                p0, entry = P0, batch_memo
+            elif extra_.get("prefix_len") and len(prompt_) > C:
+                p0 = int(extra_["prefix_len"])
+                with self._pending_mu:
+                    entry = self._prefix_store.get(
+                        extra_.get("prefix_fp") or "")
+            if p0:
+                w0 = min(C * (p0 // C), n - C)
+                if w0 > 0:
+                    pb = (entry or {}).get("_paged")
+                    if pb and pb["run"] == self._paged_run_seq:
+                        # Warm: the shared blocks come free.
+                        need -= w0 // self.block_size
+                    else:
+                        # Cold: writing the template takes its blocks too.
+                        need += arena.blocks_for(p0)
+            return max(0, need)
+
+        def admit_paged(s, prompt, tmpl, p0, store_entry):
+            """Share the template's whole blocks below the first re-scored
+            position ``w0`` (refcount up, no copy), copy its blocks in
+            ``[w0, p0)`` (they are about to be rewritten: copy on the first
+            divergent write), allocate the rest the prompt needs, and
+            score from ``w0``.  Returns (first token, forward calls,
+            whether the template was used: not when ``w0 <= 0`` or the
+            pool could not hold its blocks)."""
+            n = len(prompt)
+            BSZ = self.block_size
+            ids, w0 = None, 0
+            if tmpl is not None and p0:
+                w0 = min(C * (p0 // C), n - C)
+                if w0 > 0:
+                    ids = paged_template_ids(tmpl, p0, store_entry)
+            copy_src: list = []
+            if ids is not None:
+                share_n = w0 // BSZ
+                arena.share(s, ids[:share_n])
+                copy_src = ids[share_n:arena.blocks_for(p0)]
+                counts["shared_blocks"] += share_n
+            if not arena.alloc_upto(s, n):
                 raise RuntimeError(
                     "paged admission allocation failed after the "
                     "free-block gate: arena accounting bug"
                 )
-            first, calls = self._prefill(s, prompt)
+            if copy_src:
+                dst = arena.table[s, share_n:share_n + len(copy_src)]
+                src_t = torch.tensor(copy_src, dtype=torch.long,
+                                     device=self.device)
+                dst_t = torch.from_numpy(dst.astype(np.int64)).to(
+                    self.device)
+                for lay in self._kv:
+                    for arr in lay.values():
+                        arr.index_copy_(0, dst_t, arr[src_t])
+            first, calls = self._prefill(s, prompt,
+                                         w0 if ids is not None else None)
+            return first, calls, ids is not None
+
+        def admit_slotted(s, prompt, tmpl, p0):
+            """Copy the template's rows into the slot (zeros past the
+            prefix included, which zeroes the slot) and score from the
+            first chunk holding the request's own tokens.  Returns (first
+            token, forward calls, whether the template saved a chunk: not
+            when that first chunk is chunk 0)."""
+            if tmpl is None:
+                return (*self._prefill(s, prompt), False)
+            for lay, tl in zip(self._kv, tmpl):
+                for kk, t in lay.items():
+                    t[s:s + 1].copy_(tl[kk])
+            w0 = min(C * (p0 // C), len(prompt) - C)
+            return (*self._prefill(s, prompt, w0), w0 > 0)
+
+        def seat(s, item, prompt, first):
+            """The slot goes live on ``prompt`` with its first token
+            (sampled at prefill or shipped with a segment), which is
+            emitted; EOS or a budget of one finishes it at once."""
+            rid, mnt = item[0], item[2]
+            slot_item[s] = item
             off[s] = len(prompt)
-            counts["prefills"] += 1
-            counts["forwards"] += calls
-            counts["admits"] += 1
             self._toks[s] = first
             first = int(first)
+            counts["admits"] += 1
             active[s] = True
             slot_req[s] = rid
             slot_prompt[s] = prompt
@@ -1255,6 +1881,58 @@ class DecodeServer:
                 on_token(rid, first)
             if first == self.eos_token or budget[s] <= 0:
                 finish(s)
+
+        def admit_imported(s, item, kv):
+            """Admission from a verified segment: its rows go straight into
+            the slot (paged: exactly the blocks it covers), no prefill."""
+            n = kv["n"]
+            if self.paged:
+                if not arena.alloc_upto(s, n):
+                    raise RuntimeError(
+                        "paged import allocation failed after the "
+                        "free-block gate: arena accounting bug"
+                    )
+                ids = arena.table[s, :arena.blocks_for(n)]
+                write_blocks(kv["layers"], [int(b) for b in ids])
+            else:
+                for lay, rows in zip(self._kv, kv["layers"]):
+                    for kk, t in lay.items():
+                        t[s, :, :n].copy_(rows[kk][0])
+                        t[s, :, n:].zero_()
+            self._off[s] = n
+            counts["imported"] += 1
+            seat(s, item, item[1], kv["first"])
+
+        def admit(s, item, no_template=False):
+            rid, prompt, mnt, extra = item
+            extra = extra or {}
+            if "kv" in extra:
+                admit_imported(s, item, extra["kv"])
+                return
+            tmpl, p0, entry = None, 0, None
+            if prefix is not None:
+                # The output is serve([prefix + p]); a combined prompt that
+                # fits one bucket prefills from scratch.
+                prompt = np.concatenate([prefix, prompt])
+                if len(prompt) > C and template is not None:
+                    tmpl, p0 = template, P0
+            elif extra.get("prefix_len") and len(prompt) > C:
+                p0 = int(extra["prefix_len"])
+                entry = self._ensure_prefix_template(
+                    prompt[:p0],
+                    extra.get("prefix_fp") or prefix_fingerprint(prompt[:p0]),
+                )
+                tmpl = entry["layers"]
+            if no_template:
+                tmpl = None
+            if self.paged:
+                first, calls, used = admit_paged(s, prompt, tmpl, p0, entry)
+            else:
+                first, calls, used = admit_slotted(s, prompt, tmpl, p0)
+            counts["prefills"] += 1
+            counts["forwards"] += calls
+            counts["templated"] += used
+            seat(s, item, prompt, first)
 
         def emit_rows(rows):
             """Append each active slot's new tokens until its EOS or budget,
@@ -1290,6 +1968,10 @@ class DecodeServer:
                 "forwards": counts["forwards"],
                 "graph_replays": self.decode_graph.replays - replays0,
                 "graph_warmup_forwards": K if captured else 0,
+                "templated": counts["templated"],
+                "imported": counts["imported"],
+                "template_forwards": (self.template_forwards
+                                      - template_forwards0),
             }
             if self.paged:
                 used = arena.used_blocks
@@ -1300,6 +1982,7 @@ class DecodeServer:
                     block_occupancy=used / max(1, arena.n_blocks),
                     occupancy=used / max(1, arena.n_blocks),
                     peak_blocks=counts["peak_blocks"],
+                    shared_blocks=counts["shared_blocks"],
                     preemptions=self.preemptions,
                     leaks_repaired=arena.leaks_repaired,
                 )
@@ -1325,15 +2008,23 @@ class DecodeServer:
                         item = self._pop_pending()
                         if item is None:
                             break
-                        if self.paged and active.any() and \
-                                arena.free_blocks < \
-                                arena.blocks_for(len(item[1])):
-                            # The blocks it needs now are not free: wait
-                            # for decode to release some.
-                            with self._pending_mu:
-                                self._pending.appendleft(item)
-                            break
-                        admit(s, item)
+                        no_template = False
+                        if self.paged and \
+                                arena.free_blocks < paged_admit_need(item):
+                            if active.any():
+                                # The blocks it needs now are not free:
+                                # wait for decode to release some.
+                                with self._pending_mu:
+                                    self._pending.appendleft(item)
+                                break
+                            # An empty batch must admit: without the
+                            # template, and if still tight, without any
+                            # template's held blocks.
+                            no_template = True
+                            if arena.free_blocks < paged_admit_need(
+                                    item, bare=True):
+                                drop_template_holds()
+                        admit(s, item, no_template)
                 if not active.any():
                     if self.pending_count() == 0:
                         if tick is None or not keep:

@@ -47,10 +47,11 @@ launch takes the lean host call of ``ops/_launch.py``.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
-from dlrover_tpu_torch.ops import _launch
+from dlrover_tpu_torch.ops import _backend, _launch
 from dlrover_tpu_torch.ops._launch import INT_MAX, LO
 
 SOURCES = ("cross_entropy.cu", "launch.cuh")
@@ -201,10 +202,22 @@ class SoftmaxCrossEntropy(torch.autograd.Function):
         return _backward(logits, labels, g), None, None
 
 
-def softmax_cross_entropy(logits: torch.Tensor,
-                          labels: torch.Tensor) -> torch.Tensor:
-    """[..., V] logits × [...] int labels → [...] per-token loss (fp32)."""
-    return SoftmaxCrossEntropy.apply(logits, labels, xent_fwd)
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                          backend: Optional[str] = None,
+                          interpret: bool = False) -> torch.Tensor:
+    """[..., V] logits × [...] int labels → [...] per-token loss (fp32).
+
+    ``backend`` takes the reference's values (``ops/_backend.py``):
+    ``"pallas"`` launches the kernel or raises, ``"reference"`` runs the
+    plain version; ``interpret=True`` raises."""
+    if backend is None and not interpret:
+        fwd = xent_fwd
+    elif _backend.use_kernel(backend, interpret, logits,
+                             "softmax_cross_entropy"):
+        fwd = _launch_kernel
+    else:
+        fwd = _reference
+    return SoftmaxCrossEntropy.apply(logits, labels, fwd)
 
 
 # ---------------------------------------------------------------------------

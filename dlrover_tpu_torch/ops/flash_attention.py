@@ -35,7 +35,8 @@ Layout ``[B, H, S, D]`` as in the reference; the kernels take any strides
 with a unit last-dim stride, so the model's transposed views pass without a
 copy.  GQA: k and v carry ``KV`` heads with ``H % KV == 0``; the kernels
 read the shared head in place.  Block sizes are fixed for this card in the
-kernel source; the reference's TPU defaults and their
+kernel source (:data:`CUDA_TILES`); :func:`flash_attention` accepts the
+reference's tile keywords at their defaults only, and their
 ``DLROVER_TPU_FLASH_*`` environment variables are not carried over.
 """
 
@@ -48,10 +49,20 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.ops import _backend, _build
 
 SOURCES = ("flash_attention.cu",)
 NEG_INF = -1e30
+# The reference's tile keywords and their defaults (``DEFAULT_BLOCK_*`` in
+# ``dlrover_tpu/ops/flash_attention.py``), accepted at these values only.
+DEFAULT_BLOCK_Q = 512
+DEFAULT_BLOCK_K = 512
+DEFAULT_BWD_BLOCK_Q = 256
+DEFAULT_BWD_BLOCK_K = 512
+CUDA_TILES = (
+    "bf16: forward and dq 128 query rows x 64 keys, dk/dv 64 keys x 64 "
+    "query rows (32 at head dim 128); fp32: 64 x 64"
+)
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -461,6 +472,12 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     segment_ids: Optional[torch.Tensor] = None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K,
+                    bwd_block_q: int = DEFAULT_BWD_BLOCK_Q,
+                    bwd_block_k: int = DEFAULT_BWD_BLOCK_K,
+                    backend: Optional[str] = None,
+                    interpret: bool = False,
                     window: int = 0) -> torch.Tensor:
     """[B, H, S, D] flash attention, differentiable in q, k and v.
 
@@ -468,8 +485,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``[B, KV, S, D]``.  ``segment_ids`` [B, S] restricts attention to
     same-segment pairs; ``window > 0`` (causal only) keeps ``0 <= q - k <
     window``.  Kernels for CUDA tensors, plain versions for CPU tensors.
-    """
+
+    ``backend`` takes the reference's values (``ops/_backend.py``):
+    ``"pallas"`` runs the kernels or raises, ``"reference"`` is
+    :func:`reference_attention`, as in the reference; ``interpret=True``
+    raises.  The tile keywords take the reference's defaults only: the
+    CUDA kernels' tiles are fixed (:data:`CUDA_TILES`)."""
+    for name, got, want in (("block_q", block_q, DEFAULT_BLOCK_Q),
+                            ("block_k", block_k, DEFAULT_BLOCK_K),
+                            ("bwd_block_q", bwd_block_q, DEFAULT_BWD_BLOCK_Q),
+                            ("bwd_block_k", bwd_block_k,
+                             DEFAULT_BWD_BLOCK_K)):
+        if got != want:
+            raise ValueError(
+                f"flash_attention({name}={got}): the CUDA kernels' tiles are "
+                f"fixed ({CUDA_TILES}); {name} takes only the reference's "
+                f"default {want}"
+            )
     check_shapes(q, k, v, causal, window)
-    _device_of(q, "flash_attention")
+    if backend is None and not interpret:
+        _device_of(q, "flash_attention")
+    elif not _backend.use_kernel(backend, interpret, q, "flash_attention"):
+        return reference_attention(q, k, v, causal, segment_ids, window)
     return FlashAttention.apply(q, k, v, segment_ids, causal, int(window),
                                 WRAPPERS)

@@ -16,8 +16,8 @@ Held against ``dlrover_tpu/ops/quant.py``:
   each value by its scale stays a true IEEE division, as in XLA;
 - :func:`quantize_blockwise` / :func:`dequantize_blockwise` are the public
   op.  ``backend="auto"`` launches the kernel for a CUDA tensor and runs
-  the plain version for a CPU tensor; ``"cuda"`` (the reference's
-  ``"pallas"``) launches the kernel or raises; ``"plain"`` (``"jnp"``)
+  the plain version for a CPU tensor; ``"cuda"`` (or the reference's
+  ``"pallas"``) launches the kernel or raises; ``"plain"`` (or ``"jnp"``)
   forces the plain version.  Stochastic rounding stays plain on both
   devices, as in the reference, and takes an explicit ``torch.Generator``
   where the reference takes a PRNG key;
@@ -46,13 +46,15 @@ from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 import torch
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
-from dlrover_tpu_torch.ops import _launch
+from dlrover_tpu_torch.ops import _backend, _launch
 from dlrover_tpu_torch.ops._launch import LO
 
 SOURCES = ("quant.cu", "launch.cuh")
 BLOCK = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BACKENDS = ("auto", "cuda", "plain")
+# The reference's names for the two forced paths.
+_ALIASES = {"pallas": "cuda", "jnp": "plain"}
 # The reference's ``max|x| / 127.0`` as XLA compiles it: times fp32(1/127).
 _INV_127 = 1.0 / 127.0
 
@@ -133,10 +135,19 @@ def _launch_kernel(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes, scale
 
 
+def _refuse_key(key, name: str) -> None:
+    if key is not None:
+        raise ValueError(
+            f"{name}(key=...): the reference's JAX PRNG key has no torch "
+            "meaning; pass a torch.Generator as generator="
+        )
+
+
 def quantize_blockwise(x, *, stochastic: bool = False,
                        generator: Optional[torch.Generator] = None,
                        backend: str = "auto",
-                       device: DeviceLike = None):
+                       device: DeviceLike = None,
+                       key=None, interpret: bool = False):
     """x -> (int8 codes ``[ceil(n/128), 128]``, fp32 scales
     ``[ceil(n/128)]``).
 
@@ -147,10 +158,15 @@ def quantize_blockwise(x, *, stochastic: bool = False,
     ``"cuda"`` launches the kernel or raises; ``"plain"`` runs the plain
     version.  ``stochastic=True`` adds uniform noise before the rounding,
     drawn from ``generator`` (required), on the plain path on either
-    device."""
+    device.  The reference's ``"pallas"`` and ``"jnp"`` are taken as
+    ``"cuda"`` and ``"plain"``; its ``key=`` and ``interpret=True``
+    raise."""
+    _refuse_key(key, "quantize_blockwise")
+    _backend.check_interpret(interpret, "quantize_blockwise")
+    backend = _ALIASES.get(backend, backend)
     if backend not in _BACKENDS:
-        raise ValueError(f"backend must be one of {_BACKENDS}, got "
-                         f"{backend!r}")
+        raise ValueError(f"backend must be one of {_BACKENDS} or "
+                         f"{tuple(_ALIASES)}, got {backend!r}")
     if backend == "cuda" and stochastic:
         raise ValueError(
             "stochastic rounding runs the plain path only (it needs a "
@@ -225,11 +241,14 @@ def _quantize_dynamic(x: torch.Tensor, signed: bool,
 
 
 def quantize_dynamic(x: torch.Tensor, *, signed: bool = True,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     key=None):
     """x -> (int8 log-codes ``[ceil(n/128), 128]``, fp32 per-block scale
     ``[ceil(n/128)]``).  With ``generator`` the log level is rounded
     stochastically (uniform noise from it), so that small EMA increments
-    accumulate in expectation instead of freezing at the nearest code."""
+    accumulate in expectation instead of freezing at the nearest code.
+    The reference's ``key=`` raises."""
+    _refuse_key(key, "quantize_dynamic")
     noise = None
     if generator is not None:
         rows = -(-x.numel() // BLOCK)

@@ -12,6 +12,8 @@ kernel either).
 
 :func:`rmsnorm` runs the plain forward only for a tensor that lies on the
 CPU; for a CUDA tensor it launches the kernel or raises.
+``backend="pallas"`` forces the kernel (a CPU tensor raises) and
+``"reference"`` the plain version, as in the reference.
 ``rmsnorm.launches`` counts the kernel's launches.  When no gradient is
 wanted (the decode path) it calls the forward directly, outside autograd.
 The launch takes the lean host call of ``ops/_launch.py`` (the caller's
@@ -24,10 +26,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
-from dlrover_tpu_torch.ops import _launch
+from dlrover_tpu_torch.ops import _backend, _launch
 from dlrover_tpu_torch.ops._launch import INT_MAX, LO
 
 SOURCES = ("rmsnorm.cu", "launch.cuh")
@@ -126,17 +129,29 @@ def _launch_kernel(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, *,
-            eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last dim; ``w`` is the fp32 [D] gain."""
-    if x.is_cuda:
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6,
+            backend: Optional[str] = None,
+            interpret: bool = False) -> torch.Tensor:
+    """RMSNorm over the last dim; ``w`` is the fp32 [D] gain.
+
+    ``backend`` takes the reference's values (``ops/_backend.py``):
+    ``"pallas"`` launches the kernel or raises, ``"reference"`` runs the
+    plain version; ``interpret=True`` raises."""
+    if backend is None and not interpret:
+        # The decode path's call: no keyword to resolve.
+        if x.is_cuda:
+            fwd = _launch_kernel
+        elif x.is_cpu:
+            fwd = _reference
+        else:
+            raise ValueError(
+                f"rmsnorm runs on cuda (kernel) or cpu (plain), got "
+                f"{x.device}"
+            )
+    elif _backend.use_kernel(backend, interpret, x, "rmsnorm"):
         fwd = _launch_kernel
-    elif x.is_cpu:
-        fwd = _reference
     else:
-        raise ValueError(
-            f"rmsnorm runs on cuda (kernel) or cpu (plain), got {x.device}"
-        )
+        fwd = _reference
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RMSNorm.apply(x, w, eps, fwd)
     return fwd(x, w, eps)

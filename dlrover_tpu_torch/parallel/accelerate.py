@@ -33,7 +33,12 @@ import torch
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 
-MULTICARD_SLICE = "the multi-card training slice of the port (see ROADMAP.md)"
+MULTICARD_SLICE = (
+    "the multi-card training slice of the port (ROADMAP.md, Queue A item 5)"
+)
+MODEL_SLICE = (
+    "the model-features slice of the port (ROADMAP.md, Queue A item 6)"
+)
 LATER_SLICE = "a later training slice of the port (see ROADMAP.md)"
 MESH_AXES = ("pp", "dp", "fsdp", "ep", "tp")
 
@@ -152,6 +157,13 @@ def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
                sample_batch: Any,
                strategy: Union[str, Strategy] = "auto",
                param_specs: Any = None,
+               batch_axes: Any = None,
+               devices: Any = None,
+               profile_steps: int = 0,
+               grad_accum: Optional[int] = None,
+               search_evals: int = 10,
+               cache: Any = None,
+               fp8_init: Optional[Callable] = None,
                loss_fn_builder: Optional[Callable] = None,
                frozen: Any = None,
                device: DeviceLike = None) -> AcceleratedJob:
@@ -161,12 +173,32 @@ def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
     (fp32 masters); ``optimizer`` a factory from ``dlrover_tpu_torch.optim``
     (``adamw(lr)``, ``adam8bit(lr)``); ``sample_batch`` a dict of arrays with the global batch
     dim.  ``param_specs`` may be ``None`` or ``"planner"``: on one card
-    every parameter lies whole on the card either way."""
+    every parameter lies whole on the card either way.  ``grad_accum``
+    forces ``Strategy.grad_accum``, as in the reference.  The reference's
+    ``batch_axes``, ``devices``, ``profile_steps``, ``search_evals`` and
+    ``cache`` (sharding and the strategy search) and ``fp8_init`` raise
+    at any value but their defaults."""
+    for name, asked in (("batch_axes", batch_axes is not None),
+                        ("devices", devices is not None),
+                        ("profile_steps", profile_steps != 0),
+                        ("search_evals", search_evals != 10),
+                        ("cache", cache is not None)):
+        if asked:
+            raise NotImplementedError(
+                f"accelerate({name}=...): sharded batches, device lists and "
+                f"the strategy search come with {MULTICARD_SLICE}"
+            )
+    if fp8_init is not None:
+        raise NotImplementedError(
+            f"accelerate(fp8_init=...): fp8 comes with {MODEL_SLICE}"
+        )
     if isinstance(strategy, str):
         raise NotImplementedError(
             f"strategy={strategy!r}: the strategy search comes with "
             f"{MULTICARD_SLICE}; pass a Strategy"
         )
+    if grad_accum is not None:
+        strategy = dataclasses.replace(strategy, grad_accum=grad_accum)
     check_strategy(strategy)
     if param_specs not in (None, "planner"):
         raise NotImplementedError(

@@ -6,18 +6,24 @@ with its own copy of ``examples/serve_common.py`` ``seeded_requests``:
     python -m dlrover_tpu_torch.serve --config llama2_7b --requests 8
     python -m dlrover_tpu_torch.serve --config llama2_7b --decode_chunk 8 \
         --paged --quant_kv
+    python -m dlrover_tpu_torch.serve --config llama2_7b --prefix_len 256
     python -m dlrover_tpu_torch.serve --config tiny --device cpu
 
 ``--quant_kv`` and ``--decode_chunk`` are ``examples/llama_serve.py``'s
 (the int8 KV cache; tokens a decode dispatch), ``--paged``,
 ``--block_size`` and ``--pool_blocks`` ``examples/llama_serve_fleet.py``'s
-(the paged KV arena; 0 blocks means the slotted layout's memory).  On the
-card the decode dispatch is one CUDA graph replay a round.
+(the paged KV arena; 0 blocks means the slotted layout's memory).
+``--prefix_len N`` is ``examples/llama_serve.py``'s: a random system
+prefix of N tokens (drawn after the prompts) shared by every request
+through prefix caching (``serve(shared_prefix=)``).  On the card the
+decode dispatch is one CUDA graph replay a round.
 
 Weights are random, drawn from ``--seed``; there is nothing to download.
 It prints tokens/s, the median time to first token, the decode path, the
-preemptions (and, paged, the block pool's state) and the RMSNorm kernel
-launches: the eager ones (prefills) plus the graph's nodes times its
+preemptions (and, paged, the block pool's state), with a prefix the
+admissions that started from the template, the template prefills and the
+prefix store's hits and misses, and the RMSNorm kernel launches: the eager
+ones (prefills, template prefills) plus the graph's nodes times its
 replays (0 on the CPU, where the plain version runs).
 """
 
@@ -80,6 +86,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--pool_blocks", type=int, default=0,
                     help="KV blocks in the pool under --paged (0 = slots "
                          "* max_len / block_size)")
+    ap.add_argument("--prefix_len", type=int, default=0,
+                    help="share a random system prefix of N tokens across "
+                         "all requests via prefix caching (prefilled once; "
+                         "admissions copy or share its kv rows)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -87,9 +97,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = init_params(cfg, gen, dev)
-    prompts, _ = seeded_requests(cfg, args.requests, args.seed)
-    # + the chunk's headroom, rounded up to whole blocks when paged.
-    max_len = max(64, args.max_new_tokens + 24) + args.decode_chunk - 1
+    prompts, rng = seeded_requests(cfg, args.requests, args.seed)
+    shared_prefix = None
+    if args.prefix_len > 0:
+        shared_prefix = rng.randint(
+            1, cfg.vocab_size, size=(args.prefix_len,)).astype(np.int32)
+    # + the chunk's headroom and the prefix every request's rows hold,
+    # rounded up to whole blocks when paged.
+    max_len = max(64, args.max_new_tokens + 24) + args.decode_chunk - 1 \
+        + args.prefix_len
     if args.paged:
         max_len = -(-max_len // args.block_size) * args.block_size
     srv = DecodeServer(
@@ -107,9 +123,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ttft.setdefault(rid, time.perf_counter() - t0)
 
     outs = srv.serve(prompts, max_new_tokens=args.max_new_tokens,
-                     on_token=on_token)
+                     on_token=on_token, shared_prefix=shared_prefix)
     wall = time.perf_counter() - t0
-    total_new = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    total_new = sum(len(o) - len(p) - args.prefix_len
+                    for o, p in zip(outs, prompts))
     for i, o in enumerate(outs[:3]):
         print(f"request {i}: {len(o)} tokens -> {o[:12].tolist()}...")
     st = srv.last_stats
@@ -118,6 +135,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "rmsnorm", 0) * st["graph_replays"]
     paged = (f" block_stats={json.dumps(srv.block_stats())}"
              if args.paged else "")
+    prefix = ""
+    if shared_prefix is not None:
+        prefix = (f" prefix_len={args.prefix_len} "
+                  f"templated={st['templated']} "
+                  f"template_forwards={st['template_forwards']} "
+                  f"prefix_hits={srv.prefix_hits} "
+                  f"prefix_misses={srv.prefix_misses}")
     print(
         f"SERVE_DONE config={args.config} device={dev} "
         f"requests={len(outs)} slots={args.slots} new_tokens={total_new} "
@@ -127,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         f"quant_kv={args.quant_kv} preemptions={srv.preemptions} "
         f"rounds={st['rounds']} forwards={st['forwards']} "
         f"graph_replays={st['graph_replays']} "
-        f"rmsnorm_launches={launches}{paged}"
+        f"rmsnorm_launches={launches}{prefix}{paged}"
     )
     return 0
 

@@ -172,6 +172,94 @@ def test_graphed_decode_matches_the_cpu(card, kw):
         assert srv.kv_arena.conserved()
 
 
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_on(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("kw", [{}, {"paged": True, "decode_chunk": 3},
+                                {"quant_kv": True}],
+                         ids=["slotted", "paged_chunk3", "int8"])
+def test_graphed_templated_admission_matches_the_cpu(card, kw):
+    """Templated admission (``serve(shared_prefix=)`` and ``submit(
+    prefix_len=)``) on a graphed server writes the template into the
+    captured cache in place: two serve calls (the second replays the first
+    one's graph) and an incremental run emit the CPU's tokens, and the
+    RMSNorm launches are the eager forwards' (template prefills included)
+    plus the graph's nodes times its replays."""
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = _on(cpu, card)
+    rng = np.random.RandomState(5)
+    prefix = rng.randint(1, cfg.vocab_size, size=20).astype(np.int32)
+    own = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+           for n in (5, 12, 3, 9)]
+    srv_kw = dict(slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8,
+                  **kw)
+    ref = llama_infer.DecodeServer(cpu, cfg, **srv_kw).serve(
+        own, 9, shared_prefix=prefix)
+    srv = llama_infer.DecodeServer(dev, cfg, **srv_kw)
+    per_fwd, K = 2 * cfg.n_layer + 1, srv.decode_chunk
+    for _ in range(2):
+        before = rmsnorm.launches
+        out = srv.serve(own, 9, shared_prefix=prefix)
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(o, r)
+        st = srv.last_stats
+        assert st["templated"] == len(own) and st["template_forwards"] == 1
+        assert rmsnorm.launches - before == per_fwd * (
+            st["forwards"] - K * st["graph_replays"]
+            + st["graph_warmup_forwards"] + st["template_forwards"])
+    for i, p in enumerate(own):
+        srv.submit(i, np.concatenate([prefix, p]), 9, prefix_len=20)
+    got = {}
+    srv.serve_incremental(
+        tick=lambda: bool(srv.pending_count() or srv.active_rids()),
+        on_finish=lambda r, t: got.__setitem__(r, t))
+    for i, r in enumerate(ref):
+        np.testing.assert_array_equal(got[i], r)
+    assert srv.prefix_misses == 1 and srv.prefix_hits == len(own) - 1
+    if srv.paged:
+        assert srv.kv_arena.conserved()
+
+
+@pytest.mark.parametrize("kw", [{}, {"quant_kv": True}, {"paged": True}],
+                         ids=["slotted", "int8", "paged"])
+def test_graphed_imported_admission_matches_the_cpu(card, kw):
+    """A segment prefilled on the card (or on the CPU) and imported into a
+    graphed server lands in the captured cache in place and decodes the
+    CPU's in-place tokens, with no prefill forward."""
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    cpu = llama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    dev = _on(cpu, card)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(1, cfg.vocab_size, size=n).astype(np.int32)
+               for n in (13, 30, 4)]
+    srv_kw = dict(slots=2, max_len=64, prompt_buckets=(8, 16), block_size=8,
+                  **kw)
+    ref = llama_infer.DecodeServer(cpu, cfg, **srv_kw).serve(prompts, 7)
+    cpu_pf = llama_infer.DecodeServer(cpu, cfg, **srv_kw)
+    card_pf = llama_infer.DecodeServer(dev, cfg, **srv_kw)
+    dec = llama_infer.DecodeServer(dev, cfg, **srv_kw)
+    dec.serve(prompts[:1], 2)  # captures
+    for i, p in enumerate(prompts):
+        pf = card_pf if i % 2 else cpu_pf
+        pf.prefill_request(i, p, 7)
+        dec.import_kv(i, pf.export_kv(i)[0], p, 7)
+    got = {}
+    dec.serve_incremental(
+        tick=lambda: bool(dec.pending_count() or dec.active_rids()),
+        on_finish=lambda r, t: got.__setitem__(r, t))
+    for i, r in enumerate(ref):
+        np.testing.assert_array_equal(got[i], r)
+    st = dec.last_stats
+    assert st["imported"] == len(prompts) and st["prefills"] == 0
+    assert st["graph_replays"] == st["rounds"] > 0
+
+
 def test_sampled_graph_draws_fresh_noise(card):
     """At temperature > 0 the server's generator is registered with the
     graph: replays draw fresh noise (streams do not collapse into a

@@ -70,6 +70,16 @@ def _inputs(case, seed=0):
     return q, k, v, g, seg
 
 
+# The reference under ``jax.jit`` (eager JAX compiles every primitive,
+# the interpreted Pallas kernels' too, anew).
+_jit_fwd = jax.jit(jfa._flash_fwd, static_argnums=(3, 4, 5, 6),
+                   static_argnames=("window",))
+_jit_bwd = jax.jit(jfa._flash_bwd_pallas, static_argnums=(6, 7, 8, 9),
+                   static_argnames=("window",))
+_jit_reference = jax.jit(jfa.reference_attention, static_argnums=(3,),
+                         static_argnames=("window",))
+
+
 def _jax(a, dtype):
     return None if a is None else jnp.asarray(a, getattr(jnp, dtype))
 
@@ -106,7 +116,7 @@ def test_plain_forward_matches_pallas_forward(name):
     case = CASES[name]
     dtype, causal = case[-1], case[5]
     q, k, v, _, seg = _inputs(case)
-    j_out, j_lse = jfa._flash_fwd(
+    j_out, j_lse = _jit_fwd(
         _jax(q, dtype), _jax(k, dtype), _jax(v, dtype), causal, BLOCK,
         BLOCK, True, **_kw(case, seg, "jax"))
     t_out, t_lse = tfa._flash_fwd_plain(
@@ -127,9 +137,9 @@ def test_plain_backward_matches_pallas_backward(name):
     q, k, v, g, seg = _inputs(case)
     jq, jk, jv, jg = (_jax(a, dtype) for a in (q, k, v, g))
     jkw = _kw(case, seg, "jax")
-    out, lse = jfa._flash_fwd(jq, jk, jv, causal, BLOCK, BLOCK, True, **jkw)
-    want = jfa._flash_bwd_pallas(jq, jk, jv, out, lse, jg, causal, BLOCK,
-                                 BLOCK, True, **jkw)
+    out, lse = _jit_fwd(jq, jk, jv, causal, BLOCK, BLOCK, True, **jkw)
+    want = _jit_bwd(jq, jk, jv, out, lse, jg, causal, BLOCK, BLOCK, True,
+                    **jkw)
     t_out = _torch(np.array(out, np.float32), dtype)
     got = tfa._flash_bwd_plain(
         _torch(q, dtype), _torch(k, dtype), _torch(v, dtype), t_out,
@@ -158,7 +168,7 @@ def test_autograd_matches_jax_grad(name):
                                   bwd_block_k=BLOCK, **jkw)
         return jnp.sum(out * g)
 
-    want = jax.grad(f, argnums=(0, 1, 2))(
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     out = tfa.flash_attention(tq, tk, tv, causal=causal,
@@ -175,9 +185,8 @@ def test_reference_attention_matches_jax(name):
     case = CASES[name]
     causal = case[5]
     q, k, v, _, seg = _inputs(case)
-    want = jfa.reference_attention(jnp.asarray(q), jnp.asarray(k),
-                                   jnp.asarray(v), causal,
-                                   **_kw(case, seg, "jax"))
+    want = _jit_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal, **_kw(case, seg, "jax"))
     got = tfa.reference_attention(torch.from_numpy(q), torch.from_numpy(k),
                                   torch.from_numpy(v), causal,
                                   **_kw(case, seg, "torch"))

@@ -5,7 +5,7 @@ llama.py`` and ``models/llama_infer.py``, on ``LlamaConfig.tiny``.
 Both sides take the same parameters: the JAX ``init_params`` tree carried
 across by ``params_from_numpy``.  Inputs are drawn with numpy from a seed.
 The port runs on the CPU, where its RMSNorm wrapper takes the plain
-version; the JAX side runs its reference path.
+version; the JAX side runs its reference path, under ``jax.jit``.
 
 Tolerances: fp32 logits and caches atol 1e-5 (the same fp32 arithmetic,
 summed in another order); bf16 logits within 2**-6 of the largest logit and
@@ -64,6 +64,19 @@ def _t(a):
     return torch.from_numpy(np.array(a)).long()
 
 
+def _jit_step(jcfg):
+    """The reference's ``forward_step`` under ``jax.jit`` (eager JAX
+    compiles every primitive anew)."""
+    return jax.jit(lambda p, t, c: jinfer.forward_step(p, t, jcfg, c))
+
+
+_jit_generate = jax.jit(jinfer.generate, static_argnums=(1,),
+                        static_argnames=("max_new_tokens",))
+_jit_generate_ragged = jax.jit(
+    jinfer.generate_ragged, static_argnums=(1,),
+    static_argnames=("max_new_tokens", "eos_token"))
+
+
 def _prompts(seed, lens, vocab=256):
     rng = np.random.RandomState(seed)
     return [rng.randint(1, vocab, size=(n,)).astype(np.int32) for n in lens]
@@ -101,8 +114,9 @@ def test_block_apply_matches_jax(model):
     def tattn(h, layer, cfg, positions):
         return tinfer._cached_attention(h, layer, cfg, tc, 0, positions)
 
-    ref, _ = jllama.block_apply(jp["layers"][0], jnp.asarray(x), jcfg,
-                                jnp.asarray(pos), attn_fn=jattn)
+    ref = jax.jit(lambda lp, h, ps: jllama.block_apply(
+        lp, h, jcfg, ps, attn_fn=jattn)[0])(
+            jp["layers"][0], jnp.asarray(x), jnp.asarray(pos))
     out = tllama.block_apply(tp["layers"][0], torch.from_numpy(x), tcfg,
                              _t(pos), attn_fn=tattn)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
@@ -127,11 +141,12 @@ def test_forward_step_matches_jax(mode):
     else:
         steps += [rng.randint(0, 256, size=(B, 2)).astype(np.int32),
                   rng.randint(0, 256, size=(B, 1)).astype(np.int32)]
+    step = _jit_step(jcfg)
     for i, toks in enumerate(steps):
         if mode == "ragged" and i == 1:
             jc = dict(jc, offset=jnp.asarray(offs))
             tc["offset"] = _t(offs)
-        ref, jc = jinfer.forward_step(jp, jnp.asarray(toks), jcfg, jc)
+        ref, jc = step(jp, jnp.asarray(toks), jc)
         out, tc = tinfer.forward_step(tp, _t(toks), tcfg, tc)
         assert out.dtype == torch.float32
         np.testing.assert_allclose(out.numpy(), np.asarray(ref),
@@ -147,8 +162,8 @@ def test_forward_step_matches_jax(mode):
 def test_forward_step_bf16_matches_jax():
     jcfg, jp, tcfg, tp = _pair(dtype="bfloat16", seed=4)
     toks = np.random.RandomState(5).randint(0, 256, (2, 7)).astype(np.int32)
-    ref, _ = jinfer.forward_step(jp, jnp.asarray(toks), jcfg,
-                                 jinfer.init_cache(jcfg, 2, 16))
+    ref, _ = _jit_step(jcfg)(jp, jnp.asarray(toks),
+                             jinfer.init_cache(jcfg, 2, 16))
     out, _ = tinfer.forward_step(tp, _t(toks), tcfg,
                                  tinfer.init_cache(tcfg, 2, 16, device="cpu"))
     ref = np.asarray(ref)
@@ -206,7 +221,7 @@ def test_generate_matches_jax_greedy(window):
     jcfg, jp, tcfg, tp = _pair(seed=6, sliding_window=window)
     prompts = np.random.RandomState(7).randint(1, 256, (3, 6)) \
         .astype(np.int32)
-    ref = jinfer.generate(jp, jcfg, jnp.asarray(prompts), max_new_tokens=8)
+    ref = _jit_generate(jp, jcfg, jnp.asarray(prompts), max_new_tokens=8)
     out = tinfer.generate(tp, tcfg, _t(prompts), max_new_tokens=8)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
@@ -221,7 +236,7 @@ def test_generate_ragged_matches_jax_greedy_with_eos(model):
                                              _t(lens), max_new_tokens=10)
     eos = _eos_from([free[b, :free_lens[b]].numpy() for b in range(4)],
                     [prompts[b, :n] for b, n in enumerate(lens)])
-    ref, ref_lens = jinfer.generate_ragged(
+    ref, ref_lens = _jit_generate_ragged(
         jp, jcfg, jnp.asarray(prompts), jnp.asarray(lens),
         max_new_tokens=10, eos_token=eos)
     out, out_lens = tinfer.generate_ragged(

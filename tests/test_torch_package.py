@@ -79,6 +79,12 @@ def test_import_leaves_jax_and_reference_out():
         "dlrover_tpu_torch.ops.quant, dlrover_tpu_torch.optim, "
         "dlrover_tpu_torch.checkpoint.checkpointer, "
         "dlrover_tpu_torch.checkpoint.fsck\n"
+        "from dlrover_tpu_torch.models.llama_infer import ("
+        "KvSegmentError, pack_kv_segment, prefix_fingerprint, "
+        "unpack_kv_segment)\n"
+        "seg, _ = pack_kv_segment([], 1, 0, False)\n"
+        "assert unpack_kv_segment(seg)['n'] == 1\n"
+        "assert len(prefix_fingerprint([1, 2])) == 16\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dlrover_tpu', 'msgpack', 'ml_dtypes')]\n"
         "assert not bad, bad\n"
@@ -151,17 +157,21 @@ def test_server_refuses_later_slice_options(tiny, kw):
 
 
 def test_other_later_slice_paths_are_refused(tiny):
+    """Journaled serving is still refused; prefix caching and the
+    KV-segment handoff came with serving slice 2's second part and now
+    serve on the CPU."""
     cfg, params = tiny
     srv = tinfer.DecodeServer(params, cfg, slots=1, max_len=32)
     p = np.ones(4, np.int32)
-    with pytest.raises(NotImplementedError, match="shared_prefix"):
-        srv.serve([p], 2, shared_prefix=p)
-    with pytest.raises(NotImplementedError, match="prefix_len"):
-        srv.submit("a", p, 2, prefix_len=2)
-    for name in ("prefill_request", "export_kv", "import_kv"):
-        with pytest.raises(NotImplementedError,
-                           match=f"{name} .*later serving slice"):
-            getattr(srv, name)("a", p, 2)
+    out = srv.serve([p], 2, shared_prefix=p)[0]
+    assert len(out) == 2 * len(p) + 2 and (out[:8] == 1).all()
+    srv.submit("a", np.ones(8, np.int32), 2, prefix_len=4)
+    assert srv.pending_rids() == ["a"] and srv.cancel("a")
+    first = srv.prefill_request("a", p, 2)
+    payload, _ = srv.export_kv("a")
+    srv.import_kv("a", payload, p, 2)
+    assert srv.cancel("a")
+    assert 0 <= first < cfg.vocab_size
     with pytest.raises(NotImplementedError, match="serve_journaled"):
         tinfer.serve_journaled(params, cfg, [p], 2)
     cache = tinfer.init_cache(cfg, 1, 8, device="cpu", quant_kv=True)
