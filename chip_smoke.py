@@ -124,6 +124,30 @@ together), then runs the phases below and exits non-zero if any fails:
    bytes and ``torch.save`` of the same state beside the card's name and
    power limit on a line ``phase9 checkpoint {...}``.
 
+10. Several processes on one host (run after phase 9), Llama-800M with
+   AdamW, B 4 x S 2048 globally, each trainer ``python -m
+   dlrover_tpu_torch.train`` started with the agent's env contract:
+   (a) one process with ``DLROVER_TPU_COORDINATOR`` set (the group comes
+   up on ``nccl``) gives phase 6b's losses bit for bit; (b) two processes
+   on the one card over ``gloo``, B 2 each: the first loss within
+   ``DP_LOSS_RTOL`` of phase 6b's; a run stops after step K and its save,
+   sliced across both ranks (each rank's bytes about half the state), and
+   both are SIGKILLed after the commit; a cold restore in this process at
+   world size 1 from both ranks' files equals the state the arenas hold
+   (the two arenas equal), tensor by tensor by CRC-32; fsck finds the directory clean and, with
+   rank 1's shard removed, the commit gate refuses the step; a warm
+   restore at world size 2 from the two arenas trains step K + 1 with the
+   uninterrupted two-process run's loss, bit for bit (each rank SIGKILLed
+   once it has trained); (c) agent mode: this
+   process hosts ``AsyncCheckpointSaver``, a trainer stages step K into it
+   and is SIGKILLed, ``save_shm_to_storage`` persists and commits the
+   staged step, and a restore from storage trains step K + 1 with phase
+   9's uninterrupted loss, bit for bit.  Every trainer that reaches the
+   end of its steps launched the flash kernels and RMSNorm (its own
+   counters); the step times, the gloo reduction's time, each rank's
+   persist bytes and time and the restores on a line ``phase10
+   multiprocess {...}``.
+
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
 On a host without CUDA, or without the repository beside it, it fails and
@@ -134,6 +158,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import signal
+import socket
+import threading
 import gc
 import io
 import json
@@ -148,6 +175,11 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+# The agent's unix sockets (phase 10c) live under this run's temporary
+# directory; set before the port is imported, and inherited by the trainers.
+os.environ.setdefault("DLROVER_TPU_SOCK_DIR",
+                      os.path.join(tempfile.gettempdir(), "dlrover_tpu_sock"))
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, tensor cores, dense
@@ -161,6 +193,10 @@ A8_STEPS = 4  # phase 8; the first step carries set-up
 A8_BATCH, A8_SEQ = 16, 2048  # phase 8
 CKPT_MODEL = "800m"  # phase 9
 CKPT_K = 2  # phase 9: the interrupted run stops after step K
+DP_WORLD = 2  # phase 10b: processes on the one card
+DP_LOSS_RTOL = 1e-3  # phase 10b: each step's loss and gradient norm
+# against one process at B 4 (phase 10a)
+DP_TIMEOUT_S = 900  # phase 10: a trainer process's limit
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 QUANT_OPS_PER_ELEMENT = 6  # |x|, max, divide, round, clip (2)
 
@@ -2187,6 +2223,411 @@ def phase_checkpoint(llama, train, counted, card: str) -> dict:
     log("phase9 checkpoint " + json.dumps(res))
     return res
 
+def free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def spawn_trainers(argv, world: int, what: str, *, coordinator=True,
+                   until: str = "") -> list:
+    """``world`` processes of ``python -m dlrover_tpu_torch.train argv``
+    under the env contract (a loopback coordinator when ``coordinator``);
+    each one's stdout.  With ``until``, each process is SIGKILLed as soon
+    as it prints a line holding it (by the thread reading its output).  A
+    process that fails, or a limit of ``DP_TIMEOUT_S``, fails the phase;
+    none is left running."""
+    import torch
+
+    torch.cuda.empty_cache()  # the children need the card's memory
+    port = free_port()
+    procs, outs, errs = [], [], []
+    seen = [threading.Event() for _ in range(world)]
+    try:
+        for rank in range(world):
+            env = dict(os.environ, DLROVER_TPU_NUM_PROCESSES=str(world),
+                       DLROVER_TPU_PROCESS_ID=str(rank),
+                       DLROVER_TPU_LOCAL_RANK=str(rank),
+                       DLROVER_TPU_DIST_TIMEOUT_S=str(DP_TIMEOUT_S))
+            if coordinator:
+                env["DLROVER_TPU_COORDINATOR"] = f"127.0.0.1:{port}"
+            err = tempfile.TemporaryFile(mode="w+")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.train", *argv],
+                cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True))
+            errs.append(err)
+            outs.append([])
+
+        def pump(i):
+            for line in procs[i].stdout:
+                outs[i].append(line)
+                if until and until in line and not seen[i].is_set():
+                    procs[i].send_signal(signal.SIGKILL)
+                    seen[i].set()
+
+        pumps = [threading.Thread(target=pump, args=(i,), daemon=True)
+                 for i in range(world)]
+        for t in pumps:
+            t.start()
+        deadline = time.time() + DP_TIMEOUT_S
+        for i, p in enumerate(procs):
+            while p.poll() is None and not (until and seen[i].is_set()):
+                if time.time() > deadline:
+                    raise SystemExit(f"{what}: rank {i} still running after "
+                                     f"{DP_TIMEOUT_S}s")
+                time.sleep(0.2)
+            if until and not seen[i].is_set():
+                pumps[i].join(timeout=10)
+                if not seen[i].is_set():
+                    raise SystemExit(f"{what}: rank {i} ended (rc "
+                                     f"{p.returncode}) before {until!r}")
+        for i, p in enumerate(procs):
+            p.wait(timeout=60)
+            pumps[i].join(timeout=60)
+            if not until and p.returncode != 0:
+                raise SystemExit(f"{what}: rank {i} rc {p.returncode}")
+        return ["".join(o) for o in outs]
+    except BaseException:
+        for i, err in enumerate(errs):
+            err.seek(0)
+            log(f"{what}: rank {i} stdout tail:\n{''.join(outs[i][-20:])}"
+                f"\nstderr tail:\n{err.read()[-4000:]}")
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for err in errs:
+            err.close()
+
+
+def worker_fields(out: str, rank: int) -> dict:
+    """A trainer's ``[worker i] trained`` launches, its restore line, its
+    ``CKPT_STATS``, its ``--log_every`` (step, loss, gradient norm) lines
+    and (rank 0) its ``TRAIN_DONE`` fields."""
+    lines = out.splitlines()
+    res = {"restored": [ln for ln in lines if "restored step=" in ln]}
+    trained = [ln for ln in lines
+               if ln.startswith(f"[worker {rank}] trained step=")]
+    if trained:
+        kvs = dict(kv.split("=", 1) for kv in trained[-1].split()[3:])
+        res["launches"] = {k[:-len("_launches")]: int(v)
+                           for k, v in kvs.items() if k.endswith("_launches")}
+        res["trained"] = {k: v for k, v in kvs.items()
+                          if not k.endswith("_launches")}
+    res["steps"] = {}
+    for ln in lines:
+        m = re.match(rf"\[worker {rank}\] step (\d+) loss=(\S+) "
+                     r"grad_norm=(\S+)$", ln)
+        if m:
+            res["steps"][int(m[1])] = (float(m[2]), float(m[3]))
+    ck = [ln for ln in lines if ln.startswith("CKPT_STATS ")]
+    if ck:
+        res["ckpt"] = json.loads(ck[-1].split(" ", 1)[1])
+    done = [ln for ln in lines if ln.startswith("TRAIN_DONE")]
+    if done:
+        res.update(dict(kv.split("=", 1) for kv in done[-1].split()[1:]))
+    return res
+
+
+def check_trainer_launches(fields: dict, cfg, steps: int, what: str) -> None:
+    want = dict(expected_launches(cfg, steps), xent_fwd=0)
+    if fields.get("launches") != want:
+        raise SystemExit(f"{what}: launches {fields.get('launches')} != "
+                         f"{want}")
+
+
+def state_crcs(tensors) -> dict:
+    """CRC-32 of each ``{key: tensor}`` (card tensors copied to the host),
+    eight tensors at a time (the CRC releases the interpreter lock)."""
+    from dlrover_tpu_torch.checkpoint.shard_file import crc32_bytes
+    from dlrover_tpu_torch.common.tensor_bytes import byte_view
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        crcs = pool.map(lambda t: crc32_bytes(byte_view(t.detach().cpu())),
+                        tensors.values())
+        return dict(zip(tensors.keys(), crcs))
+
+
+def arena_crcs(name: str, other: str) -> dict:
+    """CRC-32 of each tensor of arena ``name``, after checking that arena
+    ``other`` holds the same bytes (``torch.equal``: a replicated state)."""
+    import torch
+
+    from dlrover_tpu_torch.common.shm import SharedMemoryArena
+
+    arenas = [SharedMemoryArena(n) for n in (name, other)]
+    try:
+        got = [a.read_state(copy=False) for a in arenas]
+        if None in got:
+            raise SystemExit(f"arena {name} or {other} holds no state")
+        (mine, _), (theirs, _) = got
+        if mine.keys() != theirs.keys() or not all(
+                mine[k].dtype == theirs[k].dtype
+                and torch.equal(mine[k], theirs[k]) for k in mine):
+            raise SystemExit(f"arenas {name} and {other} differ")
+        crcs = state_crcs(mine)
+        del got, mine, theirs
+        return crcs
+    finally:
+        for a in arenas:
+            a.close()
+
+
+def restore_and_step(train, d: str, base: list, crcs: bool = True) -> tuple:
+    """A cold restore in this process at world size 1 (``FlashCheckpointer``
+    on ``d``) and one training step on the sampler's next batch:
+    ``(meta, engine stats, CRCs of the restored state (``None`` without
+    ``crcs``), repr of the step's loss)``."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint import tree_utils
+    from dlrover_tpu_torch.checkpoint.checkpointer import FlashCheckpointer
+    from dlrover_tpu_torch.trainer.sampler import ElasticSampler
+
+    args = train.parse_args(base)
+    cfg, job, state = train.build(args)
+    ckp = FlashCheckpointer(d, job_name=train.ckpt_job_name(d))
+    try:
+        got = ckp.load(state)
+        stats = ckp.engine.stats()
+    finally:
+        ckp.close()
+    if got is None:
+        raise SystemExit(f"nothing restorable in {d}")
+    if crcs:
+        crcs = state_crcs(tree_utils.flatten_to_shards(state)[0])
+    sampler = ElasticSampler(args.dataset_size,
+                             batch_size_per_process=args.batch_per_proc,
+                             seed=17)
+    sampler.load_state_dict(got[1]["sampler"])
+    toks = train.synth_tokens(next(iter(sampler)), args.seq_len,
+                              cfg.vocab_size)
+    _, m = job.train_step(state, {"tokens": toks})
+    loss = repr(float(m["loss"]))
+    del state, job
+    torch.cuda.empty_cache()
+    return got[1], stats, crcs or None, loss
+
+
+def phase_multiprocess(train, card: str, trained: dict,
+                       ckpt9: dict) -> dict:
+    """Phase 10: several processes on one host (see the module docstring):
+    (a) one process under a coordinator, (b) two processes on the one card
+    over gloo with the sliced checkpoint, (c) agent mode."""
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.checkpoint import fsck, shard_file, slicer
+    from dlrover_tpu_torch.common.shm import arena_name, unlink_arena
+    from dlrover_tpu_torch.common.storage import PosixDiskStorage
+
+    k = CKPT_K
+    base = ["--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ),
+            "--device", DEV]
+    cfg = train.build_config(train.parse_args(base))
+    res = {"card": card, "model": f"{CKPT_MODEL}, AdamW", "k": k,
+           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ}
+    t_phase = time.perf_counter()
+
+    # (a) one process under a coordinator: phase 6b's run, bit for bit.
+    argv6 = base + ["--batch_per_proc", str(TRAIN_BATCH), "--steps",
+                    str(TRAIN_STEPS), "--dataset_size", str(TRAIN_BATCH),
+                    "--log_every", "1"]
+    t0 = time.perf_counter()
+    one = worker_fields(spawn_trainers(argv6, 1, "phase 10a")[0], 0)
+    check_trainer_launches(one, cfg, TRAIN_STEPS, "phase 10a")
+    want_backend = "nccl" if DEV == "cuda" else "gloo"
+    res["a"] = {"backend": one["backend"], "dp": one["dp"],
+                "first_loss": one["first_loss"], "loss": one["loss"],
+                "step_ms": float(one["step_ms"]),
+                "wall_s": time.perf_counter() - t0}
+    if (one["backend"] != want_backend or one["dp"] != "1"
+            or float(one["first_loss"]) != trained["first_loss"]
+            or float(one["loss"]) != trained["loss"]):
+        raise SystemExit(f"phase 10a: {res['a']} against phase 6b's "
+                         f"{trained['first_loss']!r} / {trained['loss']!r} "
+                         f"on {want_backend}")
+    log("phase10a " + json.dumps(res["a"]))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    dirs = {n: os.path.join(tmp, n) for n in ("run", "cold", "gate",
+                                              "agent")}
+    jobs = {n: train.ckpt_job_name(d) for n, d in dirs.items()}
+    try:
+        # (b) two processes on the one card over gloo, B 2 each.  Every
+        # step's loss and gradient norm (after the reduction, and from
+        # step 2 on the weights the reduced gradients moved) is held
+        # against the one process at B 4 of phase 10a.
+        per = TRAIN_BATCH // DP_WORLD
+        argv_b = base + ["--batch_per_proc", str(per), "--dataset_size",
+                         str(TRAIN_BATCH)]
+        t0 = time.perf_counter()
+        outs = spawn_trainers(
+            argv_b + ["--steps", str(k + 1), "--log_every", "1"], DP_WORLD,
+            "phase 10b uninterrupted")
+        straight = [worker_fields(o, r) for r, o in enumerate(outs)]
+        for r, f in enumerate(straight):
+            check_trainer_launches(f, cfg, k + 1, f"phase 10b rank {r}")
+        s0 = straight[0]
+        first = float(s0["first_loss"])
+        rel = abs(first - trained["first_loss"]) / abs(trained["first_loss"])
+        steps = range(1, k + 2)
+        if any(set(f["steps"]) != set(steps) for f in straight) \
+                or not set(steps) <= set(one["steps"]) \
+                or any(f["steps"] != s0["steps"] for f in straight):
+            raise SystemExit(f"phase 10b: per-step lines "
+                             f"{[f['steps'] for f in straight]} against "
+                             f"steps {list(steps)} equal on every rank")
+        step_rel = {i: [abs(a - b) / abs(b) for a, b in zip(
+            s0["steps"][i], one["steps"][i])] for i in steps}
+        res["b"] = {"backend": s0["backend"], "dp": s0["dp"],
+                    "first_loss": s0["first_loss"],
+                    "one_process_first_loss": trained["first_loss"],
+                    "first_loss_rel_diff": rel, "rtol": DP_LOSS_RTOL,
+                    "loss_grad_norm_by_step": s0["steps"],
+                    "one_process_loss_grad_norm_by_step": {
+                        i: one["steps"][i] for i in steps},
+                    "loss_grad_norm_rel_diff_by_step": step_rel,
+                    "loss_after_k_plus_1": s0["loss"],
+                    "step_ms": float(s0["step_ms"]),
+                    "one_process_step_ms": trained["step_ms"],
+                    "reduce_ms": float(s0.get("reduce_ms", "nan")),
+                    "launches_per_rank": [f["launches"] for f in straight],
+                    "wall_s": time.perf_counter() - t0}
+        if s0["backend"] != "gloo" or s0["dp"] != str(DP_WORLD) \
+                or not rel <= DP_LOSS_RTOL or not all(
+                    d <= DP_LOSS_RTOL for v in step_rel.values() for d in v):
+            raise SystemExit(f"phase 10b: {res['b']}")
+
+        t0 = time.perf_counter()
+        outs = spawn_trainers(
+            argv_b + ["--steps", str(k), "--ckpt_dir", dirs["run"],
+                      "--ckpt_interval", str(k)], DP_WORLD,
+            "phase 10b save", until="CKPT_STATS")
+        saved = [worker_fields(o, r) for r, o in enumerate(outs)]
+        ranks = []
+        for r, f in enumerate(saved):
+            check_trainer_launches(f, cfg, k, f"phase 10b save rank {r}")
+            ck = f["ckpt"]
+            ranks.append({x: ck[x] for x in (
+                "staged_bytes", "shard_bytes", "written_bytes", "stall_ms",
+                "d2h_ms", "arena_ms", "persist_ms", "persist_mbps")})
+            ranks[-1]["written_share"] = ck["written_bytes"] / \
+                ck["staged_bytes"]
+        agg = sum(r["shard_bytes"] for r in ranks) / max(
+            r["persist_ms"] for r in ranks) * 1e3 / (1 << 20)
+        res["b"].update({"save_wall_s": time.perf_counter() - t0,
+                         "ranks": ranks, "agg_persist_mbps": agg,
+                         "one_process_persist_mbps":
+                             ckpt9.get("persist_mbps"),
+                         "killed": "SIGKILL after the commit"})
+        if shard_file.latest_step(PosixDiskStorage(), dirs["run"]) != k or \
+                not all(0.4 <= r["written_share"] <= 0.6 for r in ranks):
+            raise SystemExit(f"phase 10b save: {res['b']}")
+
+        # (b2) cold restore at world size 1 from both ranks' files.
+        # fsck reads every shard again: it runs beside the cold restore.
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            checked = pool.submit(fsck.fsck, dirs["run"])
+            staged = arena_crcs(arena_name(jobs["run"], 0),
+                                arena_name(jobs["run"], 1))
+            shutil.copytree(dirs["run"], dirs["cold"],
+                            copy_function=os.link)
+            meta, stats, crcs, _ = restore_and_step(train, dirs["cold"],
+                                                    argv_b)
+            report = checked.result()
+        unequal = [t for t in staged if crcs.get(t) != staged[t]]
+        res["b"]["cold_world1"] = {
+            "restored_step": meta["step"],
+            "source": stats["restore_source"],
+            "restore_ms": stats["restore_ms"],
+            "tensors": len(crcs), "unequal_tensors": len(unequal)}
+        if meta["step"] != k or stats["restore_source"] != "storage" \
+                or unequal or set(crcs) != set(staged):
+            raise SystemExit(f"phase 10b cold restore: "
+                             f"{res['b']['cold_world1']}; {unequal[:5]}")
+        shutil.copytree(dirs["run"], dirs["gate"], copy_function=os.link)
+        os.remove(shard_file.shard_path(dirs["gate"], k, 1))
+        gate = slicer.commit_gate(PosixDiskStorage(), dirs["gate"], k)
+        res["b"]["fsck"] = "damaged" if report.damaged else "clean"
+        res["b"]["gate_without_rank1"] = gate
+        if report.damaged or gate:
+            raise SystemExit(f"phase 10b: fsck {report.to_dict()}, gate "
+                             f"without rank 1's shard {gate}")
+
+        # (b1) warm restore at world size 2 from the two arenas.
+        # Each rank is SIGKILLed once it has trained step K + 1: the final
+        # save would add nothing checked here.
+        t0 = time.perf_counter()
+        outs = spawn_trainers(
+            argv_b + ["--steps", str(k + 1), "--ckpt_dir", dirs["run"],
+                      "--ckpt_interval", str(k + 2)], DP_WORLD,
+            "phase 10b warm restore", until="trained step=")
+        warm = [worker_fields(o, r) for r, o in enumerate(outs)]
+        for r, f in enumerate(warm):
+            check_trainer_launches(f, cfg, 1, f"phase 10b warm rank {r}")
+        res["b"]["warm_world2"] = {
+            "restored": [f["restored"] for f in warm],
+            "sources": [f["trained"]["restored_from"] for f in warm],
+            "restore_ms": [float(f["trained"]["restore_ms"]) for f in warm],
+            "losses": [f["trained"]["loss"] for f in warm],
+            "wall_s": time.perf_counter() - t0}
+        if (any(f["trained"]["loss"] != s0["loss"] for f in warm)
+                or res["b"]["warm_world2"]["sources"] != ["shm"] * DP_WORLD
+                or [f["restored"] for f in warm] != [
+                    [f"[worker {r}] restored step={k}"]
+                    for r in range(DP_WORLD)]):
+            raise SystemExit(f"phase 10b warm restore: "
+                             f"{res['b']['warm_world2']} against "
+                             f"{s0['loss']}")
+        log("phase10b " + json.dumps(res["b"]))
+
+        # (c) agent mode: this process hosts the saver.
+        saver = AsyncCheckpointSaver(jobs["agent"], nproc_per_node=1)
+        saver.start()
+        try:
+            t0 = time.perf_counter()
+            out = spawn_trainers(
+                base + ["--batch_per_proc", str(TRAIN_BATCH), "--steps",
+                        str(4 * k), "--ckpt_dir", dirs["agent"],
+                        "--ckpt_interval", str(k)], 1, "phase 10c trainer",
+                coordinator=False, until=f"saved step={k} to memory")[0]
+            stall = saver.last_stall_ms()
+            t1 = time.perf_counter()
+            saver.save_shm_to_storage("trainer killed")
+            breakpoint_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            saver.stop()
+        unlink_arena(arena_name(jobs["agent"], 0))
+        committed = shard_file.latest_step(PosixDiskStorage(),
+                                           dirs["agent"])
+        meta, stats, _, loss = restore_and_step(
+            train, dirs["agent"],
+            base + ["--batch_per_proc", str(TRAIN_BATCH)], crcs=False)
+        want = ckpt9["uninterrupted_losses"][1]
+        res["c"] = {"trainer_saved": f"saved step={k} to memory" in out,
+                    "stall_ms_via_stat_dict": stall,
+                    "breakpoint_save_ms": breakpoint_ms,
+                    "committed_step": committed,
+                    "restored_step": meta["step"],
+                    "restore_source": stats["restore_source"],
+                    "restore_ms": stats["restore_ms"],
+                    "next_loss": loss, "uninterrupted_loss": want,
+                    "wall_s": time.perf_counter() - t0}
+        if committed != k or meta["step"] != k or loss != want \
+                or not stall > 0:
+            raise SystemExit(f"phase 10c: {res['c']}")
+        log("phase10c " + json.dumps(res["c"]))
+    finally:
+        for name in jobs.values():
+            for r in range(DP_WORLD):
+                unlink_arena(arena_name(name, r))
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["wall_s"] = time.perf_counter() - t_phase
+    log("phase10 multiprocess " + json.dumps(res))
+    return res
+
 
 def kernel_record(name, source, replaces, launches, rec) -> dict:
     out = {"name": name, "route": "cuda", "source": source,
@@ -2215,6 +2656,11 @@ def main() -> int:
     from dlrover_tpu_torch.ops import quant
     from dlrover_tpu_torch.ops import rmsnorm as rms
 
+    start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"elapsed {time.perf_counter() - start:.1f}s after {what}")
+
     counted = (fa.flash_fwd, fa.flash_dq, fa.flash_dkv, xent.xent_fwd,
                rms.rmsnorm, quant.quantize_blockwise)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2229,6 +2675,7 @@ def main() -> int:
     log(f"build: {build_kernels([rms, fa, xent, quant]):.1f}s")
 
     rec = phase_kernels(rms)
+    mark("phase 1")
 
     cfg = llama.LlamaConfig.llama2_7b()
     t0 = time.perf_counter()
@@ -2241,14 +2688,21 @@ def main() -> int:
     served = phase_serve(infer, rms, params, cfg, counted)
     del params
     torch.cuda.empty_cache()
+    mark("phases 2-3")
 
     flash = phase_flash()
     xrec = phase_xent()
+    mark("phases 4-5")
     phase_train_parity(llama, train, counted)
     trained = phase_train(llama, train, counted)
+    mark("phase 6")
     qrec = phase_quant(quant, counted)
     phase_adam8bit(llama, counted)
-    phase_checkpoint(llama, train, counted, smi)
+    mark("phases 7-8")
+    ckpt9 = phase_checkpoint(llama, train, counted, smi)
+    mark("phase 9")
+    phase_multiprocess(train, smi, trained, ckpt9)
+    mark("phase 10")
 
     # Phase 3b runs last, on the same 7B weights made again from the seed:
     # a profile taken after its graph replays, in phase 5, once lost every
@@ -2256,7 +2710,9 @@ def main() -> int:
     params = llama.init_params(
         cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
     prefixed = phase_prefix_handoff(infer, rms, params, cfg)
+    mark("phase 3c")
     graphed = phase_serve_graph(infer, rms, params, cfg)
+    mark("phase 3b")
     del params
     torch.cuda.empty_cache()
 

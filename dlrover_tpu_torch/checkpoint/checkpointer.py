@@ -8,7 +8,12 @@
     ckpt.wait()
 
 ``state`` is the train state of ``parallel.accelerate`` (``{"params",
-"opt_state", "step"}``); ``load`` copies into its live tensors.
+"opt_state", "step"}``); ``load`` copies into its live tensors.  Every
+process of a data-parallel world calls the same methods in the same order
+(``load`` agrees across ranks).  When the node's agent runs the saver
+(``agent/ckpt_saver.py``), the engine finds its queue and runs in agent
+mode (:attr:`FlashCheckpointer.agent_mode`): ``save(storage=True)`` then
+hands the persist to the agent.
 """
 
 from __future__ import annotations
@@ -32,6 +37,11 @@ class FlashCheckpointer:
         self.engine = CheckpointEngine(ckpt_dir, job_name=job_name,
                                        storage=storage,
                                        max_to_keep=max_to_keep)
+
+    @property
+    def agent_mode(self) -> bool:
+        """True when the node's agent persists the saves."""
+        return self.engine.agent_mode
 
     def save(self, state: Any, meta: Optional[dict] = None,
              storage: bool = False) -> None:

@@ -7,10 +7,10 @@ the commit protocol of each step: tracker -> step dir, done votes <->
 shard files, the committed step's shards all present, and every ``ref``
 of an incremental shard resolving to a live holder with the promised CRC.
 Quarantined dirs (``step_N.corrupt`` / ``.quarantined`` marker) are
-verified again so that the report names the damaged shard.  The slice
-coverage proof of a committed *sliced* step (``slicer.step_covers``) comes
-with the multi-process slice (Queue A item 3); one process writes no
-slices.
+verified again so that the report names the damaged shard.  A committed
+step that is sliced across ranks or holds refs must pass the commit's
+coverage proof again (``slicer.step_covers``, one meta read per shard
+shared with the ref-chain walk).
 
 Usage::
 
@@ -102,17 +102,21 @@ def _check_ref_chain(
     pid: int,
     path: str,
     committed: bool,
+    man=None,
 ) -> None:
     """Verify an incremental shard's reference chain: every ``ref`` entry
     must resolve to a live holder shard whose entry has the same slice
     bounds and the promised CRC.  A broken chain on the committed step is
     damage (the promised restore point cannot be rebuilt); on an
-    uncommitted step it only warns (the restore ladder skips it)."""
+    uncommitted step it only warns (the restore ladder skips it).  ``man``
+    is the shard's manifest when already read."""
     sev = SEV_DAMAGE if committed else SEV_WARN
-    try:
-        man = shard_file.read_shard_manifest(storage, ckpt_dir, step, pid)
-    except shard_file.ShardCorruptionError:
-        return  # already reported by the shard verification pass
+    if man is None:
+        try:
+            man = shard_file.read_shard_manifest(storage, ckpt_dir, step,
+                                                 pid)
+        except shard_file.ShardCorruptionError:
+            return  # already reported by the shard verification pass
     if man is None:
         return
     cache: dict = {}
@@ -157,6 +161,7 @@ def _check_step_dir(
     shards, done = _scan_step_dir(storage, dirpath)
     world: Optional[int] = None
     verified = set()
+    sliced = has_refs = False
     ref_shards: list = []  # (pid, path) needing a chain check
     for pid in sorted(shards):
         path = os.path.join(dirpath, shards[pid])
@@ -188,11 +193,13 @@ def _check_step_dir(
             report.add(
                 SEV_INFO, step, path, "legacy v1 shard (no CRCs to verify)"
             )
+        sliced = sliced or bool(extra.get("sliced"))
         # Refs resolve against the live layout: only an in-place step
         # dir's chain can be checked.
-        if extra.get("ref_steps") and \
-                dirpath == shard_file.step_dir(ckpt_dir, step):
-            ref_shards.append((pid, path))
+        if extra.get("ref_steps"):
+            has_refs = True
+            if dirpath == shard_file.step_dir(ckpt_dir, step):
+                ref_shards.append((pid, path))
         w = extra.get("num_processes")
         if isinstance(w, int) and w > 0:
             world = max(world or 0, w)
@@ -220,9 +227,37 @@ def _check_step_dir(
                 f"committed step covers {len(verified)}/{world} shards "
                 f"(missing or corrupt: {missing})",
             )
+    live = dirpath == shard_file.step_dir(ckpt_dir, step)
+    coverage = committed and (sliced or has_refs) and live
+    if not (ref_shards or coverage):
+        return
+    # One meta read per shard, shared by the ref-chain walk and the
+    # coverage proof.
+    manifests: dict = {}
+    for pid in sorted(verified):
+        try:
+            man = shard_file.read_shard_manifest(storage, ckpt_dir, step, pid)
+        except shard_file.ShardCorruptionError:
+            continue  # already reported by the verify pass
+        if man is not None:
+            manifests[pid] = man
     for pid, path in ref_shards:
         _check_ref_chain(report, storage, ckpt_dir, step, pid, path,
-                         committed)
+                         committed, man=manifests.get(pid))
+    if coverage:
+        # The commit gate's tiling proof again, offline: a committed step
+        # whose slices no longer cover every tensor is not the restore
+        # point the tracker promises.
+        from dlrover_tpu_torch.checkpoint import slicer
+
+        if manifests:
+            ok, reason = slicer.step_covers(storage, ckpt_dir, step,
+                                            manifests=manifests)
+        else:
+            ok, reason = False, "no readable shard meta"
+        if not ok:
+            report.add(SEV_DAMAGE, step, dirpath,
+                       f"slice coverage unprovable: {reason}")
 
 
 def fsck(

@@ -712,6 +712,29 @@ def all_shards_done(storage: CheckpointStorage, ckpt_dir: str, step: int,
                for pid in range(world_size))
 
 
+def wait_sync_barrier(client, step: int, timeout: float,
+                      stop_event=None) -> bool:
+    """Bounded wait on the master's cross-node step barrier before a
+    commit; ``True`` once it opened.  The barrier is advisory (the done
+    votes are the commit's real votes).  The port has no master client
+    yet (Queue A item 3b), and with none it returns ``True`` at once, as
+    the reference's does."""
+    if client is None:
+        return True
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if stop_event is not None and stop_event.is_set():
+            return False
+        try:
+            if client.sync_checkpoint(step):
+                return True
+        except Exception as e:  # noqa: BLE001
+            logger.debug("sync_checkpoint(%d) failed (retrying): %s", step,
+                         e)
+        time.sleep(0.5)
+    return False
+
+
 def resolve_keep_last(max_to_keep) -> int:
     """``None`` -> keep 3, ``0`` -> keep every step, ``N > 0`` -> the
     newest N."""

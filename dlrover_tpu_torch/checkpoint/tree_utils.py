@@ -1,13 +1,17 @@
 """The port's training state <-> the flat shard dict — the port's own
 counterpart of ``dlrover_tpu/checkpoint/tree_utils.py``
-(``flatten_to_shards``, ``restore_to_target``) on one process.
+(``flatten_to_shards``, ``ShardSource``, ``restore_to_target``).
 
 The state is what ``parallel/accelerate.py`` builds: ``{"params": nested
 dict/list of tensors, "opt_state": torch.optim.Optimizer, "step": int}``;
 any nested dict/list of tensors, ints and optimizers works.  Each leaf is
 named by its path in ``jax.tree_util.keystr`` form (``['params']['layers']
 [0]['wq']``, dict keys in sorted order as JAX flattens them), and its
-shard key is ``"<path>|0"``: on one process every tensor is one whole box.
+shard key is ``"<path>|0"``: in data parallelism every process holds every
+tensor whole, so each leaf is one box, and its placement records every
+rank of the world as an owner (``owners``), which is what lets the sliced
+persist split its bytes across them (``dlrover_tpu/checkpoint/
+tree_utils.py:55-112``).
 
 An optimizer's state is named by the *parameter's* path, not by the
 optimizer's index: AdamW's ``exp_avg``, ``exp_avg_sq`` (and
@@ -18,6 +22,12 @@ of ``mu`` and ``nu``, its step count and its rounding generator's state.
 AdamW creates its state at the first step; both functions create it first
 as torch would (zeros, ``step`` 0), so a fresh optimizer has the same
 leaves as a trained one.
+
+:class:`ShardSource` gathers the pieces of one checkpoint from any number
+of shard files: a sliced piece (a byte range of a box, as the sliced
+persist wrote it) waits until its box's slices tile the box, then becomes
+a whole piece; :meth:`ShardSource.assemble` builds any box from the pieces
+(exact match, else the overlap copy).
 
 :func:`restore_to_target` copies **into** the live tensors: the
 optimizer holds the parameters by identity, and a restore that built new
@@ -31,11 +41,14 @@ copied.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from dlrover_tpu_torch.common.tensor_bytes import torch_dtype
 from dlrover_tpu_torch.ops.quant import Adam8bit
+
+Box = Tuple[Tuple[int, int], ...]
 
 LATER_OPTIMIZERS = "a later checkpoint slice of the port (see ROADMAP.md)"
 
@@ -153,12 +166,13 @@ def state_leaves(state: Any) -> List[_Leaf]:
     return leaves
 
 
-def flatten_to_shards(state: Any
+def flatten_to_shards(state: Any, world: int = 1
                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, dict]]:
     """``(tensors, info)``: ``tensors["<path>|0"]`` is the live tensor of
     leaf ``path`` (on its device), ``info["<path>|0"]`` its placement as
-    the reference records it (global shape, the whole box as index, the
-    owning process for a card tensor, ``host`` for a CPU one)."""
+    the reference records it: the global shape, the whole box as index,
+    and ``owners`` (every rank of a data-parallel ``world``: each holds
+    the box) for a card tensor or ``host`` for a CPU one."""
     tensors: Dict[str, torch.Tensor] = {}
     info: Dict[str, dict] = {}
     for leaf in state_leaves(state):
@@ -170,35 +184,131 @@ def flatten_to_shards(state: Any
         if leaf.tensor.device.type == "cpu":
             info[key]["host"] = True
         else:
-            info[key]["owners"] = [0]
+            info[key]["owners"] = list(range(world))
     return tensors, info
 
 
-def source_from_shards(tensors: Dict[str, torch.Tensor],
-                       info: Dict[str, dict]) -> Dict[str, torch.Tensor]:
-    """``{path: tensor}`` from one shard's pieces.  Each piece must be its
-    leaf's whole box; assembling boxes that several processes wrote
-    comes with the multi-process slice (``KeyError``)."""
-    out: Dict[str, torch.Tensor] = {}
-    for key, t in tensors.items():
-        meta = info.get(key)
-        if meta is None:
-            raise KeyError(f"shard tensor {key!r} has no placement info")
-        whole = [[0, int(d)] for d in meta.get("global_shape", [])]
-        if [[int(a), int(b)] for a, b in meta.get("index", [])] != whole:
-            raise KeyError(
-                f"{meta['path']}: a partial box {meta.get('index')}; "
-                "restoring boxes of several processes comes with Queue A "
-                "item 3 of the port")
-        out[meta["path"]] = t
-    return out
+class ShardSource:
+    """Every piece known of one checkpoint's leaves, from one or several
+    processes' shard files.
+
+    A sliced piece (``slices[key]`` is its shard meta: ``slice``,
+    ``full_nbytes``, ``dtype``, ``shape``; the tensor is its flat ``uint8``
+    payload) accumulates per ``(path, box)`` and becomes a whole piece once
+    the slices tile the box's bytes; a box whose slices never complete
+    gives nothing, so :meth:`assemble` reports it uncovered and the
+    restore ladder falls back."""
+
+    def __init__(self):
+        #: path -> [(box, tensor)]
+        self.pieces: Dict[str, List[Tuple[Box, torch.Tensor]]] = {}
+        #: path -> global shape
+        self.shapes: Dict[str, Tuple[int, ...]] = {}
+        self._partial: Dict[Tuple[str, Box], dict] = {}
+
+    def add(self, tensors: Dict[str, torch.Tensor], info: Dict[str, dict],
+            slices: Optional[Dict[str, dict]] = None) -> None:
+        for key, t in tensors.items():
+            meta = info.get(key)
+            if meta is None:
+                continue
+            path = meta["path"]
+            idx = tuple((int(a), int(b)) for a, b in meta["index"])
+            self.shapes[path] = tuple(
+                int(d) for d in meta.get("global_shape", [b for _, b in idx]))
+            sl = (slices or {}).get(key)
+            if sl is None:
+                self.pieces.setdefault(path, []).append((idx, t))
+                continue
+            lo, hi = (int(v) for v in sl["slice"])
+            ent = self._partial.setdefault((path, idx), {
+                "full": int(sl.get("full_nbytes", 0)),
+                "dtype": sl["dtype"],
+                "shape": tuple(int(d) for d in sl["shape"]),
+                "parts": {},
+            })
+            ent["parts"][(lo, hi)] = t.reshape(-1).view(torch.uint8)
+            self._materialize_if_complete(path, idx, ent)
+
+    def _materialize_if_complete(self, path: str, idx: Box,
+                                 ent: dict) -> None:
+        if ent.get("done"):
+            return
+        pos = 0
+        parts = sorted(ent["parts"].items())
+        for (lo, hi), _ in parts:
+            if lo > pos:
+                return  # a gap: some rank's slice is still missing
+            pos = max(pos, hi)
+        if pos < ent["full"]:
+            return
+        out = torch.empty(ent["shape"], dtype=torch_dtype(ent["dtype"]))
+        flat = out.reshape(-1).view(torch.uint8)
+        if flat.numel() != ent["full"]:
+            return  # the meta lies about the size: leave it uncovered
+        for (lo, hi), chunk in parts:
+            flat[lo:hi] = chunk[:hi - lo]
+        self.pieces.setdefault(path, []).append((idx, out))
+        ent["done"] = True
+
+    def paths(self) -> List[str]:
+        return list(self.pieces.keys())
+
+    def assemble(self, path: str, index: Box,
+                 dtype: Optional[torch.dtype] = None
+                 ) -> Optional[torch.Tensor]:
+        """The part of leaf ``path`` covering ``index`` from the pieces:
+        an exact match, else the overlap copy.  ``None`` when a region is
+        not covered."""
+        pieces = self.pieces.get(path)
+        if not pieces:
+            return None
+        index = tuple((int(a), int(b)) for a, b in index)
+        for idx, t in pieces:
+            if idx == index:
+                return t
+        shape = tuple(e - s for s, e in index)
+        out = torch.empty(shape, dtype=dtype or pieces[0][1].dtype)
+        covered = torch.zeros(shape, dtype=torch.bool) if out.numel() \
+            else None
+        for idx, t in pieces:
+            dst, src = [], []
+            for (ps, pe), (rs, re_) in zip(idx, index):
+                lo, hi = max(ps, rs), min(pe, re_)
+                if lo >= hi:
+                    break
+                dst.append(slice(lo - rs, hi - rs))
+                src.append(slice(lo - ps, hi - ps))
+            else:
+                out[tuple(dst)] = t[tuple(src)]
+                if covered is not None:
+                    covered[tuple(dst)] = True
+        if covered is not None and not bool(covered.all()):
+            return None
+        return out
+
+    def whole(self) -> Dict[str, torch.Tensor]:
+        """``{path: tensor}``, each leaf assembled whole; ``KeyError`` when
+        a leaf is not covered."""
+        out: Dict[str, torch.Tensor] = {}
+        for path in self.pieces:
+            shape = self.shapes[path]
+            t = self.assemble(path, tuple((0, d) for d in shape))
+            if t is None:
+                raise KeyError(f"checkpoint missing data for {path}")
+            out[path] = t
+        for path, idx in self._partial:
+            if path not in out:
+                raise KeyError(f"checkpoint missing slices of {path} "
+                               f"{idx}")
+        return out
 
 
-def restore_to_target(source: Dict[str, torch.Tensor], target: Any) -> Any:
-    """Copy ``source`` (``{path: tensor}``) into the live leaves of
-    ``target`` and return ``target``.  Raises ``KeyError`` when a path is
-    missing or extra and ``ValueError`` when a shape or dtype differs,
-    before anything is copied."""
+def check_target(source: Dict[str, torch.Tensor], target: Any
+                 ) -> List[_Leaf]:
+    """The live leaves of ``target``, once ``source`` (``{path: tensor}``)
+    is known to fit them: ``KeyError`` when a path is missing or extra,
+    ``ValueError`` when a shape or dtype differs."""
     leaves = state_leaves(target)
     want = {leaf.path for leaf in leaves}
     missing = sorted(want - source.keys())
@@ -215,6 +325,14 @@ def restore_to_target(source: Dict[str, torch.Tensor], target: Any) -> Any:
                 f"{leaf.path}: checkpoint has {src.dtype} "
                 f"{tuple(src.shape)}, target {leaf.tensor.dtype} "
                 f"{tuple(leaf.tensor.shape)}")
+    return leaves
+
+
+def restore_to_target(source: Dict[str, torch.Tensor], target: Any) -> Any:
+    """Copy ``source`` (``{path: tensor}``) into the live leaves of
+    ``target`` and return ``target``; raises as :func:`check_target` does,
+    before anything is copied."""
+    leaves = check_target(source, target)
     with torch.no_grad():
         for leaf in leaves:
             leaf.assign(source[leaf.path])

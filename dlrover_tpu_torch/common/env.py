@@ -1,11 +1,14 @@
 """Environment helpers — the port's own copy of the getters of
-``dlrover_tpu/common/env.py`` that ``trainer/bootstrap.py`` and the
-checkpoint read, with the names of ``dlrover_tpu/common/constants.py``
-``NodeEnv`` (the agent/worker environment contract)."""
+``dlrover_tpu/common/env.py`` that ``trainer/bootstrap.py``,
+``common/dist_env.py`` and the checkpoint read (``get_coordinator``,
+``worker_env``: ``env.py:77-105``), with the names of
+``dlrover_tpu/common/constants.py`` ``NodeEnv`` (the agent/worker
+environment contract)."""
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 
 class NodeEnv:
@@ -16,8 +19,11 @@ class NodeEnv:
     NODE_ID = "DLROVER_TPU_NODE_ID"
     NODE_RANK = "DLROVER_TPU_NODE_RANK"
     NODE_NUM = "DLROVER_TPU_NODE_NUM"
+    COORDINATOR_ADDR = "DLROVER_TPU_COORDINATOR"
     PROCESS_ID = "DLROVER_TPU_PROCESS_ID"
     NUM_PROCESSES = "DLROVER_TPU_NUM_PROCESSES"
+    RESTART_COUNT = "DLROVER_TPU_RESTART_COUNT"
+    LOCAL_RANK = "DLROVER_TPU_LOCAL_RANK"
     RUN_ID = "DLROVER_TPU_RUN_ID"
 
 
@@ -71,3 +77,38 @@ def get_process_id() -> int:
 
 def get_num_processes() -> int:
     return get_env_int(NodeEnv.NUM_PROCESSES, 1)
+
+
+def get_local_rank() -> int:
+    return get_env_int(NodeEnv.LOCAL_RANK, 0)
+
+
+def get_coordinator() -> Optional[str]:
+    v = get_env_str(NodeEnv.COORDINATOR_ADDR)
+    return v or None
+
+
+def worker_env(
+    *,
+    job_name: str,
+    master_addr: str,
+    node_id: int,
+    node_rank: int,
+    node_num: int,
+    process_id: int,
+    num_processes: int,
+    coordinator: str,
+    restart_count: int = 0,
+) -> dict:
+    """The env contract the agent passes to each spawned worker process."""
+    return {
+        NodeEnv.JOB_NAME: job_name,
+        NodeEnv.MASTER_ADDR: master_addr,
+        NodeEnv.NODE_ID: str(node_id),
+        NodeEnv.NODE_RANK: str(node_rank),
+        NodeEnv.NODE_NUM: str(node_num),
+        NodeEnv.PROCESS_ID: str(process_id),
+        NodeEnv.NUM_PROCESSES: str(num_processes),
+        NodeEnv.COORDINATOR_ADDR: coordinator,
+        NodeEnv.RESTART_COUNT: str(restart_count),
+    }

@@ -11,7 +11,9 @@ every value (fixint / fixstr / fixarray / fixmap, then the 8-, 16-, 32- and
 64-bit forms), float64 for every float, big-endian widths.
 :func:`unpackb` returns what ``msgpack.unpackb(data, raw=False)`` returns:
 dicts, lists, str, bytes, int, float, bool and None; map keys must be str
-or bytes (msgpack's ``strict_map_key``).  Any malformed input raises
+or bytes (msgpack's ``strict_map_key``) unless the caller passes
+``strict_map_key=False``, as the socket protocol of
+``common/multi_process.py`` does.  Any malformed input raises
 ``ValueError``.
 
 Types: ``dict``, ``list``/``tuple``, ``str``, ``bytes``/``bytearray``/
@@ -145,7 +147,7 @@ _SIZED = {
 }
 
 
-def _unpack(r: _Reader) -> Any:
+def _unpack(r: _Reader, strict: bool = True) -> Any:
     code = r.take(1)[0]
     if code <= 0x7F:
         return code
@@ -178,21 +180,23 @@ def _unpack(r: _Reader) -> Any:
     if kind == "bin":
         return bytes(r.take(n))
     if kind == "array":
-        return [_unpack(r) for _ in range(n)]
+        return [_unpack(r, strict) for _ in range(n)]
     out = {}
     for _ in range(n):
-        k = _unpack(r)
-        if not isinstance(k, (str, bytes)):
+        k = _unpack(r, strict)
+        if strict and not isinstance(k, (str, bytes)):
             raise ValueError(f"{type(k).__name__} is not allowed for map key")
-        out[k] = _unpack(r)
+        if isinstance(k, (list, dict)):
+            raise ValueError(f"unhashable {type(k).__name__} map key")
+        out[k] = _unpack(r, strict)
     return out
 
 
-def unpackb(data) -> Any:
-    """``msgpack.unpackb(data, raw=False)``: exactly one object, no
-    trailing bytes."""
+def unpackb(data, strict_map_key: bool = True) -> Any:
+    """``msgpack.unpackb(data, raw=False, strict_map_key=...)``: exactly
+    one object, no trailing bytes."""
     r = _Reader(data)
-    obj = _unpack(r)
+    obj = _unpack(r, strict_map_key)
     if r.pos != len(r.buf):
         raise ValueError(
             f"msgpack: {len(r.buf) - r.pos} extra bytes after the object")

@@ -1,4 +1,4 @@
-"""Training entry point: Llama pretraining on one card.
+"""Training entry point: Llama pretraining, one card a process.
 
 The port's counterpart of ``examples/llama_train.py`` with its own copy of
 ``synth_tokens``, its flags and defaults (the LoRA settings only as far as
@@ -12,9 +12,10 @@ the refusals below need them) and ``--device``:
 It builds ``llama.loss_fn`` over fp32 master parameters (random, seed 0),
 trains with ``adamw(lr)`` through ``accelerate()`` on the example's
 synthetic tokens drawn by an ``ElasticSampler`` (seed 17), prints the loss
-every 10 steps and a final ``TRAIN_DONE`` line with the loss, the median
-step time, tokens/s and each kernel's launch count (0 on the CPU, where
-the plain versions run).
+and the gradient norm (both in full) every ``--log_every`` steps and a
+final ``TRAIN_DONE`` line with the loss, the median step time, tokens/s
+and each kernel's launch count (0 on the CPU, where the plain versions
+run).
 
 With ``--ckpt_dir`` it checkpoints as the example does
 (``examples/llama_train.py:210-259``): at start it restores the newest
@@ -27,6 +28,20 @@ The arena is namespaced by the checkpoint directory (as
 never share one.  ``TRAIN_DONE`` then also gives ``restored_step`` and the
 last save's stall, and a ``CKPT_STATS`` line the last save's, persist's and
 restore's costs as JSON.
+
+Several processes on one host run it unchanged, each started with the
+agent's env contract (``DLROVER_TPU_COORDINATOR=host:port``,
+``DLROVER_TPU_NUM_PROCESSES=N``, ``DLROVER_TPU_PROCESS_ID=i``,
+``DLROVER_TPU_LOCAL_RANK=i``): ``trainer/bootstrap.init`` brings up
+``torch.distributed``, each process draws its ``--batch_per_proc`` rows of
+the global batch and trains data-parallel (``Strategy(mesh={"dp": N})``,
+the example's ``MeshSpec(dp=len(jax.devices()))`` with one device a
+process), every process prints its ``[worker i]`` lines (after the last
+step, before the final save: ``[worker i] trained step=N loss=...``, with
+the restore's source and time and its kernel launches) and rank 0 the
+``TRAIN_DONE`` line with the global loss, ``dp`` and the backend (with
+``reduce_ms``, the median host time of the gradient reduction, when it
+goes through the host).  The checkpoint is sliced across the ranks.
 
 Refused, each with the slice that brings it: ``--strategy auto``,
 ``--fp8``, ``--quant_grads``, ``--lora_rank > 0``, ``--init_from`` and a
@@ -48,7 +63,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common import dist_env
+from dlrover_tpu_torch.common.device import process_device
 from dlrover_tpu_torch.common.storage import OBJECT_STORE_SLICE
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.cross_entropy import xent_fwd
@@ -92,6 +108,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--dataset_size", type=int, default=4096)
     p.add_argument("--ckpt_dir", default="")
     p.add_argument("--ckpt_interval", type=int, default=5)
+    p.add_argument("--log_every", type=int, default=10,
+                   help="print the loss and gradient norm every N steps "
+                        "(and after the last)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default: the kernels) or cpu (plain versions)")
     return p.parse_args(argv)
@@ -134,8 +153,9 @@ def synth_tokens(indices, seq_len: int, vocab: int) -> np.ndarray:
 
 
 def build(args: argparse.Namespace, num_processes: int = 1):
-    """``(cfg, job, state)`` for the run ``args`` describe."""
-    dev = resolve_device(args.device)
+    """``(cfg, job, state)`` for the run ``args`` describe, data-parallel
+    over ``num_processes`` (the group's world)."""
+    dev = process_device(args.device)
     cfg = build_config(args)
     global_batch = args.batch_per_proc * num_processes
     sample = synth_tokens(range(global_batch), args.seq_len, cfg.vocab_size)
@@ -145,7 +165,7 @@ def build(args: argparse.Namespace, num_processes: int = 1):
                                             param_dtype=torch.float32),
         optimizer=adamw(args.lr),
         sample_batch={"tokens": sample},
-        strategy=Strategy(),
+        strategy=Strategy(mesh={"dp": num_processes}),
         param_specs="planner",
         device=dev,
     )
@@ -165,7 +185,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.ckpt_interval < 1:
         raise ValueError(f"--ckpt_interval must be >= 1, got "
                          f"{args.ckpt_interval}")
-    ctx = bootstrap.init()
+    ctx = bootstrap.init(device=args.device)
     cfg, job, state = build(args, ctx.num_processes)
     sampler = ElasticSampler(
         args.dataset_size,
@@ -199,7 +219,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     on_card = job.device.type == "cuda"
     launches0 = {n: fn.launches for n, fn in KERNELS.items()}
     step, loss, first_loss = start_step, float("nan"), float("nan")
-    step_s = []
+    step_s, reduce_ms = [], []
     it = iter(sampler)
     while step < args.steps:
         try:
@@ -211,6 +231,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         t0 = time.perf_counter()
         state, metrics = job.train_step(state, {"tokens": toks})
         loss = float(metrics["loss"])
+        if "reduce_ms" in metrics:
+            reduce_ms.append(metrics["reduce_ms"])
         if on_card:
             torch.cuda.synchronize(job.device)
         step_s.append(time.perf_counter() - t0)
@@ -222,9 +244,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             save(storage=False)
             print(f"[worker {ctx.process_id}] saved step={step} to memory "
                   f"(stall {ckpt.engine.last_stall_ms:.1f} ms)", flush=True)
-        if step % 10 == 0 or step == args.steps:
-            print(f"[worker {ctx.process_id}] step {step} loss "
-                  f"{loss:.4f}", flush=True)
+        if step % args.log_every == 0 or step == args.steps:
+            print(f"[worker {ctx.process_id}] step {step} loss={loss!r} "
+                  f"grad_norm={float(metrics['grad_norm'])!r}", flush=True)
+    launches = " ".join(f"{n}_launches={fn.launches - launches0[n]}"
+                        for n, fn in KERNELS.items())
+    restored = "" if ckpt is None else (
+        f" restored_from={ckpt.engine.last_restore_source} "
+        f"restore_ms={ckpt.engine.last_restore_ms:.1f}")
+    print(f"[worker {ctx.process_id}] trained step={step} loss={loss!r}"
+          f"{restored} {launches}", flush=True)
     ckpt_done = ""
     if ckpt is not None:
         save(storage=True)
@@ -241,13 +270,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     steady = step_s[1:] or step_s
     step_ms = 1e3 * statistics.median(steady) if steady else float("nan")
     tokens = args.batch_per_proc * ctx.num_processes * args.seq_len
-    launches = " ".join(f"{n}_launches={fn.launches - launches0[n]}"
-                        for n, fn in KERNELS.items())
+    if not ctx.is_leader:
+        return 0
+    dp = f" dp={job.dp} backend={dist_env.group_backend()}"
+    if reduce_ms:
+        dp += f" reduce_ms={statistics.median(reduce_ms):.3f}"
     # Losses in full (repr): a restored run is held to bit-equality.
     print(f"TRAIN_DONE step={step} loss={loss!r} "
           f"first_loss={first_loss!r} step_ms={step_ms:.3f} "
           f"tokens_per_s={1e3 * tokens / step_ms:.1f} device={job.device} "
-          f"{launches}{ckpt_done}", flush=True)
+          f"{launches}{ckpt_done}{dp}", flush=True)
     return 0
 
 

@@ -1,23 +1,38 @@
-"""Worker-process bootstrap for one card — the port's counterpart of
-``dlrover_tpu/trainer/bootstrap.py`` (``ElasticContext``, ``init``).
+"""Worker-process bootstrap — the port's counterpart of
+``dlrover_tpu/trainer/bootstrap.py`` (``ElasticContext``, ``init``,
+``get_elastic_context``, ``_shutdown``).
 
-The reference brings up ``jax.distributed`` from the agent's environment
-and connects the master client.  This slice runs one process on one card:
-:func:`init` builds the :class:`ElasticContext` from the same environment
-contract and refuses a multi-process world or a master address, which come
-with the launcher slice (``torch.distributed`` and the master client).
-:meth:`ElasticContext.report_step` with no client is a no-op, exactly as in
-the reference.
+The agent hands each worker its ``process_id``, ``num_processes`` and
+coordinator through the environment; :func:`init` brings up
+``torch.distributed`` from them (``common/dist_env.py``, the counterpart of
+``jax_env.initialize_distributed_from_env``) and returns the
+:class:`ElasticContext`.  It is idempotent: the first context is kept in
+the module's ``_ctx``, as in the reference.
+
+The master client is Queue A item 3b (the elastic loop) and the chaos
+layer comes later: :func:`init` refuses a master address and
+``DLROVER_TPU_FAULTS``, each by name.  With no client,
+:meth:`ElasticContext.report_step`, :meth:`~ElasticContext.poll_reshard`
+and :meth:`~ElasticContext.report_reshard` return ``None`` and do nothing,
+exactly as the reference's do.
 """
 
 from __future__ import annotations
 
+import atexit
 import os
+import threading
+from typing import Optional
 
+from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common import env as env_utils
-from dlrover_tpu_torch.common.log import set_role
+from dlrover_tpu_torch.common.device import DeviceLike
+from dlrover_tpu_torch.common.log import logger, set_role
 
-LAUNCHER_SLICE = "the launcher slice of the port (see ROADMAP.md)"
+ELASTIC_LOOP = "Queue A item 3b of the port (the elastic loop; see ROADMAP.md)"
+CHAOS_SLICE = "the chaos layer of the port (see ROADMAP.md)"
+#: Seconds the exit barrier waits for the other ranks.
+EXIT_BARRIER_S = 60.0
 
 
 class ElasticContext:
@@ -29,7 +44,7 @@ class ElasticContext:
         self.node_num = env_utils.get_node_num()
         self.process_id = env_utils.get_process_id()
         self.num_processes = env_utils.get_num_processes()
-        self.local_rank = int(os.environ.get("DLROVER_TPU_LOCAL_RANK", 0))
+        self.local_rank = env_utils.get_local_rank()
         self.restart_count = int(
             os.environ.get("DLROVER_TPU_RESTART_COUNT", 0)
         )
@@ -37,35 +52,88 @@ class ElasticContext:
         self.node_role = os.environ.get("DLROVER_TPU_NODE_ROLE", "worker")
         self.job_name = env_utils.get_job_name()
         self.master_addr = env_utils.get_master_addr()
+        self.client = None
+        self.distributed = False
 
     @property
     def is_leader(self) -> bool:
         return self.process_id == 0
 
     def report_step(self, step: int) -> None:
-        """Feed the master's speed monitor.  This slice has no master
-        client (:func:`init` refuses a master address), so, as the
-        reference's with no client, it does nothing."""
+        """Feed the master's speed monitor.  With no master client (the
+        port has none yet), as the reference's with none, it does
+        nothing."""
+
+    def poll_reshard(self):
+        """A pending resize epoch of the master's live-reshard broadcast,
+        once per new epoch; with no master client, ``None``."""
+        return None
+
+    def report_reshard(self, epoch: int, outcome=None, error: str = ""
+                       ) -> None:
+        """Report a live-reshard verdict to the master; with no master
+        client, nothing."""
 
 
-def init(connect_master: bool = True) -> ElasticContext:
-    """Bootstrap this worker process for one card; raises for what a
-    later slice brings."""
-    ctx = ElasticContext()
-    if ctx.num_processes > 1:
+_ctx: Optional[ElasticContext] = None
+
+
+def _refuse_later(connect_master: bool) -> None:
+    master = env_utils.get_master_addr()
+    if connect_master and master:
         raise NotImplementedError(
-            f"{ctx.num_processes} processes: a multi-process world "
-            f"(torch.distributed) comes with {LAUNCHER_SLICE}"
-        )
-    if connect_master and ctx.master_addr:
-        raise NotImplementedError(
-            f"master address {ctx.master_addr!r} is set: the master client "
-            f"comes with {LAUNCHER_SLICE}"
-        )
+            f"master address {master!r} is set: the master client comes "
+            f"with {ELASTIC_LOOP}")
     if os.environ.get("DLROVER_TPU_FAULTS"):
         raise NotImplementedError(
-            f"fault injection (DLROVER_TPU_FAULTS) comes with "
-            f"{LAUNCHER_SLICE}"
-        )
+            f"fault injection (DLROVER_TPU_FAULTS) comes with {CHAOS_SLICE}")
+
+
+def init(connect_master: bool = True, device: DeviceLike = None
+         ) -> ElasticContext:
+    """Bootstrap this worker process (idempotent).  ``device`` is what the
+    process trains on (``None``: its card); it picks the backend."""
+    global _ctx
+    _refuse_later(connect_master)
+    if _ctx is not None:
+        return _ctx
+    ctx = ElasticContext()
     set_role(f"worker-{ctx.process_id}")
+    ctx.distributed = dist_env.initialize_distributed_from_env(device)
+    if ctx.distributed:
+        logger.info("torch.distributed up: process %d/%d (%s)",
+                    ctx.process_id, ctx.num_processes,
+                    dist_env.group_backend())
+        atexit.register(_shutdown)
+    _ctx = ctx
     return ctx
+
+
+def get_elastic_context() -> Optional[ElasticContext]:
+    return _ctx
+
+
+def _shutdown() -> None:
+    """A bounded exit barrier, then ``destroy_process_group``.  The barrier
+    runs in a daemon thread: a worker exiting alone (a peer crashed) must
+    not wait on peers that will never arrive; after the wait it skips the
+    teardown and lets process exit close the sockets."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return
+    done = threading.Event()
+
+    def _sync():
+        try:
+            dist.barrier(group=dist_env.host_group())
+            done.set()
+        except Exception as e:  # noqa: BLE001 - a dead peer: skip teardown
+            logger.warning("exit barrier failed: %s", e)
+
+    threading.Thread(target=_sync, daemon=True).start()
+    if done.wait(timeout=EXIT_BARRIER_S):
+        try:
+            dist_env.shutdown()
+        except Exception as e:  # noqa: BLE001 - never mask the exit status
+            logger.warning("process group teardown failed: %s", e)

@@ -33,9 +33,9 @@ from dlrover_tpu_torch.checkpoint import slicer as pslicer
 from dlrover_tpu_torch.checkpoint import tree_utils
 from dlrover_tpu_torch.checkpoint.engine import (
     CheckpointEngine,
-    agent_queue_socket,
+    ckpt_queue_name,
 )
-from dlrover_tpu_torch.common import msgpack_lite, shm
+from dlrover_tpu_torch.common import msgpack_lite, multi_process, shm
 from dlrover_tpu_torch.common.native import shm_lib
 from dlrover_tpu_torch.common.storage import PosixDiskStorage, storage_for
 from dlrover_tpu_torch.models import llama
@@ -548,24 +548,53 @@ def test_load_falls_back_past_a_corrupt_step_and_quarantines_it(engine_env):
 
 def test_engine_refuses_what_later_slices_bring(engine_env, monkeypatch,
                                                 tmp_path):
+    """Object stores, ``target_mesh`` and sharded (partial-box) layouts
+    are still refused, naming their items; several processes and agent
+    mode, refused before, now construct (their behaviour is held in
+    ``tests/test_torch_dist.py`` and ``tests/test_torch_agent_saver.py``)."""
     with pytest.raises(NotImplementedError, match="object-store"):
         storage_for("gs://bucket/ckpt")
     eng = engine_env("later")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         eng.load({}, target_mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        pslicer.plan_persist({}, {}, process_id=1, num_processes=2)
+
+    class Sharded(torch.Tensor):
+        placements = ()
+
+    with pytest.raises(NotImplementedError, match="item 5"):
+        eng.load({"w": torch.zeros(2).as_subclass(Sharded)})
+    # A checkpoint of partial boxes (an FSDP layout of the reference).
+    info = {f"w|{i}": {"path": "w", "global_shape": [4],
+                       "index": [[2 * i, 2 * i + 2]], "owners": [i]}
+            for i in range(2)}
+    d = str(tmp_path / "partial")
+    for pid in range(2):
+        P.write_shard(PosixDiskStorage(), d, 1, pid,
+                      {f"w|{pid}": torch.ones(2)},
+                      {"step": 1, "tensors_info": {f"w|{pid}":
+                                                   info[f"w|{pid}"]},
+                       "process_id": pid, "num_processes": 2})
+    P.commit(PosixDiskStorage(), d, 1)
+    part = CheckpointEngine(d, job_name=f"partial-{os.getpid()}")
+    with pytest.raises(NotImplementedError, match="partial boxes.*item 5"):
+        part.load({"w": torch.zeros(4)})
+    part.close()
+    plan = pslicer.plan_persist({"w|0": torch.zeros(40000)},
+                                {"tensors_info": {"w|0": {"host": True}}},
+                                process_id=1, num_processes=2)
+    assert plan.layout["w|0"] == (80000, 160000, 160000)
     eng.close()
-    sock_dir = tmp_path / "sock"
-    monkeypatch.setattr("dlrover_tpu_torch.checkpoint.engine._SOCK_DIR",
-                        str(sock_dir))
-    sock_dir.mkdir()
-    Path(agent_queue_socket("agentjob")).touch()
-    with pytest.raises(NotImplementedError, match="agent mode"):
-        CheckpointEngine(str(tmp_path), job_name="agentjob")
+    monkeypatch.setattr(multi_process, "_SOCK_DIR", str(tmp_path / "sock"))
+    (tmp_path / "sock").mkdir()  # a server would have made it
+    Path(multi_process.socket_path("queue", ckpt_queue_name(
+        f"agentjob-{os.getpid()}"))).touch()
+    agent = CheckpointEngine(str(tmp_path), job_name=f"agentjob-{os.getpid()}")
+    assert agent.agent_mode
+    agent.close()
     monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="2 processes"):
-        CheckpointEngine(str(tmp_path), job_name="two")
+    two = CheckpointEngine(str(tmp_path), job_name=f"two-{os.getpid()}")
+    assert two.num_processes == 2 and not two.agent_mode
+    two.close()
 
 
 # -- the arena ---------------------------------------------------------------

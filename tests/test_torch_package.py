@@ -78,7 +78,11 @@ def test_import_leaves_jax_and_reference_out():
         "dlrover_tpu_torch.models.decode_graph, "
         "dlrover_tpu_torch.ops.quant, dlrover_tpu_torch.optim, "
         "dlrover_tpu_torch.checkpoint.checkpointer, "
-        "dlrover_tpu_torch.checkpoint.fsck\n"
+        "dlrover_tpu_torch.checkpoint.fsck, "
+        "dlrover_tpu_torch.common.dist_env, "
+        "dlrover_tpu_torch.common.multi_process, "
+        "dlrover_tpu_torch.reshard.plan, "
+        "dlrover_tpu_torch.agent.ckpt_saver\n"
         "from dlrover_tpu_torch.models.llama_infer import ("
         "KvSegmentError, pack_kv_segment, prefix_fingerprint, "
         "unpack_kv_segment)\n"

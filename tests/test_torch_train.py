@@ -291,7 +291,7 @@ def test_train_cli_refuses_later_options(flags, match):
 
 @pytest.mark.parametrize("strategy,match", [
     (tacc.Strategy(mesh={"fsdp": 2}), "fsdp"),
-    (tacc.Strategy(mesh={"dp": 2}), "dp"),
+    (tacc.Strategy(mesh={"dp": 2}), "dp=2 over 1 process.*item 5"),
     (tacc.Strategy(mesh={"tp": 2}), "tp"),
     (tacc.Strategy(remat="full"), "remat"),
     (tacc.Strategy(remat="offload"), "remat"),
@@ -322,11 +322,22 @@ def test_accelerate_refuses_frozen_and_sharded_layouts():
 
 
 def test_bootstrap_runs_one_process_and_refuses_a_world(monkeypatch):
+    """One process without a coordinator runs alone; a world of several
+    processes without a coordinator is refused (the processes could not
+    find each other), and so is a master address (the master client comes
+    with Queue A item 3b).  A world with a coordinator comes up: see
+    ``tests/test_torch_dist.py``."""
+    monkeypatch.setattr(bootstrap, "_ctx", None)
+    for var in ("DLROVER_TPU_COORDINATOR", "DLROVER_TPU_MASTER_ADDR",
+                "DLROVER_TPU_FAULTS", "DLROVER_TPU_NUM_PROCESSES"):
+        monkeypatch.delenv(var, raising=False)
     ctx = bootstrap.init()
     assert ctx.num_processes == 1 and ctx.process_id == 0 and ctx.is_leader
+    assert not ctx.distributed and bootstrap.init() is ctx
     assert ctx.report_step(1) is None
+    monkeypatch.setattr(bootstrap, "_ctx", None)
     monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="launcher"):
+    with pytest.raises(ValueError, match="DLROVER_TPU_COORDINATOR"):
         bootstrap.init()
     monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "1")
     monkeypatch.setenv("DLROVER_TPU_MASTER_ADDR", "127.0.0.1:1")
