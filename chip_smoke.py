@@ -147,6 +147,25 @@ together), then runs the phases below and exits non-zero if any fails:
    counters); the step times, the gloo reduction's time, each rank's
    persist bytes and time and the restores on a line ``phase10
    multiprocess {...}``.
+11. The elastic loop (run after phase 10), the same Llama-800M with AdamW
+   at B 4 x S 2048 through the launcher: ``python -m
+   dlrover_tpu_torch.run --standalone --nproc_per_node=1
+   dlrover_tpu_torch/train.py -- ... --ckpt_dir D --ckpt_interval 2
+   --steps 6 --log_every 1`` starts the port's master and agent, which
+   starts the worker.  Once the worker has logged step 3, it (not the
+   agent) is SIGKILLed.  The agent must log the failure, the breakpoint
+   save and a second rendezvous round; the new worker must warm-restore
+   the step staged before the kill from shm, and every loss and gradient
+   norm after it, to step 6, must equal phase 10a's bit for bit, with 49
+   RMSNorm and 24 launches of each flash kernel for every step it ran; the
+   launcher exits 0 with ``TRAIN_DONE`` and leaves no arena of the run in
+   ``/dev/shm``.  The time from the SIGKILL to the first step after the
+   restore (host clock, at the arrival of each line of the launcher's
+   output) and its parts (detection, breakpoint save and stop, rendezvous,
+   spawn, process start to ``bootstrap.init``, model and optimizer build,
+   the restore call with the warm restore in it, first step), the first
+   worker's start-up beside them, the breakpoint save's bytes and ms and
+   the master's RPC count go on a line ``phase11 elastic {...}``.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -2230,7 +2249,7 @@ def free_port() -> int:
 
 
 def spawn_trainers(argv, world: int, what: str, *, coordinator=True,
-                   until: str = "") -> list:
+                   until: str = "", extra_env=None) -> list:
     """``world`` processes of ``python -m dlrover_tpu_torch.train argv``
     under the env contract (a loopback coordinator when ``coordinator``);
     each one's stdout.  With ``until``, each process is SIGKILLed as soon
@@ -2248,7 +2267,8 @@ def spawn_trainers(argv, world: int, what: str, *, coordinator=True,
             env = dict(os.environ, DLROVER_TPU_NUM_PROCESSES=str(world),
                        DLROVER_TPU_PROCESS_ID=str(rank),
                        DLROVER_TPU_LOCAL_RANK=str(rank),
-                       DLROVER_TPU_DIST_TIMEOUT_S=str(DP_TIMEOUT_S))
+                       DLROVER_TPU_DIST_TIMEOUT_S=str(DP_TIMEOUT_S),
+                       **(extra_env or {}))
             if coordinator:
                 env["DLROVER_TPU_COORDINATOR"] = f"127.0.0.1:{port}"
             err = tempfile.TemporaryFile(mode="w+")
@@ -2441,6 +2461,7 @@ def phase_multiprocess(train, card: str, trained: dict,
     res["a"] = {"backend": one["backend"], "dp": one["dp"],
                 "first_loss": one["first_loss"], "loss": one["loss"],
                 "step_ms": float(one["step_ms"]),
+                "loss_grad_norm_by_step": one["steps"],
                 "wall_s": time.perf_counter() - t0}
     if (one["backend"] != want_backend or one["dp"] != "1"
             or float(one["first_loss"]) != trained["first_loss"]
@@ -2454,6 +2475,9 @@ def phase_multiprocess(train, card: str, trained: dict,
     dirs = {n: os.path.join(tmp, n) for n in ("run", "cold", "gate",
                                               "agent")}
     jobs = {n: train.ckpt_job_name(d) for n, d in dirs.items()}
+    # (c)'s trainer runs as an agent starts it: under the job's name, which
+    # names its checkpoint job (train.checkpoint_job_name) and the saver's.
+    jobs["agent"] = f"chip-smoke-agent-{os.getpid()}"
     try:
         # (b) two processes on the one card over gloo, B 2 each.  Every
         # step's loss and gradient norm (after the reduction, and from
@@ -2592,7 +2616,8 @@ def phase_multiprocess(train, card: str, trained: dict,
                 base + ["--batch_per_proc", str(TRAIN_BATCH), "--steps",
                         str(4 * k), "--ckpt_dir", dirs["agent"],
                         "--ckpt_interval", str(k)], 1, "phase 10c trainer",
-                coordinator=False, until=f"saved step={k} to memory")[0]
+                coordinator=False, until=f"saved step={k} to memory",
+                extra_env={"DLROVER_TPU_JOB_NAME": jobs["agent"]})[0]
             stall = saver.last_stall_ms()
             t1 = time.perf_counter()
             saver.save_shm_to_storage("trainer killed")
@@ -2626,6 +2651,199 @@ def phase_multiprocess(train, card: str, trained: dict,
         shutil.rmtree(tmp, ignore_errors=True)
     res["wall_s"] = time.perf_counter() - t_phase
     log("phase10 multiprocess " + json.dumps(res))
+    return res
+
+
+ELASTIC_INTERVAL = 2  # phase 11: --ckpt_interval
+ELASTIC_KILL_AT = 3  # phase 11: the worker is SIGKILLed once it logs this
+ELASTIC_TIMEOUT_S = 600  # phase 11: the launcher's limit
+
+
+def elastic_events(lines, t_kill: float) -> dict:
+    """The host-clock arrival time of each event of the recovery after the
+    kill at ``t_kill`` (``(time, line)`` pairs, the launcher's merged
+    output), and the numbers the lines carry."""
+    after = [(t, ln) for t, ln in lines if t >= t_kill]
+    marks = {
+        "detected": r"worker failure\(s\): \[\(0, -9\)\]",
+        "breakpoint": r"breakpoint save \(worker failure; re-rendezvous\): "
+                      r"persisting rank 0 step (\d+)",
+        "persisted": r"saver: persisted rank 0 step \d+ in ([\d.]+)s "
+                     r"\(([\d.]+) MB/s, (\d+) bytes",
+        "hook": r"on_workers_stopping \(worker failure; re-rendezvous\) "
+                r"took ([\d.]+) ms",
+        "stopped": r"stopped workers \(worker failure; re-rendezvous\)",
+        "round": r"rendezvous round 1: world=1 nodes",
+        "started": r"started 1 worker\(s\): pids=\[(\d+)\]",
+        "init": r"torch.distributed up: process 0/1",
+        "built": r"built the model and optimizer in ([\d.]+)s$",
+        "warm": r"flash ckpt: warm restore from shm \(step (\d+)\)",
+        "restore": r"flash ckpt: restored step (\d+) from shm in "
+                   r"([\d.]+)ms",
+        "restored": r"^\[worker 0\] restored step=(\d+)$",
+    }
+    ev = {}
+    for name, pat in marks.items():
+        for t, ln in after:
+            m = re.search(pat, ln)
+            if m:
+                ev[name] = (t, m.groups())
+                break
+    if "restored" in ev:
+        first = int(ev["restored"][1][0]) + 1
+        for t, ln in after:
+            if t >= ev["restored"][0] and ln.startswith(
+                    f"[worker 0] step {first} loss="):
+                ev["first_step"] = (t, ())
+                break
+    return ev
+
+
+def phase_elastic(train, card: str, one_steps: dict) -> dict:
+    """Phase 11: the elastic loop (see the module docstring)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the trainers need the card's memory
+    cfg = train.build_config(train.parse_args(
+        ["--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ)]))
+    job, run_id = "chip-smoke-elastic", f"cs{os.getpid()}"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+           "--nproc_per_node=1", f"--job_name={job}",
+           os.path.join("dlrover_tpu_torch", "train.py"), "--",
+           "--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ),
+           "--batch_per_proc", str(TRAIN_BATCH), "--dataset_size",
+           str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--log_every", "1",
+           "--ckpt_dir", os.path.join(tmp, "ckpt"), "--ckpt_interval",
+           str(ELASTIC_INTERVAL), "--device", DEV]
+    env = dict(os.environ, DLROVER_TPU_RUN_ID=run_id)
+    lines, state = [], {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO_ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+
+    def pump():
+        for line in proc.stdout:
+            t = time.perf_counter()
+            line = line.rstrip("\n")
+            lines.append((t, line))
+            m = re.search(r"started 1 worker\(s\): pids=\[(\d+)\]", line)
+            if m and "pid" not in state:
+                state["pid"] = int(m[1])
+            m = re.match(r"\[worker 0\] saved step=(\d+) to memory", line)
+            if m and "t_kill" not in state:
+                state["staged"] = int(m[1])
+            if line.startswith(f"[worker 0] step {ELASTIC_KILL_AT} loss=") \
+                    and "t_kill" not in state:
+                os.kill(state["pid"], signal.SIGKILL)
+                state["t_kill"] = time.perf_counter()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=ELASTIC_TIMEOUT_S)
+        reader.join(timeout=60)
+    except BaseException:
+        log("phase 11: launcher output tail:\n" + "\n".join(
+            ln for _, ln in lines[-60:]))
+        raise
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        for _, ln in lines:  # no worker of the run may outlive it
+            for pid in re.findall(r"pids=\[(\d+)\]", ln):
+                with contextlib.suppress(ProcessLookupError,
+                                         PermissionError):
+                    os.killpg(int(pid), signal.SIGKILL)
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    text = "\n".join(ln for _, ln in lines)
+
+    def fail(why: str):
+        log("phase 11: launcher output tail:\n" + "\n".join(
+            ln for _, ln in lines[-60:]))
+        raise SystemExit(f"phase 11: {why}")
+
+    if rc != 0 or "t_kill" not in state:
+        fail(f"launcher rc {rc}, killed: {'t_kill' in state}")
+    ev = elastic_events(lines, state["t_kill"])
+    missing = [n for n in ("detected", "breakpoint", "persisted", "hook",
+                           "stopped", "round", "started", "init", "built",
+                           "warm", "restore", "restored", "first_step")
+               if n not in ev]
+    if missing:
+        fail(f"no {missing} after the kill")
+    staged = state["staged"]
+    restored = int(ev["restored"][1][0])
+    if restored != staged or int(ev["breakpoint"][1][0]) != staged \
+            or int(ev["warm"][1][0]) != staged:
+        fail(f"restored step {restored}, breakpoint step "
+             f"{ev['breakpoint'][1][0]}, staged before the kill {staged}")
+    # The restarted worker's lines: everything after its restore.
+    t_r = ev["restored"][0]
+    after = "\n".join(ln for t, ln in lines if t >= t_r)
+    fields = worker_fields(after, 0)
+    got = fields["steps"]
+    want = {i: one_steps[i] for i in range(restored + 1, TRAIN_STEPS + 1)}
+    if got != want:
+        fail(f"losses and gradient norms after the restore {got} against "
+             f"phase 10a's {want}")
+    check_trainer_launches(fields, cfg, TRAIN_STEPS - restored,
+                           "phase 11 restarted worker")
+    done = [ln for ln in after.splitlines() if ln.startswith("TRAIN_DONE")]
+    left = [n for n in os.listdir("/dev/shm")
+            if n.startswith(f"dlrtpu_{job}-{run_id}")]
+    if not done or left:
+        fail(f"TRAIN_DONE lines {done}, arenas left {left}")
+    rpc = re.search(r"master stopped: rpc_calls=(\d+)", text)
+
+    def at(name):
+        return ev[name][0]
+
+    restore_ms = float(ev["restore"][1][1])
+    persist_s, persist_mbps, persist_bytes = ev["persisted"][1]
+    parts = {
+        "detect_s": at("detected") - state["t_kill"],
+        "breakpoint_and_stop_s": at("stopped") - at("detected"),
+        "rendezvous_s": at("round") - at("stopped"),
+        "spawn_s": at("started") - at("round"),
+        "process_start_to_init_s": at("init") - at("started"),
+        "build_s": at("built") - at("init"),
+        "restore_call_s": at("restored") - at("built"),
+        "first_step_s": at("first_step") - at("restored"),
+    }
+    # The first worker's start-up, for comparison: launch to its start,
+    # to bootstrap.init, to built, to its first step, to its first stage.
+    first = {}
+    for name, pat in (("started", "started 1 worker"),
+                      ("init", "torch.distributed up: process 0/1"),
+                      ("built", "built the model and optimizer"),
+                      ("step_1", "[worker 0] step 1 loss="),
+                      ("staged", "[worker 0] saved step=")):
+        hit = next((t for t, ln in lines
+                    if pat in ln and t < state["t_kill"]), None)
+        first[name] = None if hit is None else hit - t0
+    res = {
+        "card": card, "model": f"{CKPT_MODEL}, AdamW",
+        "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+        "interval": ELASTIC_INTERVAL, "killed_after_step": ELASTIC_KILL_AT,
+        "staged_step": staged, "restored_step": restored,
+        "kill_to_first_step_s": at("first_step") - state["t_kill"],
+        "parts": parts, "warm_restore_ms": restore_ms,
+        "first_worker_since_launch_s": first,
+        "kill_since_launch_s": state["t_kill"] - t0,
+        "breakpoint_save": {"ms": float(ev["hook"][1][0]),
+                            "persist_s": float(persist_s),
+                            "mbps": float(persist_mbps),
+                            "bytes": int(persist_bytes)},
+        "steps_after_restore_bit_equal": sorted(got),
+        "launches_restarted_worker": fields["launches"],
+        "master_rpc_calls": int(rpc[1]) if rpc else None,
+        "launcher_wall_s": wall,
+    }
+    log("phase11 elastic " + json.dumps(res))
     return res
 
 
@@ -2701,8 +2919,11 @@ def main() -> int:
     mark("phases 7-8")
     ckpt9 = phase_checkpoint(llama, train, counted, smi)
     mark("phase 9")
-    phase_multiprocess(train, smi, trained, ckpt9)
+    multi = phase_multiprocess(train, smi, trained, ckpt9)
     mark("phase 10")
+    elastic = phase_elastic(train, smi,
+                            multi["a"]["loss_grad_norm_by_step"])
+    mark("phase 11")
 
     # Phase 3b runs last, on the same 7B weights made again from the seed:
     # a profile taken after its graph replays, in phase 5, once lost every
@@ -2744,6 +2965,7 @@ def main() -> int:
         raise SystemExit("a kernel time is not finite")
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
+    log("phase11 elastic " + json.dumps(elastic))
     log("phase3c prefix_handoff " + json.dumps(prefixed))
     log("phase3b serve " + json.dumps(graphed))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -20,11 +20,15 @@ workers (a failure, or a change of membership) it persists every staged
 step not yet persisted, as *full* shards: a dying partial world must leave
 shards that restore alone, not orphan slices.
 
+With a master client (the agent's), each persist is reported to the
+master as a throughput-only ``CkptPerf`` and process 0's commit first
+waits, bounded, on the master's step barrier
+(``shard_file.wait_sync_barrier``), as the reference's do.
+
 Not ported: the cross-node in-memory replicas (``checkpoint/replica.py``:
 the replica loop and :meth:`seed_from_replicas`) raise, naming Queue A
 item 5; the reference's ``journal``, ``perf_stats``,
-``integrity_counters``, master reports and ``chaos`` hooks have no
-counterpart.
+``integrity_counters`` and ``chaos`` hooks have no counterpart.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import wait as futures_wait
 from typing import Dict, Optional
 
 from dlrover_tpu_torch.checkpoint import shard_file, slicer
@@ -52,18 +57,21 @@ from dlrover_tpu_torch.common.storage import PosixDiskStorage
 
 #: Threads for the commits (a commit waits for the other ranks' votes).
 IO_WORKERS = 4
+#: Seconds a breakpoint save waits for the commit it started: the votes of
+#: ranks on other nodes may never come (a dead node); the commit itself
+#: runs on to its own deadline.
+BREAKPOINT_COMMIT_WAIT_S = 5.0
+#: Seconds to wait for a rank's fencing lock; a live holder that keeps it
+#: longer (a hung worker) has its rank skipped ("lock busy").
+LOCK_TIMEOUT_S = 60.0
 
 
 class AsyncCheckpointSaver:
     def __init__(self, job_name: str, nproc_per_node: int, *,
                  master_client=None, storage=None):
-        if master_client is not None:
-            raise NotImplementedError(
-                "the master client (and the replicas it carries) comes with "
-                "Queue A item 3b of the port (see ROADMAP.md)")
         self.job_name = job_name
         self.nproc = nproc_per_node
-        self.client = None
+        self.client = master_client
         self.storage = storage or PosixDiskStorage()
         # Server side of the worker-facing primitives.
         self._queue = SharedQueue(ckpt_queue_name(job_name), create=True)
@@ -158,7 +166,7 @@ class AsyncCheckpointSaver:
         ckpt_dir = event["ckpt_dir"]
         keep_last = shard_file.resolve_keep_last(event.get("max_to_keep"))
         lock = self._locks[lr] if lr < len(self._locks) else None
-        if lock is not None and not lock.acquire(timeout=60.0):
+        if lock is not None and not lock.acquire(timeout=LOCK_TIMEOUT_S):
             logger.warning("saver: lock for rank %d busy; skipping", lr)
             return
         try:
@@ -191,6 +199,7 @@ class AsyncCheckpointSaver:
         finally:
             if lock is not None:
                 lock.release()
+        self._report_persist_perf(step, stats["mbps"])
         self._persisted[lr] = step
         self._stat.update({
             f"persisted_{lr}": step,
@@ -198,8 +207,9 @@ class AsyncCheckpointSaver:
             f"tensors_skipped_{lr}": stats.get("skipped", 0),
         })
         logger.info("saver: persisted rank %d step %d in %.2fs (%.0f MB/s, "
-                    "%d tensors ref'd unchanged)", lr, step,
-                    stats["seconds"], stats["mbps"], stats.get("skipped", 0))
+                    "%d bytes, %d tensors ref'd unchanged)", lr, step,
+                    stats["seconds"], stats["mbps"], stats["total_bytes"],
+                    stats.get("skipped", 0))
         if pid == 0:
             # The commit waits for the other ranks' shards: never block
             # the event loop on it (it may persist them itself).
@@ -239,10 +249,27 @@ class AsyncCheckpointSaver:
         stats["written_bytes"] = plan.written_bytes
         return stats
 
+    def _report_persist_perf(self, step: int, mbps: float) -> None:
+        """A throughput-only ``CkptPerf`` (``stall_ms=0``) with the node's
+        aggregate persist rate, after the lock is released; best effort."""
+        if self.client is None:
+            return
+        try:
+            self.client.report_ckpt_perf(
+                step=step, stall_ms=0.0, persist_mbps=mbps,
+                agg_persist_mbps=self.agg_persist_mbps(),
+                tensors_skipped=self.tensors_skipped_total())
+        except Exception as e:  # noqa: BLE001
+            logger.debug("persist perf report failed: %s", e)
+
     def _commit(self, ckpt_dir: str, step: int, world: int,
                 keep_last: int = 3, timeout: float = 600.0) -> bool:
         deadline = time.time() + timeout
-        shard_file.wait_sync_barrier(self.client, step, 0.0, self._stop)
+        if not shard_file.wait_sync_barrier(
+                self.client, step, min(60.0, timeout / 4), self._stop) \
+                and not self._stop.is_set():
+            logger.warning("saver: step-%d sync barrier did not open; "
+                           "committing on done files alone", step)
         while time.time() < deadline:
             if shard_file.all_shards_done(self.storage, ckpt_dir, step,
                                           world):
@@ -275,6 +302,11 @@ class AsyncCheckpointSaver:
         self._perf_cache = (time.monotonic(), snap)
         return snap
 
+    def tensors_skipped_total(self) -> int:
+        """Sum of every local rank's last dirty-fence skip count."""
+        return int(sum(int(v) for k, v in self.worker_perf().items()
+                       if k.startswith("tensors_skipped_") and v is not None))
+
     def agg_persist_mbps(self) -> float:
         """Sum of every local rank's last persist rate: the node's
         aggregate bandwidth, which the sliced persist exists to raise."""
@@ -298,7 +330,9 @@ class AsyncCheckpointSaver:
     def save_shm_to_storage(self, reason: str = "") -> None:
         """Persist every staged-but-unpersisted arena now (the agent calls
         it right before it stops its workers); returns once the commit it
-        started has ended."""
+        started has ended, or after ``BREAKPOINT_COMMIT_WAIT_S`` (a rank of
+        another node may never vote: its shard is not needed to restore,
+        the full breakpoint shards are)."""
         commits = []
         for lr in range(self.nproc):
             try:
@@ -306,7 +340,8 @@ class AsyncCheckpointSaver:
                 # The fencing lock first, so that a write in flight ends: a
                 # peek mid-write reads the dirty flag and would skip it.
                 lock = self._locks[lr] if lr < len(self._locks) else None
-                if lock is not None and not lock.acquire(timeout=60.0):
+                if lock is not None and \
+                        not lock.acquire(timeout=LOCK_TIMEOUT_S):
                     logger.warning("breakpoint save: rank %d lock busy; "
                                    "skipping", lr)
                     continue
@@ -341,6 +376,10 @@ class AsyncCheckpointSaver:
                 # restore alone, not slices.
                 "breakpoint": True,
             }))
-        for fut in commits:
-            if fut is not None:
-                fut.result()  # bounded by the commit's own deadline
+        pending = [f for f in commits if f is not None]
+        if pending:
+            _, late = futures_wait(pending, timeout=BREAKPOINT_COMMIT_WAIT_S)
+            if late:
+                logger.warning("breakpoint save: commit still waiting for "
+                               "other ranks' votes after %.0fs; going on",
+                               BREAKPOINT_COMMIT_WAIT_S)

@@ -29,9 +29,7 @@ can be damaged raises :class:`ShardCorruptionError`; a step that fails
 verification is quarantined (renamed ``step_N.corrupt``).
 
 The reference's chaos sites (``storage.corrupt_shard`` and the rest) and
-its byte audit have no counterpart here yet; the agent-side saver's
-cross-node barrier (``wait_sync_barrier``) comes with the multi-process
-slice.
+its byte audit have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -716,9 +714,10 @@ def wait_sync_barrier(client, step: int, timeout: float,
                       stop_event=None) -> bool:
     """Bounded wait on the master's cross-node step barrier before a
     commit; ``True`` once it opened.  The barrier is advisory (the done
-    votes are the commit's real votes).  The port has no master client
-    yet (Queue A item 3b), and with none it returns ``True`` at once, as
-    the reference's does."""
+    votes are the commit's real votes), so a master that lost its state or
+    died costs at most ``timeout``.  With no master client (a saver or an
+    engine outside an agent) it returns ``True`` at once, as the
+    reference's does."""
     if client is None:
         return True
     deadline = time.time() + timeout

@@ -1,0 +1,290 @@
+"""The job launcher: ``python -m dlrover_tpu_torch.run`` — the port's own
+copy of ``dlrover_tpu/run.py`` (``parse_nnodes``, ``parse_args``,
+``_master_cmd``, ``_launch_local_master``, ``_supervise_local_master``,
+``_gc_shm_arenas``, ``run``, ``main``)::
+
+    python -m dlrover_tpu_torch.run --standalone --nproc_per_node=2 \\
+        dlrover_tpu_torch/train.py -- --model tiny --device cpu \\
+        --ckpt_dir /tmp/ck --ckpt_interval 2
+
+With ``--standalone`` (and no ``--master_addr``) it starts the port's local
+master (``python -m dlrover_tpu_torch.master.main``) as a child, and keeps
+it alive: a master that exits with a nonzero code is started again on the
+same port (agents ride the gap through the RPC retry and the rendezvous
+re-join).  Every launch gets a ``DLROVER_TPU_RUN_ID`` that scopes the shm
+arenas of its workers and its agent's saver; the arenas of earlier launches
+of the job idle for an hour are collected at start, and this launch's at
+exit.  The master's run config is merged into the agent's, then the agent
+runs (``agent/training.py``).  Unlike the reference, a SIGTERM to the
+launcher unwinds it as an error does: the agent stops its workers and the
+master is terminated, where the reference's default handler would orphan
+them.
+
+Refused by name: ``--standby`` and ``--master_state_dir`` (``HA_ITEM``),
+``--cell`` and ``--job_file`` (``HOST_LAYERS``), ``--network_check`` and
+``--comm_perf_test`` (``NODE_CHECK_ITEM``), and what the agent refuses.
+"""
+
+from __future__ import annotations
+
+import argparse
+import atexit
+import glob
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import uuid
+from typing import List, Optional, Tuple
+
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.agent.training import (
+    ElasticLaunchConfig,
+    launch_agent,
+    refuse_later_options as refuse_agent_options,
+)
+from dlrover_tpu_torch.common.constants import (
+    HA_ITEM,
+    HOST_LAYERS,
+    NODE_CHECK_ITEM,
+)
+from dlrover_tpu_torch.common.log import logger, set_role
+from dlrover_tpu_torch.common.rpc import addr_connectable
+
+
+def parse_nnodes(spec: str) -> Tuple[int, int]:
+    if ":" in spec:
+        lo, hi = spec.split(":", 1)
+        return int(lo), int(hi)
+    n = int(spec)
+    return n, n
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser("dlrover_tpu_torch.run",
+                                description="elastic training launcher")
+    p.add_argument("--standalone", action="store_true",
+                   help="one host: start a local master")
+    p.add_argument("--standby", action="store_true")
+    p.add_argument("--master_state_dir", default="")
+    p.add_argument("--cell", type=int, default=0)
+    p.add_argument("--nnodes", default="1",
+                   help="'N' or 'MIN:MAX' elastic node range")
+    p.add_argument("--nproc_per_node", type=int, default=1)
+    p.add_argument("--node_rank", type=int,
+                   default=int(os.environ.get("DLROVER_TPU_NODE_RANK", 0)))
+    p.add_argument("--node_id", type=int, default=-1,
+                   help="stable node id (defaults to node_rank)")
+    p.add_argument("--master_addr",
+                   default=os.environ.get("DLROVER_TPU_MASTER_ADDR", ""))
+    p.add_argument("--max_restarts", type=int, default=3)
+    p.add_argument("--monitor_interval", type=float, default=2.0)
+    p.add_argument("--rdzv_timeout", type=float, default=600.0)
+    p.add_argument("--network_check", action="store_true")
+    p.add_argument("--comm_perf_test", action="store_true")
+    p.add_argument("--node_unit", type=int, default=1)
+    p.add_argument("--log_dir", default="")
+    p.add_argument("--job_name",
+                   default=os.environ.get("DLROVER_TPU_JOB_NAME",
+                                          "local-job"))
+    p.add_argument("--node_role",
+                   default=os.environ.get("DLROVER_TPU_NODE_ROLE",
+                                          "worker"))
+    p.add_argument("--no_python", action="store_true",
+                   help="the entrypoint is a program, not a python script")
+    p.add_argument("--job_file", default="")
+    p.add_argument("entrypoint", nargs="?", default="")
+    p.add_argument("args", nargs=argparse.REMAINDER)
+    args = p.parse_args(argv)
+    refuse_later_options(args)
+    if not args.entrypoint:
+        p.error("entrypoint is required")
+    return args
+
+
+def refuse_later_options(args: argparse.Namespace) -> None:
+    refused = [
+        (args.standby, "--standby (a warm standby master)", HA_ITEM),
+        (args.master_state_dir, "--master_state_dir", HA_ITEM),
+        (args.cell > 0, "--cell (the multi-cell control plane)",
+         HOST_LAYERS),
+        (args.job_file, "--job_file (ElasticJob YAML)", HOST_LAYERS),
+        (args.network_check, "--network_check", NODE_CHECK_ITEM),
+        (args.comm_perf_test, "--comm_perf_test", NODE_CHECK_ITEM),
+    ]
+    for on, what, where in refused:
+        if on:
+            raise NotImplementedError(f"{what} comes with {where}")
+
+
+def _master_cmd(args, port: int, port_file: str = "") -> List[str]:
+    min_nodes, max_nodes = parse_nnodes(args.nnodes)
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+           "--port", str(port), "--job_name", args.job_name,
+           "--platform", "local", "--min_nodes", str(min_nodes),
+           "--max_nodes", str(max_nodes), "--node_unit", str(args.node_unit)]
+    if port_file:
+        cmd += ["--port_file", port_file]
+    return cmd
+
+
+def _launch_local_master(args) -> Tuple[subprocess.Popen, str, int]:
+    """Start the master and wait for the port it bound."""
+    fd, port_file = tempfile.mkstemp(prefix="dlrtpu_master_port_")
+    os.close(fd)
+    os.unlink(port_file)  # the master writes it when it listens
+    proc = subprocess.Popen(_master_cmd(args, 0, port_file))
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        if os.path.exists(port_file):
+            with open(port_file) as f:
+                content = f.read().strip()
+            if content:
+                os.unlink(port_file)
+                return proc, f"127.0.0.1:{content}", int(content)
+        if proc.poll() is not None:
+            raise RuntimeError(
+                f"local master exited early with code {proc.returncode}")
+        time.sleep(0.1)
+    proc.kill()
+    raise TimeoutError("local master did not report its port in 60s")
+
+
+def _supervise_local_master(args, holder: List[subprocess.Popen],
+                            port: int, stop_evt: threading.Event,
+                            max_restarts: int = 3) -> threading.Thread:
+    """Start the master again on the same port when it exits nonzero while
+    the job runs; an exit of 0 (the job ended) or by a signal (the
+    launcher's own teardown) ends the supervision."""
+
+    def loop() -> None:
+        restarts = 0
+        while not stop_evt.wait(1.0):
+            rc = holder[0].poll()
+            if rc is None:
+                continue
+            if rc == 0 or rc < 0:
+                return
+            if restarts >= max_restarts:
+                logger.error("local master exited rc=%d and its restart "
+                             "budget (%d) is spent; agents will time out",
+                             rc, max_restarts)
+                return
+            restarts += 1
+            logger.warning("local master exited rc=%d; relaunching on port "
+                           "%d (restart %d/%d)", rc, port, restarts,
+                           max_restarts)
+            holder[0] = subprocess.Popen(_master_cmd(args, port))
+
+    thread = threading.Thread(target=loop, name="master-supervisor",
+                              daemon=True)
+    thread.start()
+    return thread
+
+
+def _gc_shm_arenas(job_name: str, run_id: str = "",
+                   min_age_s: float = 3600.0) -> None:
+    """Unlink the ``/dev/shm`` arenas of ``job_name``: those of one run id
+    (at exit), or with no run id only those idle for ``min_age_s`` (at
+    start: a sibling node on this host keeps its live arena fresh)."""
+    safe = job_name.replace("/", "_")
+    scope = f"{safe}-{run_id}" if run_id else f"{safe}-*"
+    now = time.time()
+    for path in glob.glob(f"/dev/shm/dlrtpu_{scope}_*"):
+        try:
+            if not run_id and now - os.stat(path).st_mtime < min_age_s:
+                continue
+            os.unlink(path)
+        except OSError:
+            pass
+
+
+def _coerce(cur, val):
+    if isinstance(cur, bool) and isinstance(val, str):
+        return val.strip().lower() in ("1", "true", "yes", "on")
+    return type(cur)(val)
+
+
+def _exit_on_sigterm(signum, frame) -> None:
+    raise SystemExit(128 + signum)
+
+
+def run(args: argparse.Namespace) -> int:
+    refuse_later_options(args)
+    set_role(f"agent-{args.node_rank}")
+    # SIGTERM unwinds like an error (the agent stops its workers, the
+    # master is terminated at exit) instead of orphaning them.
+    signal.signal(signal.SIGTERM, _exit_on_sigterm)
+    os.environ["DLROVER_TPU_NODE_ROLE"] = args.node_role
+    os.environ.setdefault("DLROVER_TPU_RUN_ID", uuid.uuid4().hex[:8])
+    _gc_shm_arenas(args.job_name)
+    atexit.register(_gc_shm_arenas, args.job_name,
+                    os.environ["DLROVER_TPU_RUN_ID"])
+    min_nodes, max_nodes = parse_nnodes(args.nnodes)
+    node_id = args.node_id if args.node_id >= 0 else args.node_rank
+    config = ElasticLaunchConfig(
+        min_nodes=min_nodes, max_nodes=max_nodes,
+        nproc_per_node=args.nproc_per_node, node_id=node_id,
+        node_rank=args.node_rank, max_restarts=args.max_restarts,
+        monitor_interval=args.monitor_interval,
+        rdzv_timeout=args.rdzv_timeout, network_check=args.network_check,
+        comm_perf_test=args.comm_perf_test, log_dir=args.log_dir,
+        job_name=args.job_name, node_role=args.node_role)
+    refuse_agent_options(config)
+    master_holder: List[subprocess.Popen] = []
+    master_stop = threading.Event()
+    master_addr = args.master_addr
+    if args.standalone and not master_addr:
+        proc, master_addr, master_port = _launch_local_master(args)
+        master_holder.append(proc)
+        _supervise_local_master(args, master_holder, master_port,
+                                master_stop)
+        atexit.register(lambda: master_holder[0].poll() is None
+                        and master_holder[0].terminate())
+    if not master_addr:
+        raise SystemExit("either --standalone or --master_addr is required")
+    if not addr_connectable(master_addr, timeout=30):
+        raise SystemExit(f"master at {master_addr} is not reachable")
+
+    client = MasterClient(master_addr, node_id)
+    try:
+        for key, val in client.get_elastic_run_config().items():
+            if hasattr(config, key):
+                setattr(config, key, _coerce(getattr(config, key), val))
+    except Exception as e:  # noqa: BLE001
+        logger.warning("could not fetch master run config: %s", e)
+    refuse_agent_options(config)  # the merged config, as the reference
+
+    entry = ([args.entrypoint] if args.no_python
+             else [sys.executable, "-u", args.entrypoint])
+    script_args = args.args
+    if script_args and script_args[0] == "--":
+        script_args = script_args[1:]
+    try:
+        rc = launch_agent(config, entry + script_args, master_addr)
+    finally:
+        master_stop.set()
+    if master_holder:
+        try:
+            client.report_job_exit(rc == 0, "launcher done")
+        except Exception as e:  # noqa: BLE001
+            logger.debug("job-exit report to master failed: %s", e)
+        try:
+            master_holder[0].wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            logger.warning("local master did not exit in 30s; terminating")
+            master_holder[0].terminate()
+            master_holder[0].wait()
+    client.close()
+    return rc
+
+
+def main() -> None:
+    sys.exit(run(parse_args()))
+
+
+if __name__ == "__main__":
+    main()

@@ -23,10 +23,12 @@ state, from the shm arena left by an earlier run on this host, else from
 storage, and prints ``[worker 0] restored step=N``; every
 ``--ckpt_interval`` steps it stages the state (and the sampler's position)
 into the arena; at the end it saves to storage and waits for the commit.
-The arena is namespaced by the checkpoint directory (as
+Run alone, the arena is namespaced by the checkpoint directory (as
 ``dlrover_tpu/trainer/trainer.py:314-321`` does), so two jobs on one host
-never share one.  ``TRAIN_DONE`` then also gives ``restored_step`` and the
-last save's stall, and a ``CKPT_STATS`` line the last save's, persist's and
+never share one; under the launcher (``python -m dlrover_tpu_torch.run``),
+by the job's name and the launch's run id, as the agent's saver names
+it.  ``TRAIN_DONE`` then also gives ``restored_step`` and the last save's
+stall, and a ``CKPT_STATS`` line the last save's, persist's and
 restore's costs as JSON.
 
 Several processes on one host run it unchanged, each started with the
@@ -38,10 +40,11 @@ the global batch and trains data-parallel (``Strategy(mesh={"dp": N})``,
 the example's ``MeshSpec(dp=len(jax.devices()))`` with one device a
 process), every process prints its ``[worker i]`` lines (after the last
 step, before the final save: ``[worker i] trained step=N loss=...``, with
-the restore's source and time and its kernel launches) and rank 0 the
-``TRAIN_DONE`` line with the global loss, ``dp`` and the backend (with
-``reduce_ms``, the median host time of the gradient reduction, when it
-goes through the host).  The checkpoint is sliced across the ranks.
+the restore's source and time and its kernel launches) and, as the
+example does, its ``TRAIN_DONE`` line, with the global loss, ``dp`` and the
+backend (with ``reduce_ms``, the median host time of the gradient
+reduction, when it goes through the host).  The checkpoint is sliced
+across the ranks.
 
 Refused, each with the slice that brings it: ``--strategy auto``,
 ``--fp8``, ``--quant_grads``, ``--lora_rank > 0``, ``--init_from`` and a
@@ -65,6 +68,8 @@ import torch
 
 from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common.device import process_device
+from dlrover_tpu_torch.common.env import NodeEnv
+from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.storage import OBJECT_STORE_SLICE
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.cross_entropy import xent_fwd
@@ -173,10 +178,29 @@ def build(args: argparse.Namespace, num_processes: int = 1):
     return cfg, job, job.create_state(gen)
 
 
+def emit(line: str) -> None:
+    """Print ``line`` in one write: the workers of an agent share its
+    stdout, and under ``python -u`` a ``print`` writes its text and its
+    newline apart, so another process's line could land between them."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def ckpt_job_name(ckpt_dir: str) -> str:
-    """The job name that namespaces the shm arena of ``ckpt_dir``."""
+    """The job name that namespaces the shm arena of ``ckpt_dir`` for a
+    trainer that runs alone."""
     return "t" + hashlib.sha1(
         os.path.abspath(ckpt_dir).encode()).hexdigest()[:10]
+
+
+def checkpoint_job_name(ctx, ckpt_dir: str) -> str:
+    """The checkpoint's job name: the job's own under a launcher
+    (``DLROVER_TPU_JOB_NAME`` set), as ``examples/llama_train.py:214``
+    names it, so that the engine finds the agent's saver and its arenas;
+    :func:`ckpt_job_name` of the directory when the trainer runs alone."""
+    if os.environ.get(NodeEnv.JOB_NAME):
+        return ctx.job_name
+    return ckpt_job_name(ckpt_dir)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -186,7 +210,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         raise ValueError(f"--ckpt_interval must be >= 1, got "
                          f"{args.ckpt_interval}")
     ctx = bootstrap.init(device=args.device)
+    t_build = time.perf_counter()
     cfg, job, state = build(args, ctx.num_processes)
+    logger.info("built the model and optimizer in %.3fs",
+                time.perf_counter() - t_build)
     sampler = ElasticSampler(
         args.dataset_size,
         batch_size_per_process=args.batch_per_proc,
@@ -201,13 +228,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             FlashCheckpointer
 
         ckpt = FlashCheckpointer(args.ckpt_dir,
-                                 job_name=ckpt_job_name(args.ckpt_dir))
+                                 job_name=checkpoint_job_name(ctx,
+                                                              args.ckpt_dir))
         restored = ckpt.load(target=state)
         if restored is not None:
             state, meta = restored
             start_step = int(meta.get("step", 0))
-            print(f"[worker {ctx.process_id}] restored step={start_step}",
-                  flush=True)
+            emit(f"[worker {ctx.process_id}] restored step={start_step}")
             sampler.load_state_dict(
                 meta.get("sampler", {"completed_steps": start_step}))
 
@@ -242,18 +269,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ctx.report_step(step)
         if ckpt is not None and step % args.ckpt_interval == 0:
             save(storage=False)
-            print(f"[worker {ctx.process_id}] saved step={step} to memory "
-                  f"(stall {ckpt.engine.last_stall_ms:.1f} ms)", flush=True)
+            emit(f"[worker {ctx.process_id}] saved step={step} to memory "
+                 f"(stall {ckpt.engine.last_stall_ms:.1f} ms)")
         if step % args.log_every == 0 or step == args.steps:
-            print(f"[worker {ctx.process_id}] step {step} loss={loss!r} "
-                  f"grad_norm={float(metrics['grad_norm'])!r}", flush=True)
+            emit(f"[worker {ctx.process_id}] step {step} loss={loss!r} "
+                 f"grad_norm={float(metrics['grad_norm'])!r}")
     launches = " ".join(f"{n}_launches={fn.launches - launches0[n]}"
                         for n, fn in KERNELS.items())
     restored = "" if ckpt is None else (
         f" restored_from={ckpt.engine.last_restore_source} "
         f"restore_ms={ckpt.engine.last_restore_ms:.1f}")
-    print(f"[worker {ctx.process_id}] trained step={step} loss={loss!r}"
-          f"{restored} {launches}", flush=True)
+    emit(f"[worker {ctx.process_id}] trained step={step} loss={loss!r}"
+         f"{restored} {launches}")
     ckpt_done = ""
     if ckpt is not None:
         save(storage=True)
@@ -263,23 +290,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if not committed:
             raise RuntimeError(f"checkpoint of step {step} to "
                                f"{args.ckpt_dir} was not committed")
-        print("CKPT_STATS " + json.dumps(stats), flush=True)
+        emit("CKPT_STATS " + json.dumps(stats))
         ckpt_done = (f" restored_step={start_step} "
                      f"ckpt_stall_ms={stats['stall_ms']:.3f}")
     # The first step carries one-time set-up (allocator, library handles).
     steady = step_s[1:] or step_s
     step_ms = 1e3 * statistics.median(steady) if steady else float("nan")
     tokens = args.batch_per_proc * ctx.num_processes * args.seq_len
-    if not ctx.is_leader:
-        return 0
     dp = f" dp={job.dp} backend={dist_env.group_backend()}"
     if reduce_ms:
         dp += f" reduce_ms={statistics.median(reduce_ms):.3f}"
     # Losses in full (repr): a restored run is held to bit-equality.
-    print(f"TRAIN_DONE step={step} loss={loss!r} "
-          f"first_loss={first_loss!r} step_ms={step_ms:.3f} "
-          f"tokens_per_s={1e3 * tokens / step_ms:.1f} device={job.device} "
-          f"{launches}{ckpt_done}{dp}", flush=True)
+    emit(f"TRAIN_DONE step={step} loss={loss!r} "
+         f"first_loss={first_loss!r} step_ms={step_ms:.3f} "
+         f"tokens_per_s={1e3 * tokens / step_ms:.1f} device={job.device} "
+         f"{launches}{ckpt_done}{dp}")
     return 0
 
 

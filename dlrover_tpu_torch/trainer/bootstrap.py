@@ -9,28 +9,33 @@ coordinator through the environment; :func:`init` brings up
 :class:`ElasticContext`.  It is idempotent: the first context is kept in
 the module's ``_ctx``, as in the reference.
 
-The master client is Queue A item 3b (the elastic loop) and the chaos
-layer comes later: :func:`init` refuses a master address and
-``DLROVER_TPU_FAULTS``, each by name.  With no client,
-:meth:`ElasticContext.report_step`, :meth:`~ElasticContext.poll_reshard`
-and :meth:`~ElasticContext.report_reshard` return ``None`` and do nothing,
-exactly as the reference's do.
+Under an agent (``DLROVER_TPU_MASTER_ADDR`` set) :func:`init` builds the
+master client (``agent/master_client.build_master_client``), as the
+reference does, and :meth:`ElasticContext.report_step` reports the global
+step from the leader and, every 30 s, the node's step metrics.  Live
+resharding (``reshard/``, ``constants.HOST_LAYERS``) is not ported:
+:meth:`~ElasticContext.poll_reshard` and
+:meth:`~ElasticContext.report_reshard` return ``None`` and do nothing, as
+the reference's do with no client.  The chaos layer comes later:
+``DLROVER_TPU_FAULTS`` is refused by name (the reference's
+``worker.kill`` site in ``report_step`` has no counterpart).
 """
 
 from __future__ import annotations
 
 import atexit
+import json
 import os
 import threading
+import time
 from typing import Optional
 
 from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common import env as env_utils
+from dlrover_tpu_torch.common.constants import CHAOS_LAYER
 from dlrover_tpu_torch.common.device import DeviceLike
 from dlrover_tpu_torch.common.log import logger, set_role
 
-ELASTIC_LOOP = "Queue A item 3b of the port (the elastic loop; see ROADMAP.md)"
-CHAOS_SLICE = "the chaos layer of the port (see ROADMAP.md)"
 #: Seconds the exit barrier waits for the other ranks.
 EXIT_BARRIER_S = 60.0
 
@@ -54,39 +59,52 @@ class ElasticContext:
         self.master_addr = env_utils.get_master_addr()
         self.client = None
         self.distributed = False
+        self._last_metrics_report = 0.0
 
     @property
     def is_leader(self) -> bool:
         return self.process_id == 0
 
     def report_step(self, step: int) -> None:
-        """Feed the master's speed monitor.  With no master client (the
-        port has none yet), as the reference's with none, it does
-        nothing."""
+        """Feed the master's speed monitor (the leader's global step) and,
+        every 30 s, this node's step metrics; with no master client,
+        nothing.  A failed report is logged, never raised."""
+        if self.client is None:
+            return
+        if self.is_leader:
+            try:
+                self.client.report_global_step(step)
+            except Exception as e:  # noqa: BLE001
+                logger.warning("report_step failed: %s", e)
+        if self.local_rank == 0:
+            now = time.monotonic()
+            if now - self._last_metrics_report > 30.0:
+                self._last_metrics_report = now
+                try:
+                    self.client.report_diagnosis_data(
+                        "step_metrics",
+                        json.dumps({"step": step, "ts": time.time()}))
+                except Exception as e:  # noqa: BLE001
+                    logger.debug("step-metrics report failed: %s", e)
 
     def poll_reshard(self):
-        """A pending resize epoch of the master's live-reshard broadcast,
-        once per new epoch; with no master client, ``None``."""
+        """A pending live-reshard epoch: ``None`` until live resharding
+        (``reshard/``, ``constants.HOST_LAYERS``) is ported."""
         return None
 
     def report_reshard(self, epoch: int, outcome=None, error: str = ""
                        ) -> None:
-        """Report a live-reshard verdict to the master; with no master
-        client, nothing."""
+        """Report a live-reshard verdict: nothing until live resharding
+        (``reshard/``, ``constants.HOST_LAYERS``) is ported."""
 
 
 _ctx: Optional[ElasticContext] = None
 
 
-def _refuse_later(connect_master: bool) -> None:
-    master = env_utils.get_master_addr()
-    if connect_master and master:
-        raise NotImplementedError(
-            f"master address {master!r} is set: the master client comes "
-            f"with {ELASTIC_LOOP}")
+def _refuse_later() -> None:
     if os.environ.get("DLROVER_TPU_FAULTS"):
         raise NotImplementedError(
-            f"fault injection (DLROVER_TPU_FAULTS) comes with {CHAOS_SLICE}")
+            f"fault injection (DLROVER_TPU_FAULTS) comes with {CHAOS_LAYER}")
 
 
 def init(connect_master: bool = True, device: DeviceLike = None
@@ -94,7 +112,7 @@ def init(connect_master: bool = True, device: DeviceLike = None
     """Bootstrap this worker process (idempotent).  ``device`` is what the
     process trains on (``None``: its card); it picks the backend."""
     global _ctx
-    _refuse_later(connect_master)
+    _refuse_later()
     if _ctx is not None:
         return _ctx
     ctx = ElasticContext()
@@ -105,6 +123,11 @@ def init(connect_master: bool = True, device: DeviceLike = None
                     ctx.process_id, ctx.num_processes,
                     dist_env.group_backend())
         atexit.register(_shutdown)
+    if connect_master and ctx.master_addr:
+        from dlrover_tpu_torch.agent.master_client import \
+            build_master_client
+
+        ctx.client = build_master_client(ctx.master_addr, ctx.node_id)
     _ctx = ctx
     return ctx
 

@@ -168,11 +168,43 @@ def test_a_killed_trainer_loses_nothing(saver, tmp_path):
                                                                  7.0))
 
 
-def test_replicas_and_a_master_client_are_refused(saver):
+class _Client:
+    """A master client that records the saver's calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def sync_checkpoint(self, step):
+        self.calls.append(("sync_checkpoint", step))
+        return True
+
+    def report_ckpt_perf(self, **kw):
+        self.calls.append(("report_ckpt_perf", kw["step"], kw["stall_ms"]))
+
+
+def test_replicas_and_a_master_client_are_refused(saver, tmp_path,
+                                                  monkeypatch):
+    """The replicas are still refused; a master client is now taken (the
+    elastic loop): each persist is reported as a throughput-only
+    ``CkptPerf`` and the commit waits on the master's step barrier."""
     with pytest.raises(NotImplementedError, match="item 5"):
         saver.seed_from_replicas({0: 0}, 1)
     with pytest.raises(NotImplementedError, match="item 5"):
         saver._replica_loop()
     assert saver.update_world(1, 2) is None
-    with pytest.raises(NotImplementedError, match="3b"):
-        AsyncCheckpointSaver("tagent-refused", 1, master_client=object())
+    job = f"{saver.job_name}-client"
+    client = _Client()
+    with_client = AsyncCheckpointSaver(job, 1, master_client=client)
+    with_client.start()
+    d = str(tmp_path)
+    ckpt = FlashCheckpointer(d, job_name=job)
+    try:
+        ckpt.save(_state(4.0), meta={"step": 2}, storage=True)
+        assert ckpt.wait(timeout=60)
+        assert _latest(d) == 2
+        assert ("sync_checkpoint", 2) in client.calls
+        assert ("report_ckpt_perf", 2, 0.0) in client.calls
+    finally:
+        ckpt.close()
+        with_client.stop()
+        unlink_arena(arena_name(job, 0))

@@ -324,13 +324,32 @@ def test_bootstrap_brings_up_a_world_from_the_env_contract(world2):
 
 def test_bootstrap_refuses_a_master_faults_and_a_world_without_coordinator(
         monkeypatch):
+    """A master address is no longer refused: ``init`` builds the master
+    client (the elastic loop) and the leader's ``report_step`` reaches the
+    master's speed monitor; faults and a world without a coordinator still
+    raise."""
+    from dlrover_tpu_torch.agent import master_client
+    from dlrover_tpu_torch.master.master import LocalJobMaster
+
     monkeypatch.setattr(bootstrap, "_ctx", None)
     for var in ("DLROVER_TPU_COORDINATOR", "DLROVER_TPU_FAULTS",
-                "DLROVER_TPU_MASTER_ADDR"):
+                "DLROVER_TPU_MASTER_ADDR", "DLROVER_TPU_NUM_PROCESSES",
+                "DLROVER_TPU_PROCESS_ID"):
         monkeypatch.delenv(var, raising=False)
-    monkeypatch.setenv("DLROVER_TPU_MASTER_ADDR", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="master client.*3b"):
-        bootstrap.init()
+    master = LocalJobMaster(0)
+    master.prepare()
+    try:
+        master_client.reset_master_client()
+        monkeypatch.setenv("DLROVER_TPU_MASTER_ADDR", master.addr)
+        ctx = bootstrap.init(device="cpu")
+        assert ctx.client is not None and ctx.client.addr == master.addr
+        ctx.report_step(3)
+        assert master.speed_monitor.completed_global_step == 3
+        assert ctx.poll_reshard() is None and ctx.report_reshard(1) is None
+    finally:
+        master.stop()
+        master_client.reset_master_client()
+        monkeypatch.setattr(bootstrap, "_ctx", None)
     monkeypatch.delenv("DLROVER_TPU_MASTER_ADDR")
     monkeypatch.setenv("DLROVER_TPU_FAULTS", "worker.kill:step=1")
     with pytest.raises(NotImplementedError, match="DLROVER_TPU_FAULTS"):

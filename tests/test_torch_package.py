@@ -1,8 +1,8 @@
 """Hygiene of the PyTorch port ``dlrover_tpu_torch``: it imports neither JAX
-nor the JAX package (nor ``msgpack`` or ``ml_dtypes``, which the GPU
-machine does not have), its entry points never drop to the CPU on their own,
-options that later slices bring are refused loudly, and its configurations
-and parameter tree match the JAX package's."""
+nor the JAX package (nor ``msgpack``, ``ml_dtypes`` or ``grpc``: the port
+depends on none of them), its entry points never drop to the CPU on their
+own, options that later slices bring are refused loudly, and its
+configurations and parameter tree match the JAX package's."""
 
 import ast
 import os
@@ -67,7 +67,7 @@ def _imported_roots(path: Path) -> set:
 )
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "dlrover_tpu",
-                                   "msgpack", "ml_dtypes"}
+                                   "msgpack", "ml_dtypes", "grpc"}
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
@@ -82,7 +82,12 @@ def test_import_leaves_jax_and_reference_out():
         "dlrover_tpu_torch.common.dist_env, "
         "dlrover_tpu_torch.common.multi_process, "
         "dlrover_tpu_torch.reshard.plan, "
-        "dlrover_tpu_torch.agent.ckpt_saver\n"
+        "dlrover_tpu_torch.agent.ckpt_saver, dlrover_tpu_torch.run, "
+        "dlrover_tpu_torch.master.main, dlrover_tpu_torch.master.master, "
+        "dlrover_tpu_torch.agent.training, "
+        "dlrover_tpu_torch.agent.master_client, "
+        "dlrover_tpu_torch.diagnosis.agent, dlrover_tpu_torch.common.rpc, "
+        "dlrover_tpu_torch.common.messages\n"
         "from dlrover_tpu_torch.models.llama_infer import ("
         "KvSegmentError, pack_kv_segment, prefix_fingerprint, "
         "unpack_kv_segment)\n"
@@ -90,7 +95,8 @@ def test_import_leaves_jax_and_reference_out():
         "assert unpack_kv_segment(seg)['n'] == 1\n"
         "assert len(prefix_fingerprint([1, 2])) == 16\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'dlrover_tpu', 'msgpack', 'ml_dtypes')]\n"
+        "('jax', 'jaxlib', 'dlrover_tpu', 'msgpack', 'ml_dtypes', "
+        "'grpc')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

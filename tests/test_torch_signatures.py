@@ -304,3 +304,106 @@ def test_shard_version_matches_reference():
         assert jshard.shard_version(data) == want, name
     assert tshard.shard_version(bytearray(v1)) == 1
     assert tshard.shard_version(memoryview(v2_port)) == 2
+
+
+# -- the control plane (the elastic loop) --------------------------------------
+
+CONTROL_PLANE = [
+    ("dlrover_tpu.master.master", "dlrover_tpu_torch.master.master",
+     "LocalJobMaster.__init__"),
+    ("dlrover_tpu.agent.training", "dlrover_tpu_torch.agent.training",
+     "ElasticLaunchConfig"),
+    ("dlrover_tpu.agent.training", "dlrover_tpu_torch.agent.training",
+     "ElasticTrainingAgent.__init__"),
+    ("dlrover_tpu.agent.training", "dlrover_tpu_torch.agent.training",
+     "launch_agent"),
+    ("dlrover_tpu.agent.ckpt_saver", "dlrover_tpu_torch.agent.ckpt_saver",
+     "AsyncCheckpointSaver.__init__"),
+    ("dlrover_tpu.common.rpc", "dlrover_tpu_torch.common.rpc",
+     "RpcServer.__init__"),
+    ("dlrover_tpu.common.rpc", "dlrover_tpu_torch.common.rpc",
+     "RpcClient.__init__"),
+    ("dlrover_tpu.common.rpc", "dlrover_tpu_torch.common.rpc",
+     "RpcClient.call"),
+    ("dlrover_tpu.agent.master_client",
+     "dlrover_tpu_torch.agent.master_client", "build_master_client"),
+    ("dlrover_tpu.diagnosis.agent", "dlrover_tpu_torch.diagnosis.agent",
+     "DiagnosisAgent.diagnose_training_failure"),
+] + [
+    ("dlrover_tpu.agent.master_client",
+     "dlrover_tpu_torch.agent.master_client", f"MasterClient.{name}")
+    for name in sorted(
+        n for n, v in vars(importlib.import_module(
+            "dlrover_tpu.agent.master_client").MasterClient).items()
+        if callable(v) and (not n.startswith("_") or n == "__init__"))
+]
+
+
+@pytest.mark.parametrize("ref_mod,port_mod,name", CONTROL_PLANE,
+                         ids=[n for _, _, n in CONTROL_PLANE])
+def test_control_plane_takes_every_reference_keyword(ref_mod, port_mod,
+                                                     name):
+    """Every keyword of the reference's signature is taken, with the same
+    default; what the port does not have yet raises by name when used
+    (``tests/test_torch_{master,agent}.py``)."""
+    ref = inspect.signature(_attr(importlib.import_module(ref_mod), name))
+    port = inspect.signature(_attr(importlib.import_module(port_mod), name))
+    assert list(port.parameters) == list(ref.parameters), name
+    for k, p in ref.parameters.items():
+        assert port.parameters[k].default == p.default, (name, k)
+
+
+def _parser(parse_args, argv, monkeypatch):
+    import argparse
+
+    got = {}
+    orig = argparse.ArgumentParser.parse_args
+
+    def spy(self, *a, **kw):
+        got["parser"] = self
+        return orig(self, *a, **kw)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", spy)
+        parse_args(argv)
+    return got["parser"]
+
+
+@pytest.mark.parametrize("ref_mod,port_mod", [
+    ("dlrover_tpu.run", "dlrover_tpu_torch.run"),
+    ("dlrover_tpu.master.main", "dlrover_tpu_torch.master.main")])
+def test_every_reference_flag_is_taken_or_refused_by_name(
+        ref_mod, port_mod, monkeypatch):
+    ref = importlib.import_module(ref_mod)
+    port = importlib.import_module(port_mod)
+    tail = ["train.py"] if ref_mod.endswith("run") else []
+    for var in ("DLROVER_TPU_NODE_RANK", "DLROVER_TPU_MASTER_ADDR",
+                "DLROVER_TPU_JOB_NAME", "DLROVER_TPU_NODE_ROLE"):
+        monkeypatch.delenv(var, raising=False)
+    parser = _parser(ref.parse_args, tail, monkeypatch)
+    # The defaults are the reference's.
+    assert vars(port.parse_args(tail)) == vars(ref.parse_args(tail))
+    refuse = getattr(port, "refuse_later_options")
+    seen = 0
+    for act in parser._actions:
+        if not act.option_strings or act.dest == "help":
+            continue
+        flag = act.option_strings[0]
+        if act.nargs == 0:
+            argv = [flag]
+        elif act.choices:
+            argv = [flag, [c for c in act.choices if c != act.default][0]]
+        elif act.type in (int, float):
+            argv = [flag, "2"]
+        else:
+            argv = [flag, "x"]
+        try:
+            got = port.parse_args(argv + tail)
+            refuse(got)
+        except NotImplementedError as e:
+            assert "comes with" in str(e) and "ROADMAP" in str(e), argv
+        else:
+            want = ref.parse_args(argv + tail)
+            assert getattr(got, act.dest) == getattr(want, act.dest), argv
+        seen += 1
+    assert seen >= 10

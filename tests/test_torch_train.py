@@ -324,8 +324,9 @@ def test_accelerate_refuses_frozen_and_sharded_layouts():
 def test_bootstrap_runs_one_process_and_refuses_a_world(monkeypatch):
     """One process without a coordinator runs alone; a world of several
     processes without a coordinator is refused (the processes could not
-    find each other), and so is a master address (the master client comes
-    with Queue A item 3b).  A world with a coordinator comes up: see
+    find each other).  A master address now builds the master client (the
+    elastic loop, Queue A item 3b; it connects at its first call), unless
+    ``connect_master=False``.  A world with a coordinator comes up: see
     ``tests/test_torch_dist.py``."""
     monkeypatch.setattr(bootstrap, "_ctx", None)
     for var in ("DLROVER_TPU_COORDINATOR", "DLROVER_TPU_MASTER_ADDR",
@@ -341,9 +342,18 @@ def test_bootstrap_runs_one_process_and_refuses_a_world(monkeypatch):
         bootstrap.init()
     monkeypatch.setenv("DLROVER_TPU_NUM_PROCESSES", "1")
     monkeypatch.setenv("DLROVER_TPU_MASTER_ADDR", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="master"):
-        bootstrap.init()
-    assert bootstrap.init(connect_master=False).master_addr == "127.0.0.1:1"
+    from dlrover_tpu_torch.agent import master_client
+
+    master_client.reset_master_client()
+    try:
+        ctx = bootstrap.init()
+        assert ctx.client is not None and ctx.client.addr == "127.0.0.1:1"
+        monkeypatch.setattr(bootstrap, "_ctx", None)
+        ctx = bootstrap.init(connect_master=False)
+        assert ctx.master_addr == "127.0.0.1:1" and ctx.client is None
+    finally:
+        master_client.reset_master_client()
+        monkeypatch.setattr(bootstrap, "_ctx", None)
 
 
 def test_model_refuses_fp8_states(model):
