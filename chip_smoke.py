@@ -124,11 +124,13 @@ together), then runs the phases below and exits non-zero if any fails:
    bytes and ``torch.save`` of the same state beside the card's name and
    power limit on a line ``phase9 checkpoint {...}``.
 
-10. Several processes on one host (run after phase 9), Llama-800M with
-   AdamW, B 4 x S 2048 globally, each trainer ``python -m
-   dlrover_tpu_torch.train`` started with the agent's env contract:
-   (a) one process with ``DLROVER_TPU_COORDINATOR`` set (the group comes
-   up on ``nccl``) gives phase 6b's losses bit for bit; (b) two processes
+10. Several processes on one host (run after phase 9), Llama-800M's
+   width at ``ELASTIC_LAYERS`` (8) of its 24 blocks with AdamW, B 4 x S
+   2048 globally, each trainer ``python -m dlrover_tpu_torch.train``
+   started with the agent's env contract: (a) one process with
+   ``DLROVER_TPU_COORDINATOR`` set (the group comes up on ``nccl``) gives
+   the losses and gradient norms of the same run in this process
+   (``train.main`` at that depth) bit for bit, step for step; (b) two processes
    on the one card over ``gloo``, B 2 each: the first loss within
    ``DP_LOSS_RTOL`` of phase 6b's; a run stops after step K and its save,
    sliced across both ranks (each rank's bytes about half the state), and
@@ -141,14 +143,14 @@ together), then runs the phases below and exits non-zero if any fails:
    once it has trained); (c) agent mode: this
    process hosts ``AsyncCheckpointSaver``, a trainer stages step K into it
    and is SIGKILLed, ``save_shm_to_storage`` persists and commits the
-   staged step, and a restore from storage trains step K + 1 with phase
-   9's uninterrupted loss, bit for bit.  Every trainer that reaches the
+   staged step, and a restore from storage trains step K + 1 with (a)'s
+   loss of that step, bit for bit (all on one repeated batch).  Every trainer that reaches the
    end of its steps launched the flash kernels and RMSNorm (its own
    counters); the step times, the gloo reduction's time, each rank's
    persist bytes and time and the restores on a line ``phase10
    multiprocess {...}``.
-11. The elastic loop (run after phase 10), the same Llama-800M with AdamW
-   at B 4 x S 2048 through the launcher: ``python -m
+11. The elastic loop (run after phase 10), the same 8-block cut of
+   Llama-800M with AdamW at B 4 x S 2048 through the launcher: ``python -m
    dlrover_tpu_torch.run --standalone --nproc_per_node=1
    dlrover_tpu_torch/train.py -- ... --ckpt_dir D --ckpt_interval 2
    --steps 6 --log_every 1`` starts the port's master and agent, which
@@ -156,8 +158,8 @@ together), then runs the phases below and exits non-zero if any fails:
    agent) is SIGKILLed.  The agent must log the failure, the breakpoint
    save and a second rendezvous round; the new worker must warm-restore
    the step staged before the kill from shm, and every loss and gradient
-   norm after it, to step 6, must equal phase 10a's bit for bit, with 49
-   RMSNorm and 24 launches of each flash kernel for every step it ran; the
+   norm after it, to step 6, must equal phase 10a's bit for bit, with 17
+   RMSNorm and 8 launches of each flash kernel for every step it ran; the
    launcher exits 0 with ``TRAIN_DONE`` and leaves no arena of the run in
    ``/dev/shm``.  The time from the SIGKILL to the first step after the
    restore (host clock, at the arrival of each line of the launcher's
@@ -166,6 +168,30 @@ together), then runs the phases below and exits non-zero if any fails:
    the restore call with the warm restore in it, first step), the first
    worker's start-up beside them, the breakpoint save's bytes and ms and
    the master's RPC count go on a line ``phase11 elastic {...}``.
+12. The trainer SDK behind the pre-flight node check (run after phase
+   11), Llama-800M at full width and depth with AdamW: the phase writes a
+   user script (``SDK_SCRIPT``: ``sdk.init()``, ``sdk.Trainer`` over
+   ``llama.loss_fn`` with a one-card ``Strategy``, global batch 4 of
+   micro batches of 2 (``grad_accum`` 2), 6 steps, cosine LR with 2
+   warmup steps, clipping at 1.0, eval and save every 3 steps, every
+   second save persisted, one repeated batch, 8 eval rows) and runs it
+   uninterrupted in this process without a checkpoint; then through
+   ``python -m dlrover_tpu_torch.run --standalone --nproc_per_node=1
+   --network_check --comm_perf_test``.  (a) The node check: two rounds of
+   the payload (8 bf16 4096^3 matmuls, exact on its input) on the card,
+   no pair on one node; the master's verdict no fault, no straggler,
+   complete.  (b) Once the worker logged step 4 it is SIGKILLed; the
+   step-3 save was staged to shm only; the agent's breakpoint save, a
+   second round, and the new worker's ``Trainer`` warm-restores step 3
+   (its ``TrainerState`` and sampler), passes the epoch boundary's empty
+   pass, trains steps 4-6, evaluates at 6 and saves.  Every step's loss,
+   gradient norm and LR and the eval losses at 3 and 6 equal the
+   uninterrupted run's bit for bit, the LRs equal ``build_lr_schedule``'s,
+   and the new worker's own counters show 392 RMSNorm, 192 flash forward,
+   144 dq and 144 dk/dv launches (3 steps of 2 micro batches and 2 eval
+   batches).  The verdict with the payloads' times and TFLOP/s, the
+   recovery split as phase 11's, the master's RPC count and the heartbeat
+   actions go on a line ``phase12 trainer_sdk {...}``.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -216,6 +242,9 @@ DP_WORLD = 2  # phase 10b: processes on the one card
 DP_LOSS_RTOL = 1e-3  # phase 10b: each step's loss and gradient norm
 # against one process at B 4 (phase 10a)
 DP_TIMEOUT_S = 900  # phase 10: a trainer process's limit
+# Phases 10-11 run Llama-800M's width at this depth (of its 24 blocks):
+# phase 12 carries the full-depth kill and restore.
+ELASTIC_LAYERS = 8
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 QUANT_OPS_PER_ELEMENT = 6  # |x|, max, divide, round, clip (2)
 
@@ -492,6 +521,9 @@ def phase_forward(llama, infer, params, cfg) -> None:
         raise SystemExit(f"tiny model: card vs cpu max abs err {err}")
 
 
+PROFILE_ATTEMPTS = 3  # windows of one profile, while none traced the card
+
+
 def step_profile(run, iters: int = 1, top: int = 10) -> tuple:
     """``torch.profiler`` over one call of ``run``, which makes ``iters``
     steps and ends in a synchronise.  Returns ``(summary, kernel events,
@@ -499,24 +531,34 @@ def step_profile(run, iters: int = 1, top: int = 10) -> tuple:
     ms, the device busy share, the kernel launches and the ``top``
     costliest kernels.  Kernel events leave out the device-side spans of
     user annotations (``record_function``, ``Optimizer.step#...``), which
-    would count their kernels twice."""
+    would count their kernels twice.  A window in which the profiler
+    recorded no device event at all (the tracer failed: seen once on the
+    card, a second window of a phase coming back empty) is profiled again,
+    up to ``PROFILE_ATTEMPTS`` in all; the callers' checks then read the
+    window that traced the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    cpu_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and e.key not in cpu_keys]
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.key_averages()
+        cpu_keys = {e.key for e in events
+                    if e.device_type == DeviceType.CPU}
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.key not in cpu_keys]
+        if kernels:
+            break
+        log(f"profile window {attempt} recorded no device event")
     device_us = sum(e.self_device_time_total for e in kernels)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
     summary = {
-        "steps": iters, "wall_ms": wall_us / 1e3 / iters,
+        "steps": iters, "windows": attempt,
+        "wall_ms": wall_us / 1e3 / iters,
         "device_ms": device_us / 1e3 / iters,
         "device_busy_share": device_us / wall_us,
         "kernels": sum(e.count for e in kernels) / iters,
@@ -1563,6 +1605,7 @@ def run_train_cli(train, argv, counted) -> dict:
     if rc != 0 or not done:
         raise SystemExit(f"train.main({argv}) failed: rc {rc}\n{out}")
     stats = parse_train_output(out)
+    stats["steps"] = worker_fields(out, 0)["steps"]
     stats["counts"] = {w.__name__: w.launches for w in counted}
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     return stats
@@ -2423,8 +2466,12 @@ def restore_and_step(train, d: str, base: list, crcs: bool = True) -> tuple:
                              batch_size_per_process=args.batch_per_proc,
                              seed=17)
     sampler.load_state_dict(got[1]["sampler"])
-    toks = train.synth_tokens(next(iter(sampler)), args.seq_len,
-                              cfg.vocab_size)
+    # Restored at an epoch's end, the sampler's first pass is empty and
+    # rolls it to the next epoch, as train.main's loop does.
+    indices = next(iter(sampler), None)
+    if indices is None:
+        indices = next(iter(sampler))
+    toks = train.synth_tokens(indices, args.seq_len, cfg.vocab_size)
     _, m = job.train_step(state, {"tokens": toks})
     loss = repr(float(m["loss"]))
     del state, job
@@ -2432,25 +2479,47 @@ def restore_and_step(train, d: str, base: list, crcs: bool = True) -> tuple:
     return got[1], stats, crcs or None, loss
 
 
-def phase_multiprocess(train, card: str, trained: dict,
-                       ckpt9: dict) -> dict:
+def cut_reference(train, counted) -> dict:
+    """Phase 10's reference at ``ELASTIC_LAYERS`` blocks: 6b's run in this
+    process (``train.main``), its losses and gradient norms by step."""
+    argv = ["--model", CKPT_MODEL, "--n_layer", str(ELASTIC_LAYERS),
+            "--seq_len", str(TRAIN_SEQ), "--batch_per_proc",
+            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--dataset_size",
+            str(TRAIN_BATCH), "--log_every", "1", "--device", DEV]
+    st = run_train_cli(train, argv, counted)
+    cfg = train.build_config(train.parse_args(argv))
+    want = dict(expected_launches(cfg, TRAIN_STEPS), xent_fwd=0,
+                quantize_blockwise=0)
+    if st["counts"] != want:
+        raise SystemExit(f"phase 10 reference: launches {st['counts']} != "
+                         f"{want}")
+    return {"first_loss": float(st["first_loss"]), "loss": float(st["loss"]),
+            "step_ms": float(st["step_ms"]), "steps": st["steps"],
+            "n_layer": cfg.n_layer}
+
+
+def phase_multiprocess(train, card: str, trained: dict) -> dict:
     """Phase 10: several processes on one host (see the module docstring):
     (a) one process under a coordinator, (b) two processes on the one card
-    over gloo with the sliced checkpoint, (c) agent mode."""
+    over gloo with the sliced checkpoint, (c) agent mode; at
+    ``ELASTIC_LAYERS`` blocks, ``trained`` the in-process run at that
+    depth (:func:`cut_reference`)."""
     from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
     from dlrover_tpu_torch.checkpoint import fsck, shard_file, slicer
     from dlrover_tpu_torch.common.shm import arena_name, unlink_arena
     from dlrover_tpu_torch.common.storage import PosixDiskStorage
 
     k = CKPT_K
-    base = ["--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ),
-            "--device", DEV]
+    base = ["--model", CKPT_MODEL, "--n_layer", str(ELASTIC_LAYERS),
+            "--seq_len", str(TRAIN_SEQ), "--device", DEV]
     cfg = train.build_config(train.parse_args(base))
-    res = {"card": card, "model": f"{CKPT_MODEL}, AdamW", "k": k,
-           "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ}
+    res = {"card": card, "model": f"{CKPT_MODEL}, AdamW",
+           "n_layer": cfg.n_layer, "k": k, "global_batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ}
     t_phase = time.perf_counter()
 
-    # (a) one process under a coordinator: phase 6b's run, bit for bit.
+    # (a) one process under a coordinator: the in-process run at the
+    # same depth, bit for bit.
     argv6 = base + ["--batch_per_proc", str(TRAIN_BATCH), "--steps",
                     str(TRAIN_STEPS), "--dataset_size", str(TRAIN_BATCH),
                     "--log_every", "1"]
@@ -2465,10 +2534,10 @@ def phase_multiprocess(train, card: str, trained: dict,
                 "wall_s": time.perf_counter() - t0}
     if (one["backend"] != want_backend or one["dp"] != "1"
             or float(one["first_loss"]) != trained["first_loss"]
-            or float(one["loss"]) != trained["loss"]):
-        raise SystemExit(f"phase 10a: {res['a']} against phase 6b's "
-                         f"{trained['first_loss']!r} / {trained['loss']!r} "
-                         f"on {want_backend}")
+            or float(one["loss"]) != trained["loss"]
+            or one["steps"] != trained["steps"]):
+        raise SystemExit(f"phase 10a: {res['a']} against the in-process "
+                         f"run's {trained['steps']} on {want_backend}")
     log("phase10a " + json.dumps(res["a"]))
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
@@ -2543,8 +2612,6 @@ def phase_multiprocess(train, card: str, trained: dict,
             r["persist_ms"] for r in ranks) * 1e3 / (1 << 20)
         res["b"].update({"save_wall_s": time.perf_counter() - t0,
                          "ranks": ranks, "agg_persist_mbps": agg,
-                         "one_process_persist_mbps":
-                             ckpt9.get("persist_mbps"),
                          "killed": "SIGKILL after the commit"})
         if shard_file.latest_step(PosixDiskStorage(), dirs["run"]) != k or \
                 not all(0.4 <= r["written_share"] <= 0.6 for r in ranks):
@@ -2614,7 +2681,8 @@ def phase_multiprocess(train, card: str, trained: dict,
             t0 = time.perf_counter()
             out = spawn_trainers(
                 base + ["--batch_per_proc", str(TRAIN_BATCH), "--steps",
-                        str(4 * k), "--ckpt_dir", dirs["agent"],
+                        str(4 * k), "--dataset_size", str(TRAIN_BATCH),
+                        "--ckpt_dir", dirs["agent"],
                         "--ckpt_interval", str(k)], 1, "phase 10c trainer",
                 coordinator=False, until=f"saved step={k} to memory",
                 extra_env={"DLROVER_TPU_JOB_NAME": jobs["agent"]})[0]
@@ -2629,8 +2697,9 @@ def phase_multiprocess(train, card: str, trained: dict,
                                            dirs["agent"])
         meta, stats, _, loss = restore_and_step(
             train, dirs["agent"],
-            base + ["--batch_per_proc", str(TRAIN_BATCH)], crcs=False)
-        want = ckpt9["uninterrupted_losses"][1]
+            base + ["--batch_per_proc", str(TRAIN_BATCH), "--dataset_size",
+                    str(TRAIN_BATCH)], crcs=False)
+        want = repr(one["steps"][k + 1][0])
         res["c"] = {"trainer_saved": f"saved step={k} to memory" in out,
                     "stall_ms_via_stat_dict": stall,
                     "breakpoint_save_ms": breakpoint_ms,
@@ -2659,10 +2728,16 @@ ELASTIC_KILL_AT = 3  # phase 11: the worker is SIGKILLed once it logs this
 ELASTIC_TIMEOUT_S = 600  # phase 11: the launcher's limit
 
 
-def elastic_events(lines, t_kill: float) -> dict:
+def elastic_events(lines, t_kill: float,
+                   built: str = r"built the model and optimizer in "
+                                r"([\d.]+)s$",
+                   restored: str = r"^\[worker 0\] restored step=(\d+)$",
+                   step_line: str = "[worker 0] step {} loss=") -> dict:
     """The host-clock arrival time of each event of the recovery after the
     kill at ``t_kill`` (``(time, line)`` pairs, the launcher's merged
-    output), and the numbers the lines carry."""
+    output), and the numbers the lines carry.  ``built`` and ``restored``
+    match the worker's build and restore lines, ``step_line`` (formatted
+    with the step) the start of a step's line."""
     after = [(t, ln) for t, ln in lines if t >= t_kill]
     marks = {
         "detected": r"worker failure\(s\): \[\(0, -9\)\]",
@@ -2676,11 +2751,11 @@ def elastic_events(lines, t_kill: float) -> dict:
         "round": r"rendezvous round 1: world=1 nodes",
         "started": r"started 1 worker\(s\): pids=\[(\d+)\]",
         "init": r"torch.distributed up: process 0/1",
-        "built": r"built the model and optimizer in ([\d.]+)s$",
+        "built": built,
         "warm": r"flash ckpt: warm restore from shm \(step (\d+)\)",
         "restore": r"flash ckpt: restored step (\d+) from shm in "
                    r"([\d.]+)ms",
-        "restored": r"^\[worker 0\] restored step=(\d+)$",
+        "restored": restored,
     }
     ev = {}
     for name, pat in marks.items():
@@ -2693,7 +2768,7 @@ def elastic_events(lines, t_kill: float) -> dict:
         first = int(ev["restored"][1][0]) + 1
         for t, ln in after:
             if t >= ev["restored"][0] and ln.startswith(
-                    f"[worker 0] step {first} loss="):
+                    step_line.format(first)):
                 ev["first_step"] = (t, ())
                 break
     return ev
@@ -2705,13 +2780,15 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
 
     torch.cuda.empty_cache()  # the trainers need the card's memory
     cfg = train.build_config(train.parse_args(
-        ["--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ)]))
+        ["--model", CKPT_MODEL, "--n_layer", str(ELASTIC_LAYERS),
+         "--seq_len", str(TRAIN_SEQ)]))
     job, run_id = "chip-smoke-elastic", f"cs{os.getpid()}"
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
            "--nproc_per_node=1", f"--job_name={job}",
            os.path.join("dlrover_tpu_torch", "train.py"), "--",
-           "--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ),
+           "--model", CKPT_MODEL, "--n_layer", str(ELASTIC_LAYERS),
+           "--seq_len", str(TRAIN_SEQ),
            "--batch_per_proc", str(TRAIN_BATCH), "--dataset_size",
            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS), "--log_every", "1",
            "--ckpt_dir", os.path.join(tmp, "ckpt"), "--ckpt_interval",
@@ -2827,6 +2904,7 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
         first[name] = None if hit is None else hit - t0
     res = {
         "card": card, "model": f"{CKPT_MODEL}, AdamW",
+        "n_layer": cfg.n_layer,
         "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
         "interval": ELASTIC_INTERVAL, "killed_after_step": ELASTIC_KILL_AT,
         "staged_step": staged, "restored_step": restored,
@@ -2844,6 +2922,351 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
         "launcher_wall_s": wall,
     }
     log("phase11 elastic " + json.dumps(res))
+    return res
+
+
+SDK_KILL_AT = 4  # phase 12: the worker is SIGKILLed once it logs this step
+SDK_TIMEOUT_S = 900  # phase 12: the launcher's limit
+
+# Phase 12's user script: the trainer SDK as examples/nanogpt_trainer.py
+# uses it, with the port's Llama.  ``run`` takes the context (``None``:
+# the uninterrupted run in the smoke's own process, without a master or a
+# checkpoint).
+SDK_SCRIPT = r'''
+"""A training job on the trainer SDK: Llama at random weights from a seed,
+on one repeated batch of synthetic rows, evaluated every 3 steps and
+checkpointed every 3 (every second save persisted)."""
+import argparse
+import json
+import sys
+
+import torch
+
+import dlrover_tpu_torch.trainer as sdk
+from dlrover_tpu_torch import train as cli
+from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.parallel.accelerate import Strategy
+
+STEPS = 6
+
+
+def emit(tag, **rec):
+    sys.stdout.write(f"{tag} {rec.get('step', '')} {json.dumps(rec)}\n")
+    sys.stdout.flush()
+
+
+class Report(sdk.TrainerCallback):
+    """Each step's loss, gradient norm and the LR its update ran at, and
+    each eval loss, a line each."""
+
+    def __init__(self):
+        self.trainer = None
+
+    def on_step_end(self, args, state, control, metrics):
+        opt = self.trainer.core.state["opt_state"]
+        emit("SDK_STEP", step=state.step, loss=float(metrics["loss"]),
+             grad_norm=float(metrics["grad_norm"]),
+             lr=opt.param_groups[0]["lr"])
+
+    def on_evaluate(self, args, state, control, metrics):
+        emit("SDK_EVAL", step=state.step, eval_loss=metrics["eval_loss"])
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--model", default="800m")
+    p.add_argument("--seq_len", type=int, default=2048)
+    p.add_argument("--ckpt_dir", default="")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def run(args, ctx=None):
+    cfg = cli.build_config(cli.parse_args(
+        ["--model", args.model, "--seq_len", str(args.seq_len)]))
+    dev = torch.device(args.device)
+
+    def fetch(indices):
+        return {"tokens": cli.synth_tokens(indices, args.seq_len,
+                                           cfg.vocab_size)}
+
+    def eval_fetch(indices):
+        return fetch(indices + 1000)
+
+    report = Report()
+    trainer = sdk.Trainer(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        init_fn=lambda g: llama.init_params(cfg, g, dev,
+                                            param_dtype=torch.float32),
+        args=sdk.TrainingArgs(
+            global_batch_size=4, max_micro_batch_per_proc=2,
+            max_steps=STEPS, learning_rate=3e-4, lr_schedule="cosine",
+            warmup_steps=2, max_grad_norm=1.0, logging_steps=1,
+            eval_steps=3, save_steps=3, persist_every_n_saves=2,
+            ckpt_dir=args.ckpt_dir,
+            job_name=ctx.job_name if ctx is not None else "", seed=17),
+        fetch_batch=fetch, dataset_size=4, eval_fetch=eval_fetch,
+        eval_dataset_size=8, strategy=Strategy(), callbacks=[report],
+        master_client=ctx.client if ctx is not None else None,
+        step_reporter=ctx.report_step if ctx is not None else None,
+        devices=[args.device],
+        num_processes=ctx.num_processes if ctx is not None else 1,
+        process_id=ctx.process_id if ctx is not None else 0)
+    report.trainer = trainer
+    state = trainer.train()
+    emit("SDK_DONE", step=state.step, meta=state.to_meta(),
+         launches={n: fn.launches for n, fn in cli.KERNELS.items()})
+    return trainer
+
+
+if __name__ == "__main__":
+    a = parse_args()
+    run(a, sdk.init(device=a.device))
+'''
+
+
+def sdk_records(text: str) -> dict:
+    """The ``SDK_STEP``, ``SDK_EVAL`` and ``SDK_DONE`` records of a run's
+    output: ``{"steps": {step: rec}, "evals": {step: loss}, "done":
+    rec}``."""
+    out = {"steps": {}, "evals": {}, "done": None}
+    for ln in text.splitlines():
+        tag = ln.split(" ", 1)[0]
+        if tag not in ("SDK_STEP", "SDK_EVAL", "SDK_DONE"):
+            continue
+        rec = json.loads(ln.split(" ", 2)[2])
+        if tag == "SDK_STEP":
+            out["steps"][rec["step"]] = rec
+        elif tag == "SDK_EVAL":
+            out["evals"][rec["step"]] = rec["eval_loss"]
+        else:
+            out["done"] = rec
+    return out
+
+
+def phase_trainer_sdk(train, card: str) -> dict:
+    """Phase 12: the trainer SDK behind the pre-flight node check (see the
+    module docstring)."""
+    import importlib.util
+
+    import torch
+
+    from dlrover_tpu_torch.trainer.trainer import build_lr_schedule
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sdk_")
+    script = os.path.join(tmp, "sdk_job.py")
+    with open(script, "w") as f:
+        f.write(SDK_SCRIPT)
+    spec = importlib.util.spec_from_file_location("chip_smoke_sdk_job",
+                                                  script)
+    job_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(job_mod)
+    model = "800m" if DEV == "cuda" else "tiny"
+    n = train.build_config(train.parse_args(["--model", model])).n_layer
+    argv = ["--model", model, "--seq_len", str(TRAIN_SEQ), "--device", DEV]
+
+    # The uninterrupted run, in this process, without a checkpoint.
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trainer = job_mod.run(job_mod.parse_args(argv))
+    straight_s = time.perf_counter() - t0
+    schedule = build_lr_schedule(trainer.args, trainer.total_steps(4))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    straight = sdk_records(buf.getvalue())
+    steps = range(1, job_mod.STEPS + 1)
+    if sorted(straight["steps"]) != list(steps) or sorted(
+            straight["evals"]) != [3, 6]:
+        raise SystemExit(f"phase 12 uninterrupted run: {straight}")
+
+    # 12a + 12b: the launcher with the node check, the worker killed once
+    # it logged step SDK_KILL_AT.
+    job, run_id = "chip-smoke-sdk", f"cs{os.getpid()}"
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+           "--nproc_per_node=1", "--network_check", "--comm_perf_test",
+           f"--job_name={job}", script, "--", *argv,
+           "--ckpt_dir", os.path.join(tmp, "ckpt")]
+    env = dict(os.environ, DLROVER_TPU_RUN_ID=run_id)
+    if DEV == "cpu":
+        env["DLROVER_TPU_CHECK_DEVICE"] = "cpu"
+    lines, state = [], {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO_ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+
+    def pump():
+        for line in proc.stdout:
+            t = time.perf_counter()
+            line = line.rstrip("\n")
+            lines.append((t, line))
+            m = re.search(r"started 1 worker\(s\): pids=\[(\d+)\]", line)
+            if m and "pid" not in state:
+                state["pid"] = int(m[1])
+            if line.startswith(f"SDK_STEP {SDK_KILL_AT} ") \
+                    and "t_kill" not in state:
+                os.kill(state["pid"], signal.SIGKILL)
+                state["t_kill"] = time.perf_counter()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=SDK_TIMEOUT_S)
+        reader.join(timeout=60)
+    except BaseException:
+        log("phase 12: launcher output tail:\n" + "\n".join(
+            ln for _, ln in lines[-60:]))
+        raise
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        for _, ln in lines:  # no worker of the run may outlive it
+            for pid in re.findall(r"pids=\[(\d+)\]", ln):
+                with contextlib.suppress(ProcessLookupError,
+                                         PermissionError):
+                    os.killpg(int(pid), signal.SIGKILL)
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    text = "\n".join(ln for _, ln in lines)
+
+    def fail(why: str):
+        log("phase 12: launcher output tail:\n" + "\n".join(
+            ln for _, ln in lines[-60:]))
+        raise SystemExit(f"phase 12: {why}")
+
+    if rc != 0 or "t_kill" not in state:
+        fail(f"launcher rc {rc}, killed: {'t_kill' in state}")
+
+    # 12a: the node check's payloads and the master's verdict.
+    payloads = [json.loads(ln.split("node check payload: ", 1)[1])
+                for ln in text.splitlines() if "node check payload: " in ln]
+    verdict = re.search(r"node check verdict: faults=(\[.*?\]) \((\w[^)]*)\) "
+                        r"stragglers=(\[.*?\]) complete=(\w+)", text)
+    t_ready = next((t for t, ln in lines if "local master for" in ln), t0)
+    t_verdict = next((t for t, ln in lines if "node check verdict" in ln),
+                     None)
+    if len(payloads) != 2 or verdict is None or verdict[1] != "[]" \
+            or verdict[3] != "[]" or verdict[4] != "True" \
+            or any(p["max_rel_err"] != 0.0 for p in payloads):
+        fail(f"node check payloads {payloads}, verdict "
+             f"{verdict.groups() if verdict else None}")
+    check = {"payloads": payloads,
+             "verdict": {"faults": verdict[1], "reason": verdict[2],
+                         "stragglers": verdict[3],
+                         "complete": verdict[4] == "True"},
+             "wall_s": t_verdict - t_ready,
+             "comm_perf": [ln.split("comm perf: ", 1)[1]
+                           for ln in text.splitlines()
+                           if "comm perf: " in ln]}
+
+    # 12b: the recovery, and every record against the uninterrupted run.
+    ev = elastic_events(
+        lines, state["t_kill"],
+        built=r"trainer: built the step and state in ([\d.]+)s$",
+        restored=r"trainer: restored step (\d+) \(epoch",
+        step_line="SDK_STEP {} ")
+    missing = [n for n in ("detected", "breakpoint", "persisted", "hook",
+                           "stopped", "round", "started", "init", "built",
+                           "warm", "restore", "restored", "first_step")
+               if n not in ev]
+    if missing:
+        fail(f"no {missing} after the kill")
+    restored = int(ev["restored"][1][0])
+    t_r = ev["restored"][0]
+    first = sdk_records("\n".join(ln for t, ln in lines
+                                  if t < state["t_kill"]))
+    again = sdk_records("\n".join(ln for t, ln in lines if t >= t_r))
+    before = {i: r for i, r in first["steps"].items() if i <= SDK_KILL_AT}
+    got_steps = {**{i: r for i, r in before.items() if i <= restored},
+                 **again["steps"]}
+    got_evals = {**{i: v for i, v in first["evals"].items()
+                    if i <= restored}, **again["evals"]}
+    if sorted(before) != list(range(1, SDK_KILL_AT + 1)) or any(
+            r != straight["steps"][i] for i, r in before.items()):
+        fail(f"the first worker's steps {before} against the "
+             f"uninterrupted run's")
+    if restored != 3 or int(ev["warm"][1][0]) != 3 \
+            or int(ev["breakpoint"][1][0]) != 3:
+        fail(f"restored step {restored}, warm {ev['warm'][1]}, breakpoint "
+             f"{ev['breakpoint'][1]}: the step-3 save is the staged one")
+    if got_steps != straight["steps"] or got_evals != straight["evals"]:
+        fail(f"steps {got_steps} and evals {got_evals} against the "
+             f"uninterrupted run's {straight['steps']} and "
+             f"{straight['evals']}")
+    lrs = {i: got_steps[i]["lr"] for i in steps}
+    want_lrs = {i: schedule(i - 1) for i in steps}
+    if lrs != want_lrs:
+        fail(f"LRs {lrs} against build_lr_schedule's {want_lrs}")
+    done = again["done"]
+    # Steps 4-6 at grad_accum 2 (two forwards and backwards each) and the
+    # eval at step 6 (two batches of one forward).
+    want_launches = {"flash_fwd": 3 * 2 * n + 2 * n,
+                     "flash_dq": 3 * 2 * n, "flash_dkv": 3 * 2 * n,
+                     "xent_fwd": 0,
+                     "rmsnorm": 3 * 2 * (2 * n + 1) + 2 * (2 * n + 1)}
+    if DEV != "cuda":  # the plain versions run on the CPU
+        want_launches = dict.fromkeys(want_launches, 0)
+    left = [x for x in os.listdir("/dev/shm")
+            if x.startswith(f"dlrtpu_{job}-{run_id}")]
+    if done is None or done["launches"] != want_launches \
+            or done["step"] != job_mod.STEPS or left:
+        fail(f"restarted worker's SDK_DONE {done} (launches want "
+             f"{want_launches}), arenas left {left}")
+    rpc = re.search(r"master stopped: rpc_calls=(\d+)", text)
+    actions = [ln for ln in text.splitlines() if "heartbeat action:" in ln]
+    # The restarted worker's tail: from its last step to its SDK_DONE
+    # (the step-6 save, persisted, and the final save with its wait), and
+    # the saver's persists after the restore.
+    t_last = max(t for t, ln in lines
+                 if t >= t_r and ln.startswith(f"SDK_STEP {job_mod.STEPS} "))
+    t_done = next(t for t, ln in lines
+                  if t >= t_r and ln.startswith("SDK_DONE "))
+    persists = [ln.split("saver: ", 1)[1] for t, ln in lines
+                if t >= t_r and "saver: persisted rank 0" in ln]
+
+    def at(name):
+        return ev[name][0]
+
+    persist_s, persist_mbps, persist_bytes = ev["persisted"][1]
+    res = {
+        "card": card, "model": f"{model}, AdamW via the trainer SDK",
+        "global_batch": 4, "micro_batch": 2, "grad_accum": 2,
+        "seq_len": TRAIN_SEQ, "node_check": check,
+        "uninterrupted_s": straight_s,
+        "killed_after_step": SDK_KILL_AT, "restored_step": restored,
+        "steps": {i: [got_steps[i][k] for k in ("loss", "grad_norm", "lr")]
+                  for i in steps},
+        "eval_losses": got_evals,
+        "bit_equal_to_uninterrupted": True, "lrs_equal_schedule": True,
+        "launches_restarted_worker": done["launches"],
+        "restarted_trainer_meta": done["meta"],
+        "kill_to_first_step_s": at("first_step") - state["t_kill"],
+        "parts": {
+            "detect_s": at("detected") - state["t_kill"],
+            "breakpoint_and_stop_s": at("stopped") - at("detected"),
+            "rendezvous_s": at("round") - at("stopped"),
+            "spawn_s": at("started") - at("round"),
+            "process_start_to_init_s": at("init") - at("started"),
+            "build_s": at("built") - at("init"),
+            "restore_call_s": at("restored") - at("built"),
+            "first_step_s": at("first_step") - at("restored"),
+        },
+        "warm_restore_ms": float(ev["restore"][1][1]),
+        "breakpoint_save": {"ms": float(ev["hook"][1][0]),
+                            "persist_s": float(persist_s),
+                            "mbps": float(persist_mbps),
+                            "bytes": int(persist_bytes)},
+        "kill_since_launch_s": state["t_kill"] - t0,
+        "last_step_to_done_s": t_done - t_last,
+        "persists_after_restore": persists,
+        "master_rpc_calls": int(rpc[1]) if rpc else None,
+        "heartbeat_actions": actions,
+        "launcher_wall_s": wall,
+    }
+    log("phase12 trainer_sdk " + json.dumps(res))
     return res
 
 
@@ -2917,13 +3340,15 @@ def main() -> int:
     qrec = phase_quant(quant, counted)
     phase_adam8bit(llama, counted)
     mark("phases 7-8")
-    ckpt9 = phase_checkpoint(llama, train, counted, smi)
+    phase_checkpoint(llama, train, counted, smi)
     mark("phase 9")
-    multi = phase_multiprocess(train, smi, trained, ckpt9)
+    multi = phase_multiprocess(train, smi, cut_reference(train, counted))
     mark("phase 10")
     elastic = phase_elastic(train, smi,
                             multi["a"]["loss_grad_norm_by_step"])
     mark("phase 11")
+    sdk = phase_trainer_sdk(train, smi)
+    mark("phase 12")
 
     # Phase 3b runs last, on the same 7B weights made again from the seed:
     # a profile taken after its graph replays, in phase 5, once lost every
@@ -2966,6 +3391,7 @@ def main() -> int:
     if not all(k["launches"] > 0 for k in kernels):
         raise SystemExit("a kernel of the path was never launched")
     log("phase11 elastic " + json.dumps(elastic))
+    log("phase12 trainer_sdk " + json.dumps(sdk))
     log("phase3c prefix_handoff " + json.dumps(prefixed))
     log("phase3b serve " + json.dumps(graphed))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,8 +11,8 @@ master's pending actions).  Not here yet, each raising
 (``state_dir=``, ``standby_addr=``; ``constants.HA_ITEM``), the live
 reshard calls (``get_reshard_epoch``, ``announce_reshard``,
 ``report_reshard``) and ``journal_fetch`` (``constants.HOST_LAYERS``,
-``HA_ITEM``).  The data-sharding and node-check calls exist and the
-master answers them as refused (``master/servicer.py``).
+``HA_ITEM``).  The data-sharding calls reach the master's task manager
+and the node-check calls its network-check rendezvous.
 """
 
 from __future__ import annotations
@@ -153,7 +153,7 @@ class MasterClient:
             idempotent=True)
         return resp.value if isinstance(resp, m.KVStoreCount) else 0
 
-    # -- data sharding (refused by the master until constants.TASK_ITEM)
+    # -- data sharding (the master's task manager)
     def report_dataset_shard_params(self, *, dataset_name: str,
                                     dataset_size: int, shard_size: int,
                                     num_epochs: int = 1,
@@ -191,7 +191,7 @@ class MasterClient:
             m.ShardCheckpoint(dataset_name=dataset_name, content=content))
         return isinstance(resp, m.BaseResponse) and resp.success
 
-    # -- health check (refused by the master until NODE_CHECK_ITEM)
+    # -- the pre-flight node check (the network-check rendezvous)
     def report_network_check(self, succeeded: bool, elapsed: float,
                              round_: int = -1) -> None:
         self._client.call(m.NetworkCheckResult(

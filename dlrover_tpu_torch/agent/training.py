@@ -12,8 +12,9 @@ round), start ``nproc_per_node`` workers with the env contract
 own, the launcher's directory and this package on ``PYTHONPATH``), then
 watch them.  When a worker fails, the membership changes or the master
 asks, the agent runs the breakpoint save (``on_workers_stopping``, the
-saver's ``save_shm_to_storage``), stops the workers — SIGTERM to each
-process group, SIGKILL after the grace period, and ``wait()`` on every
+saver's ``save_shm_to_storage``), stops the workers — SIGTERM (and
+SIGCONT, for a stopped one) to each process group, SIGKILL after the
+grace period, and ``wait()`` on every
 one, so that a killed process's card context is gone before the next round
 starts — and forms the world again.  Unlike the reference, the group of
 a worker that already exited is signalled too, so that no child it left
@@ -25,10 +26,13 @@ The agent owns the node's ``AsyncCheckpointSaver``, with the master client
 (its ``CkptPerf`` reports and the step barrier).  Not ported: the
 ``ResourceMonitor``, the ``ParalConfigTuner`` (``DLROVER_TPU_AUTO_TUNE``),
 the metrics endpoint (``DLROVER_TPU_METRICS_PORT``), the chaos plan
-(``DLROVER_TPU_FAULTS``), the pre-flight node check (``network_check``,
-``comm_perf_test``) and service roles (``node_role`` other than a
+(``DLROVER_TPU_FAULTS``) and service roles (``node_role`` other than a
 worker's), each refused by name; the replica seeding of the saver comes
-with ``constants.MULTICARD_ITEM``.
+with ``constants.MULTICARD_ITEM``.  The pre-flight node check
+(``network_check``, ``comm_perf_test``) runs in the launcher before the
+agent (``agent/node_check.py``).  The agent acts on the heartbeat actions
+of the master's diagnosis manager (``RESTART_WORKER``,
+``RELAUNCH_WORKER``, ``STOP_JOB``).
 """
 
 from __future__ import annotations
@@ -46,7 +50,6 @@ from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.common.constants import (
     CHAOS_LAYER,
     HOST_LAYERS,
-    NODE_CHECK_ITEM,
     DiagnosisActionType,
     NodeStatus,
     RendezvousName,
@@ -80,9 +83,6 @@ def refuse_later_options(config: ElasticLaunchConfig) -> None:
     have yet, each by name."""
     ctx = get_context()
     refused = [
-        (config.network_check, "network_check (the pre-flight node check)",
-         NODE_CHECK_ITEM),
-        (config.comm_perf_test, "comm_perf_test", NODE_CHECK_ITEM),
         (config.node_role not in ("worker", "chief"),
          f"node_role={config.node_role!r} (a service role)", HOST_LAYERS),
         (ctx.auto_tune, "DLROVER_TPU_AUTO_TUNE (agent/config_tuner.py)",
@@ -325,9 +325,11 @@ class ElasticTrainingAgent:
                         (time.perf_counter() - t0) * 1e3)
         # Each worker leads a session of its own, so its process group id
         # is its pid: the group is signalled even when the worker itself
-        # already died and left children behind.
+        # already died and left children behind.  A stopped (hung) worker
+        # takes its SIGTERM only once continued.
         for w in self._workers:
             _signal_group(w.proc.pid, signal.SIGTERM)
+            _signal_group(w.proc.pid, signal.SIGCONT)
         deadline = time.monotonic() + grace
         for w in self._workers:
             try:

@@ -8,7 +8,9 @@ vocabulary.
 
 The names at the end say where each part of the control plane that the
 port does not have yet comes in (ROADMAP.md, Queue A); the options that
-would reach one raise ``NotImplementedError`` naming it.
+would reach one raise ``NotImplementedError`` naming it.  Items 3c.1-3c.4
+(the node check, data sharding, the diagnosis manager, the trainer SDK)
+are ported; ``HA_ITEM`` (3c.5) is next.
 """
 
 from __future__ import annotations
@@ -91,18 +93,6 @@ def _item(what: str) -> str:
     return f"{what} (see ROADMAP.md)"
 
 
-#: Queue A item 3c, in its order.
-NODE_CHECK_ITEM = _item(
-    "Queue A item 3c.1 of the port (agent/node_check.py, the pre-flight "
-    "node check)")
-TASK_ITEM = _item(
-    "Queue A item 3c.2 of the port (master/{task_manager,"
-    "dataset_splitter}.py, dynamic data sharding)")
-DIAGNOSIS_ITEM = _item(
-    "Queue A item 3c.3 of the port (diagnosis/manager.py, heartbeat "
-    "actions and hang detection)")
-TRAINER_SDK_ITEM = _item(
-    "Queue A item 3c.4 of the port (trainer/{elastic,trainer}.py)")
 HA_ITEM = _item(
     "Queue A item 3c.5 of the port (master/{state,standby}.py, the HA "
     "journal and the warm standby)")

@@ -286,7 +286,7 @@ class KVStoreDelete(Message):
     token: str = ""  # a retried delete gets the first answer
 
 
-# -- dynamic data sharding (answered as refused until constants.TASK_ITEM) ---
+# -- dynamic data sharding ----------------------------------------------------
 
 @dataclasses.dataclass
 class DatasetShardParams(Message):
@@ -338,7 +338,7 @@ class ShardCheckpoint(Message):
     content: str = ""
 
 
-# -- health check (answered as refused until constants.NODE_CHECK_ITEM) ------
+# -- the pre-flight node check -------------------------------------------------
 
 @dataclasses.dataclass
 class NetworkCheckResult(Message):

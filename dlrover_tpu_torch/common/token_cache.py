@@ -4,8 +4,8 @@
 The RPC layer retries a refused connection (and, for tokened calls, a
 timeout); the master dedupes a retried mutation by caching ``token ->
 first result`` here.  Not thread-safe by itself: callers hold their own
-service lock.  The HA snapshot surface (``dump_state``/``load_state``)
-comes with the journal (``constants.HA_ITEM``).
+service lock.  ``dump_state``/``load_state`` give the insertion-ordered
+``[token, result]`` pairs, as the task manager's snapshot carries them.
 """
 
 from __future__ import annotations
@@ -36,3 +36,12 @@ class BoundedTokenCache:
 
     def __len__(self) -> int:
         return len(self._items)
+
+    def dump_state(self) -> list:
+        """Insertion-ordered ``[token, result]`` pairs."""
+        return [[t, r] for t, r in self._items.items()]
+
+    def load_state(self, items: list) -> None:
+        self._items.clear()
+        for token, result in items:
+            self.put(token, result)

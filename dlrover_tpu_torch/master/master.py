@@ -3,13 +3,15 @@
 ``run_master_forever``).
 
 ``LocalJobMaster`` serves a one-host job: the RPC server
-(``common/rpc.py``) in front of the job manager, the speed monitor, the KV
-store, the named barriers and the two rendezvous managers; a node whose
-heartbeats stop is handed to ``AllReduceNodeHandlingCallback``.  The
-launcher starts it as ``python -m dlrover_tpu_torch.master.main``; tests
-build it in process (``port=0`` binds a free port).  The reference's task
-manager, diagnosis manager, strategy generator, reshard and cell managers
-and HA journal come with the items that ``constants`` names; the
+(``common/rpc.py``) in front of the task manager, the job manager, the
+speed monitor, the KV store, the named barriers, the two rendezvous
+managers and the diagnosis manager (its hang timeout from the context,
+its alive nodes the training rendezvous'); a node whose heartbeats stop
+is handed to ``AllReduceNodeHandlingCallback``, which tells its survivors
+to rebuild the world.  The launcher starts it as ``python -m
+dlrover_tpu_torch.master.main``; tests build it in process (``port=0``
+binds a free port).  The reference's strategy generator, reshard and cell
+managers and HA journal come with the items that ``constants`` names; the
 keywords that would reach them raise ``NotImplementedError`` by name.
 """
 
@@ -29,6 +31,7 @@ from dlrover_tpu_torch.common.constants import (
 from dlrover_tpu_torch.common.global_context import get_context
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.rpc import RpcServer
+from dlrover_tpu_torch.diagnosis.manager import DiagnosisManager
 from dlrover_tpu_torch.master.event_callback import (
     AllReduceNodeHandlingCallback,
 )
@@ -41,6 +44,7 @@ from dlrover_tpu_torch.master.rendezvous import (
 from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
 from dlrover_tpu_torch.master.sync_service import SyncService
+from dlrover_tpu_torch.master.task_manager import TaskManager
 
 
 class JobMaster(abc.ABC):
@@ -81,6 +85,7 @@ class LocalJobMaster(JobMaster):
         self._exit_code = 0
         self._exit_reason = ""
         self._stop_event = threading.Event()
+        self.task_manager = TaskManager()
         self.job_manager = LocalJobManager(job_name)
         self.speed_monitor = SpeedMonitor()
         self.kv_store = KVStoreService()
@@ -91,12 +96,19 @@ class LocalJobMaster(JobMaster):
         }
         for mgr in self.rdzv_managers.values():
             mgr.update_rdzv_params(min_nodes, max_nodes, node_unit=node_unit)
+        self.diagnosis_manager = DiagnosisManager(
+            self.speed_monitor, hang_timeout_s=self._ctx.hang_timeout_s,
+            alive_nodes_fn=self.rdzv_managers[
+                RendezvousName.TRAINING].alive_nodes)
         self.job_manager.on_node_dead = AllReduceNodeHandlingCallback(
-            self.rdzv_managers, self.speed_monitor).on_node_failed
+            self.rdzv_managers, self.speed_monitor,
+            diagnosis_manager=self.diagnosis_manager).on_node_failed
         self.servicer = MasterServicer(
-            job_manager=self.job_manager, rdzv_managers=self.rdzv_managers,
-            kv_store=self.kv_store, sync_service=self.sync_service,
-            speed_monitor=self.speed_monitor, job_context=self)
+            task_manager=self.task_manager, job_manager=self.job_manager,
+            rdzv_managers=self.rdzv_managers, kv_store=self.kv_store,
+            sync_service=self.sync_service,
+            speed_monitor=self.speed_monitor,
+            diagnosis_manager=self.diagnosis_manager, job_context=self)
         self._server = RpcServer(port, self.servicer)
 
     @property
@@ -113,7 +125,9 @@ class LocalJobMaster(JobMaster):
         return self._server.calls
 
     def prepare(self) -> None:
+        self.task_manager.start()
         self.job_manager.start()
+        self.diagnosis_manager.start()
         self._server.start()
         self.stage = JobStage.RUNNING
         logger.info("local master for %s ready on :%d", self.job_name,
@@ -148,7 +162,9 @@ class LocalJobMaster(JobMaster):
 
     def stop(self) -> None:
         self.stage = JobStage.STOPPED
+        self.task_manager.stop()
         self.job_manager.stop()
+        self.diagnosis_manager.stop()
         self._server.stop()
         logger.info("master stopped: rpc_calls=%d", self.rpc_calls)
 

@@ -219,8 +219,8 @@ class NetworkCheckRendezvousManager(RendezvousManager):
     """The pre-flight check's rendezvous: it pairs nodes into sub-worlds
     (round 0 adjacent ranks, later rounds fastest with slowest), so that a
     node slow in both pairings is the straggler and a node failing beside a
-    good partner is faulty.  The agent side that drives it is
-    ``constants.NODE_CHECK_ITEM``."""
+    good partner is faulty.  The launcher drives it
+    (``agent/node_check.py``)."""
 
     def __init__(self) -> None:
         super().__init__("network-check")

@@ -3,17 +3,16 @@
 message type, so the dispatch table is the master's API.
 
 It answers node registration, status and failure, heartbeats, the
-rendezvous, the KV store, named barriers, global steps, checkpoint perf
-and the checkpoint barrier, the run and parallel configs and the job's
-exit, as the reference does.  A heartbeat is answered as the reference's
-master answers it when its ``DiagnosisManager`` has no action to give
-(``HeartbeatResponse(actions=[])``); the manager comes with
-``constants.DIAGNOSIS_ITEM``.  The messages of dynamic data sharding and
-of the pre-flight node check get a failed ``BaseResponse`` whose reason
-names the item that brings them; the serving, fleet, cell, journal and
-reshard messages are not part of the port's wire yet (a type it does not
-know does not decode, and is answered as a failed ``BaseResponse`` by the
-transport).
+rendezvous, the KV store, dynamic data sharding (the task manager), the
+pre-flight node check (the network-check rendezvous), global steps,
+checkpoint perf and the checkpoint barrier, diagnosis reports, named
+barriers, the run and parallel configs and the job's exit, as the
+reference does.  A node failure goes to the diagnosis manager and
+re-queues the node's data shards; a heartbeat carries back the actions
+the diagnosis manager queued for the node.  The serving, fleet, cell,
+journal and reshard messages are not part of the port's wire yet (a type
+it does not know does not decode, and is answered as a failed
+``BaseResponse`` by the transport).
 """
 
 from __future__ import annotations
@@ -22,36 +21,23 @@ import time
 from typing import Optional
 
 from dlrover_tpu_torch.common import messages as m
-from dlrover_tpu_torch.common.constants import (
-    NODE_CHECK_ITEM,
-    TASK_ITEM,
-    RendezvousName,
-)
+from dlrover_tpu_torch.common.constants import RendezvousName
 from dlrover_tpu_torch.common.log import logger
-
-#: Message types refused by name, with the item that brings them.
-REFUSED = {
-    m.DatasetShardParams: TASK_ITEM,
-    m.TaskRequest: TASK_ITEM,
-    m.TaskResult: TASK_ITEM,
-    m.ShardCheckpointRequest: TASK_ITEM,
-    m.ShardCheckpoint: TASK_ITEM,
-    m.NetworkCheckResult: NODE_CHECK_ITEM,
-    m.NetworkReadyRequest: NODE_CHECK_ITEM,
-    m.FaultNodeRequest: NODE_CHECK_ITEM,
-    m.StragglerRequest: NODE_CHECK_ITEM,
-}
+from dlrover_tpu_torch.master.dataset_splitter import new_dataset_splitter
 
 
 class MasterServicer:
-    def __init__(self, *, job_manager=None, rdzv_managers=None,
-                 kv_store=None, sync_service=None, speed_monitor=None,
+    def __init__(self, *, task_manager=None, job_manager=None,
+                 rdzv_managers=None, kv_store=None, sync_service=None,
+                 speed_monitor=None, diagnosis_manager=None,
                  job_context=None):
+        self.task_manager = task_manager
         self.job_manager = job_manager
         self.rdzv_managers = rdzv_managers or {}
         self.kv_store = kv_store
         self.sync_service = sync_service
         self.speed_monitor = speed_monitor
+        self.diagnosis_manager = diagnosis_manager
         self.job_context = job_context
         self._dispatch = {
             m.NodeMeta: self._on_node_meta,
@@ -68,6 +54,15 @@ class MasterServicer:
             m.KVStoreAdd: self._on_kv_add,
             m.KVStoreScan: self._on_kv_scan,
             m.KVStoreDelete: self._on_kv_delete,
+            m.DatasetShardParams: self._on_dataset_params,
+            m.TaskRequest: self._on_task_request,
+            m.TaskResult: self._on_task_result,
+            m.ShardCheckpointRequest: self._on_shard_ckpt_get,
+            m.ShardCheckpoint: self._on_shard_ckpt_restore,
+            m.NetworkCheckResult: self._on_network_check_result,
+            m.NetworkReadyRequest: self._on_network_ready,
+            m.FaultNodeRequest: self._on_fault_nodes,
+            m.StragglerRequest: self._on_stragglers,
             m.GlobalStep: self._on_global_step,
             m.CkptPerf: self._on_ckpt_perf,
             m.UsedResource: self._on_used_resource,
@@ -83,11 +78,6 @@ class MasterServicer:
         }
 
     def __call__(self, msg: m.Message) -> Optional[m.Message]:
-        item = REFUSED.get(type(msg))
-        if item is not None:
-            return m.BaseResponse(
-                success=False,
-                reason=f"{type(msg).__name__} comes with {item}")
         handler = self._dispatch.get(type(msg))
         if handler is None:
             logger.warning("servicer: unhandled message %s",
@@ -107,13 +97,20 @@ class MasterServicer:
                 msg.node_id, msg.node_type, msg.status, msg.exit_reason)
 
     def _on_node_failure(self, msg: m.NodeFailure):
+        if self.diagnosis_manager is not None:
+            self.diagnosis_manager.report_failure(msg)
+        if self.task_manager is not None:
+            self.task_manager.recover_worker_tasks(msg.node_id)
         if self.speed_monitor is not None:
             self.speed_monitor.mark_down()
 
     def _on_heartbeat(self, msg: m.Heartbeat):
+        actions = []
         if self.job_manager is not None:
             self.job_manager.collect_heartbeat(msg.node_id, msg.timestamp)
-        return m.HeartbeatResponse(actions=[])
+        if self.diagnosis_manager is not None:
+            actions = self.diagnosis_manager.pop_actions(msg.node_id)
+        return m.HeartbeatResponse(actions=actions)
 
     # -- rendezvous -----------------------------------------------------------
     def _rdzv(self, name: str):
@@ -175,6 +172,67 @@ class MasterServicer:
         return m.BaseResponse(
             success=self.kv_store.delete(msg.key, token=msg.token))
 
+    # -- data sharding ----------------------------------------------------------
+    def _on_dataset_params(self, msg: m.DatasetShardParams):
+        if not self.task_manager.has_dataset(msg.dataset_name):
+            # The splitter's keywords double as the dataset's snapshot.
+            params = dict(dataset_name=msg.dataset_name,
+                          dataset_size=msg.dataset_size,
+                          shard_size=msg.shard_size,
+                          num_epochs=msg.num_epochs, shuffle=msg.shuffle,
+                          storage_type=msg.storage_type)
+            self.task_manager.new_dataset(new_dataset_splitter(**params),
+                                          params=params)
+
+    def _on_task_request(self, msg: m.TaskRequest):
+        got = self.task_manager.get_task(msg.dataset_name, msg.worker_id,
+                                         token=msg.token)
+        if got is None:
+            return m.Task(task_id=-1, dataset_name=msg.dataset_name)
+        task_id, shard, epoch = got
+        return m.Task(task_id=task_id, dataset_name=msg.dataset_name,
+                      start=shard.start, end=shard.end, epoch=epoch)
+
+    def _on_task_result(self, msg: m.TaskResult):
+        self.task_manager.report_task_result(msg.dataset_name, msg.task_id,
+                                             msg.success)
+
+    def _on_shard_ckpt_get(self, msg: m.ShardCheckpointRequest):
+        return m.ShardCheckpoint(
+            dataset_name=msg.dataset_name,
+            content=self.task_manager.checkpoint_dataset(msg.dataset_name))
+
+    def _on_shard_ckpt_restore(self, msg: m.ShardCheckpoint):
+        return m.BaseResponse(success=self.task_manager.restore_dataset(
+            msg.dataset_name, msg.content))
+
+    # -- the pre-flight node check --------------------------------------------
+    def _on_network_check_result(self, msg: m.NetworkCheckResult):
+        mgr = self.rdzv_managers.get(RendezvousName.NETWORK_CHECK)
+        if mgr is not None:
+            mgr.report_result(msg.node_id, msg.succeeded, msg.elapsed,
+                              msg.round)
+
+    def _on_network_ready(self, msg: m.NetworkReadyRequest):
+        mgr = self.rdzv_managers.get(RendezvousName.NETWORK_CHECK)
+        return m.BaseResponse(
+            success=mgr.network_ready() if mgr is not None else True)
+
+    def _on_fault_nodes(self, msg: m.FaultNodeRequest):
+        mgr = self.rdzv_managers.get(RendezvousName.NETWORK_CHECK)
+        if mgr is None:
+            return m.FaultNodes()
+        nodes, reason = mgr.check_fault_node()
+        return m.FaultNodes(nodes=nodes, reason=reason)
+
+    def _on_stragglers(self, msg: m.StragglerRequest):
+        mgr = self.rdzv_managers.get(RendezvousName.NETWORK_CHECK)
+        if mgr is None:
+            return m.Stragglers()
+        times, stragglers = mgr.get_stragglers()
+        return m.Stragglers(nodes=stragglers, times=times,
+                            complete=mgr.results_complete())
+
     # -- metrics --------------------------------------------------------------
     def _on_global_step(self, msg: m.GlobalStep):
         if self.speed_monitor is not None:
@@ -198,8 +256,8 @@ class MasterServicer:
             self.job_manager.collect_model_info(msg)
 
     def _on_diagnosis_report(self, msg: m.DiagnosisReport):
-        """Acknowledged and dropped: the master-side collector comes with
-        ``constants.DIAGNOSIS_ITEM``."""
+        if self.diagnosis_manager is not None:
+            self.diagnosis_manager.collect_data(msg)
 
     # -- sync -----------------------------------------------------------------
     def _on_sync_join(self, msg: m.SyncJoin):

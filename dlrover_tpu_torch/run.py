@@ -14,15 +14,18 @@ same port (agents ride the gap through the RPC retry and the rendezvous
 re-join).  Every launch gets a ``DLROVER_TPU_RUN_ID`` that scopes the shm
 arenas of its workers and its agent's saver; the arenas of earlier launches
 of the job idle for an hour are collected at start, and this launch's at
-exit.  The master's run config is merged into the agent's, then the agent
-runs (``agent/training.py``).  Unlike the reference, a SIGTERM to the
+exit.  The master's run config is merged into the agent's; with
+``--network_check`` or ``--comm_perf_test`` (from the command line or the
+run config) the pre-flight node check runs (``agent/node_check.py``), and
+a node the master finds faulty exits with 3; then the agent runs
+(``agent/training.py``).  Unlike the reference, a SIGTERM to the
 launcher unwinds it as an error does: the agent stops its workers and the
 master is terminated, where the reference's default handler would orphan
 them.
 
 Refused by name: ``--standby`` and ``--master_state_dir`` (``HA_ITEM``),
-``--cell`` and ``--job_file`` (``HOST_LAYERS``), ``--network_check`` and
-``--comm_perf_test`` (``NODE_CHECK_ITEM``), and what the agent refuses.
+``--cell`` and ``--job_file`` (``HOST_LAYERS``), and what the agent
+refuses.
 """
 
 from __future__ import annotations
@@ -46,11 +49,7 @@ from dlrover_tpu_torch.agent.training import (
     launch_agent,
     refuse_later_options as refuse_agent_options,
 )
-from dlrover_tpu_torch.common.constants import (
-    HA_ITEM,
-    HOST_LAYERS,
-    NODE_CHECK_ITEM,
-)
+from dlrover_tpu_torch.common.constants import HA_ITEM, HOST_LAYERS
 from dlrover_tpu_torch.common.log import logger, set_role
 from dlrover_tpu_torch.common.rpc import addr_connectable
 
@@ -112,8 +111,6 @@ def refuse_later_options(args: argparse.Namespace) -> None:
         (args.cell > 0, "--cell (the multi-cell control plane)",
          HOST_LAYERS),
         (args.job_file, "--job_file (ElasticJob YAML)", HOST_LAYERS),
-        (args.network_check, "--network_check", NODE_CHECK_ITEM),
-        (args.comm_perf_test, "--comm_perf_test", NODE_CHECK_ITEM),
     ]
     for on, what, where in refused:
         if on:
@@ -257,6 +254,16 @@ def run(args: argparse.Namespace) -> int:
     except Exception as e:  # noqa: BLE001
         logger.warning("could not fetch master run config: %s", e)
     refuse_agent_options(config)  # the merged config, as the reference
+    # Gated on the merged config: a master that turns the checks on or off
+    # takes effect.
+    if config.network_check or config.comm_perf_test:
+        from dlrover_tpu_torch.agent.node_check import node_health_check
+
+        if not node_health_check(config, master_addr, client):
+            logger.error("node health check failed; exiting for relaunch")
+            master_stop.set()
+            client.close()
+            return 3
 
     entry = ([args.entrypoint] if args.no_python
              else [sys.executable, "-u", args.entrypoint])

@@ -9,7 +9,8 @@ the refusals below need them) and ``--device``:
     python -m dlrover_tpu_torch.train --model tiny --device cpu \
         --ckpt_dir /tmp/ckpt --ckpt_interval 5
 
-It builds ``llama.loss_fn`` over fp32 master parameters (random, seed 0),
+It builds ``llama.loss_fn`` over fp32 master parameters (random, seed 0;
+``--n_layer N`` keeps the width and cuts the depth to N blocks),
 trains with ``adamw(lr)`` through ``accelerate()`` on the example's
 synthetic tokens drawn by an ``ElasticSampler`` (seed 17), prints the loss
 and the gradient norm (both in full) every ``--log_every`` steps and a
@@ -105,6 +106,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--seq_len", type=int, default=32)
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--strategy", default="dp", choices=["dp", "auto"])
+    p.add_argument("--n_layer", type=int, default=0,
+                   help="cut the model to N blocks of the same width "
+                        "(0: its own depth)")
     p.add_argument("--remat_block", action="store_true")
     p.add_argument("--fp8", action="store_true")
     p.add_argument("--quant_grads", action="store_true")
@@ -145,7 +149,10 @@ def build_config(args: argparse.Namespace) -> llama.LlamaConfig:
         cfg = llama.LlamaConfig.medium_800m()
     else:
         cfg = llama.LlamaConfig.tiny(max_seq_len=args.seq_len)
-    return dataclasses.replace(cfg, remat_block=args.remat_block)
+    if args.n_layer < 0:
+        raise ValueError(f"--n_layer must be >= 0, got {args.n_layer}")
+    return dataclasses.replace(cfg, remat_block=args.remat_block,
+                               n_layer=args.n_layer or cfg.n_layer)
 
 
 def synth_tokens(indices, seq_len: int, vocab: int) -> np.ndarray:

@@ -314,7 +314,6 @@ def test_rendezvous_rejoins_a_restarted_master(monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--standby"], "3c.5"), (["--master_state_dir", "d"], "3c.5"),
     (["--cell", "2"], "multi-cell"), (["--job_file", "j.yaml"], "YAML"),
-    (["--network_check"], "3c.1"), (["--comm_perf_test"], "3c.1"),
 ])
 def test_launcher_refuses_later_flags_by_name(flags, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -325,7 +324,6 @@ def test_launcher_refuses_later_flags_by_name(flags, match):
     ({"DLROVER_TPU_METRICS_PORT": "9100"}, {}, "METRICS_PORT"),
     ({"DLROVER_TPU_FAULTS": "worker.kill:step=3"}, {}, "FAULTS"),
     ({}, {"node_role": "gateway"}, "service role"),
-    ({}, {"network_check": True}, "3c.1"),
 ])
 def test_agent_refuses_later_options_by_name(monkeypatch, env, kw, match):
     for k, v in env.items():

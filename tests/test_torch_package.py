@@ -87,7 +87,17 @@ def test_import_leaves_jax_and_reference_out():
         "dlrover_tpu_torch.agent.training, "
         "dlrover_tpu_torch.agent.master_client, "
         "dlrover_tpu_torch.diagnosis.agent, dlrover_tpu_torch.common.rpc, "
-        "dlrover_tpu_torch.common.messages\n"
+        "dlrover_tpu_torch.common.messages, "
+        "dlrover_tpu_torch.master.dataset_splitter, "
+        "dlrover_tpu_torch.master.task_manager, "
+        "dlrover_tpu_torch.data.sharding, dlrover_tpu_torch.agent.node_check, "
+        "dlrover_tpu_torch.diagnosis.data, "
+        "dlrover_tpu_torch.diagnosis.inference, "
+        "dlrover_tpu_torch.diagnosis.operators, "
+        "dlrover_tpu_torch.diagnosis.manager, "
+        "dlrover_tpu_torch.trainer.elastic, dlrover_tpu_torch.trainer.trainer\n"
+        "import dlrover_tpu_torch.trainer as sdk\n"
+        "assert sdk.Trainer and sdk.init and sdk.ElasticDataLoader\n"
         "from dlrover_tpu_torch.models.llama_infer import ("
         "KvSegmentError, pack_kv_segment, prefix_fingerprint, "
         "unpack_kv_segment)\n"

@@ -330,6 +330,40 @@ CONTROL_PLANE = [
     ("dlrover_tpu.diagnosis.agent", "dlrover_tpu_torch.diagnosis.agent",
      "DiagnosisAgent.diagnose_training_failure"),
 ] + [
+    (f"dlrover_tpu.{mod}", f"dlrover_tpu_torch.{mod}", name)
+    for mod, names in (
+        ("master.dataset_splitter", (
+            "TableDatasetSplitter.__init__", "TextDatasetSplitter.__init__",
+            "StreamingDatasetSplitter.__init__", "new_dataset_splitter")),
+        ("master.task_manager", (
+            "DatasetManager.__init__", "DatasetManager.get_task",
+            "DatasetManager.restore", "TaskManager.__init__",
+            "TaskManager.new_dataset", "TaskManager.get_task",
+            "TaskManager.report_task_result")),
+        ("master.event_callback", (
+            "TaskRescheduleCallback.__init__",
+            "AllReduceNodeHandlingCallback.__init__")),
+        ("data.sharding", ("ShardingClient.__init__",
+                           "IndexShardingClient.iter_batches")),
+        ("agent.node_check", ("node_health_check",)),
+        ("diagnosis.data", ("DiagnosisDataManager.__init__",
+                            "DiagnosisDataManager.store_data")),
+        ("diagnosis.operators", (
+            "CheckTrainingHangOperator.__init__",
+            "CheckFailureNodeOperator.__init__",
+            "CheckStragglerOperator.__init__")),
+        ("diagnosis.manager", ("DiagnosisManager.__init__",
+                               "DiagnosisManager.enqueue_broadcast")),
+        ("trainer.elastic", (
+            "resolve_grad_accum", "TrainerConfig", "ElasticTrainer.__init__",
+            "ElasticTrainer.build", "ElasticDataLoader.__init__")),
+        ("trainer.trainer", (
+            "TrainingArgs", "TrainerState", "TrainerControl",
+            "build_lr_schedule", "build_optimizer", "Trainer.__init__",
+            "Trainer.save", "Trainer.train")),
+    )
+    for name in names
+] + [
     ("dlrover_tpu.agent.master_client",
      "dlrover_tpu_torch.agent.master_client", f"MasterClient.{name}")
     for name in sorted(
