@@ -110,7 +110,8 @@ together), then runs the phases below and exits non-zero if any fails:
    for bit (the fp32 masters, the int8 codes, their scales, the step count
    and the rounding generator), and one more step of each gives bit-equal
    losses and states.
-9. Flash checkpoint: Llama-800M with AdamW (full width and depth, B 4 x S
+9. Flash checkpoint: Llama-800M with AdamW (full width at
+   ``ELASTIC_LAYERS`` (8) of its 24 blocks, B 4 x S
    2048) through ``train.main --ckpt_dir``: two uninterrupted runs of 3
    steps agree bit for bit (else the op that is not deterministic is
    named); a run stops after step 2 and its save; a child process
@@ -149,15 +150,22 @@ together), then runs the phases below and exits non-zero if any fails:
    counters); the step times, the gloo reduction's time, each rank's
    persist bytes and time and the restores on a line ``phase10
    multiprocess {...}``.
-11. The elastic loop (run after phase 10), the same 8-block cut of
-   Llama-800M with AdamW at B 4 x S 2048 through the launcher: ``python -m
-   dlrover_tpu_torch.run --standalone --nproc_per_node=1
-   dlrover_tpu_torch/train.py -- ... --ckpt_dir D --ckpt_interval 2
-   --steps 6 --log_every 1`` starts the port's master and agent, which
-   starts the worker.  Once the worker has logged step 3, it (not the
-   agent) is SIGKILLed.  The agent must log the failure, the breakpoint
-   save and a second rendezvous round; the new worker must warm-restore
-   the step staged before the kill from shm, and every loss and gradient
+11. The elastic loop with master HA (run after phase 10), the same 8-block
+   cut of Llama-800M with AdamW at B 4 x S 2048 through the launcher:
+   ``python -m dlrover_tpu_torch.run --standalone --standby
+   --master_state_dir H --nproc_per_node=1 dlrover_tpu_torch/train.py --
+   ... --ckpt_dir D --ckpt_interval 2 --steps 6 --log_every 1`` starts the
+   port's master (journaling in ``H``), a warm standby master and the
+   agent, which starts the worker.  Once the worker has logged step 2 the
+   primary master is SIGKILLed by the pid the launcher logged: the standby
+   must take over (``TOOK OVER``), answer the clients' RPCs, and the
+   launcher must promote it and start a fresh standby, while the worker
+   trains on (it is not restarted).  Once the worker has logged step 3 or
+   later and the standby took over, the worker (not the agent) is
+   SIGKILLed.  The agent must log the failure, the breakpoint save and a
+   second rendezvous round, served by the promoted master; the new worker
+   must warm-restore the step staged before the kill from shm, and every
+   loss and gradient
    norm after it, to step 6, must equal phase 10a's bit for bit, with 17
    RMSNorm and 8 launches of each flash kernel for every step it ran; the
    launcher exits 0 with ``TRAIN_DONE`` and leaves no arena of the run in
@@ -166,10 +174,17 @@ together), then runs the phases below and exits non-zero if any fails:
    output) and its parts (detection, breakpoint save and stop, rendezvous,
    spawn, process start to ``bootstrap.init``, model and optimizer build,
    the restore call with the warm restore in it, first step), the first
-   worker's start-up beside them, the breakpoint save's bytes and ms and
-   the master's RPC count go on a line ``phase11 elastic {...}``.
+   worker's start-up beside them, the breakpoint save's bytes and ms, the
+   promoted master's RPC count and, under ``master_ha``, the failover (the
+   master's kill to the takeover and to the first RPC the promoted master
+   answered, the RPCs the agent and the worker retried, the fresh
+   standby's start, the journal's records, bytes and mean append time,
+   fsync included) go on a line ``phase11 elastic {...}``;
+   ``python -m dlrover_tpu_torch.master.statecheck H`` must then find the
+   journal clean, with one takeover and one clean shutdown.
 12. The trainer SDK behind the pre-flight node check (run after phase
-   11), Llama-800M at full width and depth with AdamW: the phase writes a
+   11), Llama-800M's width at ``ELASTIC_LAYERS`` (8) of its 24 blocks
+   with AdamW: the phase writes a
    user script (``SDK_SCRIPT``: ``sdk.init()``, ``sdk.Trainer`` over
    ``llama.loss_fn`` with a one-card ``Strategy``, global batch 4 of
    micro batches of 2 (``grad_accum`` 2), 6 steps, cosine LR with 2
@@ -187,9 +202,9 @@ together), then runs the phases below and exits non-zero if any fails:
    pass, trains steps 4-6, evaluates at 6 and saves.  Every step's loss,
    gradient norm and LR and the eval losses at 3 and 6 equal the
    uninterrupted run's bit for bit, the LRs equal ``build_lr_schedule``'s,
-   and the new worker's own counters show 392 RMSNorm, 192 flash forward,
-   144 dq and 144 dk/dv launches (3 steps of 2 micro batches and 2 eval
-   batches).  The verdict with the payloads' times and TFLOP/s, the
+   and the new worker's own counters show 136 RMSNorm, 64 flash forward,
+   48 dq and 48 dk/dv launches (3 steps of 2 micro batches and 2 eval
+   batches, 8 blocks).  The verdict with the payloads' times and TFLOP/s, the
    recovery split as phase 11's, the master's RPC count and the heartbeat
    actions go on a line ``phase12 trainer_sdk {...}``.
 
@@ -2116,8 +2131,9 @@ def expected_launches(cfg, steps: int) -> dict:
 
 
 def phase_checkpoint(llama, train, counted, card: str) -> dict:
-    """Phase 9: flash checkpointing of Llama-800M (AdamW, full width and
-    depth, B 4 x S 2048) through the training CLI.  Two uninterrupted runs
+    """Phase 9: flash checkpointing of Llama-800M (AdamW, full width at
+    ``ELASTIC_LAYERS`` of its 24 blocks, B 4 x S 2048) through the
+    training CLI.  Two uninterrupted runs
     of K + 1 steps (one checkpointing) must agree bit for bit; a run stops
     after step K and its save; a restore in a child process from the arena
     it left (warm) and one from storage alone (cold: a hard-linked copy of
@@ -2138,8 +2154,9 @@ def phase_checkpoint(llama, train, counted, card: str) -> dict:
     from dlrover_tpu_torch.trainer.sampler import ElasticSampler
 
     k = CKPT_K
-    base = ["--model", CKPT_MODEL, "--seq_len", str(TRAIN_SEQ),
-            "--batch_per_proc", str(TRAIN_BATCH), "--device", DEV]
+    base = ["--model", CKPT_MODEL, "--n_layer", str(ELASTIC_LAYERS),
+            "--seq_len", str(TRAIN_SEQ), "--batch_per_proc",
+            str(TRAIN_BATCH), "--device", DEV]
     cfg = train.build_config(train.parse_args(base))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     dirs = {n: os.path.join(tmp, n) for n in ("straight", "run", "cold")}
@@ -2724,8 +2741,26 @@ def phase_multiprocess(train, card: str, trained: dict) -> dict:
 
 
 ELASTIC_INTERVAL = 2  # phase 11: --ckpt_interval
+ELASTIC_MASTER_KILL_AT = 2  # phase 11: the primary master is SIGKILLed then
 ELASTIC_KILL_AT = 3  # phase 11: the worker is SIGKILLed once it logs this
 ELASTIC_TIMEOUT_S = 600  # phase 11: the launcher's limit
+#: Phase 11's master lines: the launcher's, the standby's (the promoted
+#: master's) and an RPC client's retry.
+HA_MARKS = {
+    "primary": r"local master pid=(\d+) on (\S+) journaling in",
+    "standby": r"standby master pid=(\d+) bound on (\S+) in ([\d.]+) s",
+    "took_over": r"standby TOOK OVER as generation (\d+) on (\S+) "
+                 r"\(([^)]*)\): (\d+) records replayed, takeover "
+                 r"([\d.]+) ms",
+    "first_rpc": r"^\[master-standby\].*RPC server on :(\d+) answered "
+                 r"its first request \((\w+)\)",
+    "promoted": r"primary master \(pid (\d+)\) exited rc=(-?\d+); "
+                r"standby \(pid (\d+)\) took over at (\S+)",
+    "journal": r"^\[(master|master-standby)\].*control journal: "
+               r"appends=(\d+) bytes=(\d+) mean_append_ms=([\d.]+) "
+               r"fsync=(\w+)",
+}
+RETRY_LINE = r"^\[(agent-0|worker-0)\].*RPC (\w+) to \S+ failed \((\w+)\)"
 
 
 def elastic_events(lines, t_kill: float,
@@ -2784,7 +2819,9 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
          "--seq_len", str(TRAIN_SEQ)]))
     job, run_id = "chip-smoke-elastic", f"cs{os.getpid()}"
     tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    ha_dir = os.path.join(tmp, "ha")
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+           "--standby", "--master_state_dir", ha_dir,
            "--nproc_per_node=1", f"--job_name={job}",
            os.path.join("dlrover_tpu_torch", "train.py"), "--",
            "--model", CKPT_MODEL, "--n_layer", str(ELASTIC_LAYERS),
@@ -2808,11 +2845,26 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
             m = re.search(r"started 1 worker\(s\): pids=\[(\d+)\]", line)
             if m and "pid" not in state:
                 state["pid"] = int(m[1])
+            m = re.search(HA_MARKS["primary"], line)
+            if m and "master_pid" not in state:
+                state["master_pid"] = int(m[1])
+            if "t_master_kill" in state and "took_over" not in state \
+                    and re.search(HA_MARKS["took_over"], line):
+                state["took_over"] = t
             m = re.match(r"\[worker 0\] saved step=(\d+) to memory", line)
             if m and "t_kill" not in state:
                 state["staged"] = int(m[1])
-            if line.startswith(f"[worker 0] step {ELASTIC_KILL_AT} loss=") \
-                    and "t_kill" not in state:
+            m = re.match(r"\[worker 0\] step (\d+) loss=", line)
+            if m and "t_kill" not in state:
+                state["step"] = int(m[1])
+            if state.get("step") == ELASTIC_MASTER_KILL_AT \
+                    and "t_master_kill" not in state:
+                os.kill(state["master_pid"], signal.SIGKILL)
+                state["t_master_kill"] = time.perf_counter()
+            # The worker is killed once it logged its step and the standby
+            # took over, so that the promoted master serves the restart.
+            if state.get("step", 0) >= ELASTIC_KILL_AT \
+                    and "took_over" in state and "t_kill" not in state:
                 os.kill(state["pid"], signal.SIGKILL)
                 state["t_kill"] = time.perf_counter()
 
@@ -2829,11 +2881,25 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
             proc.wait()
-        for _, ln in lines:  # no worker of the run may outlive it
+        for _, ln in lines:  # no worker or master may outlive the run
             for pid in re.findall(r"pids=\[(\d+)\]", ln):
                 with contextlib.suppress(ProcessLookupError,
                                          PermissionError):
                     os.killpg(int(pid), signal.SIGKILL)
+            for mark in ("primary", "standby"):
+                m = re.search(HA_MARKS[mark], ln)
+                if m:
+                    with contextlib.suppress(ProcessLookupError,
+                                             PermissionError):
+                        os.kill(int(m[1]), signal.SIGKILL)
+        # The journal, checked before the dir goes.
+        check = subprocess.run(
+            [sys.executable, "-m", "dlrover_tpu_torch.master.statecheck",
+             ha_dir, "--json"], cwd=REPO_ROOT, capture_output=True,
+            text=True, timeout=120)
+        journal_bytes = {name: os.path.getsize(os.path.join(ha_dir, name))
+                         for name in ("wal.log", "snap.bin")
+                         if os.path.exists(os.path.join(ha_dir, name))}
         shutil.rmtree(tmp, ignore_errors=True)
     wall = time.perf_counter() - t0
     text = "\n".join(ln for _, ln in lines)
@@ -2843,8 +2909,11 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
             ln for _, ln in lines[-60:]))
         raise SystemExit(f"phase 11: {why}")
 
-    if rc != 0 or "t_kill" not in state:
-        fail(f"launcher rc {rc}, killed: {'t_kill' in state}")
+    if rc != 0 or "t_kill" not in state or "t_master_kill" not in state:
+        fail(f"launcher rc {rc}, master killed: {'t_master_kill' in state}, "
+             f"standby took over: {'took_over' in state}, worker killed: "
+             f"{'t_kill' in state}")
+    ha = ha_events(lines, state, check, journal_bytes)
     ev = elastic_events(lines, state["t_kill"])
     missing = [n for n in ("detected", "breakpoint", "persisted", "hook",
                            "stopped", "round", "started", "init", "built",
@@ -2906,7 +2975,7 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
         "card": card, "model": f"{CKPT_MODEL}, AdamW",
         "n_layer": cfg.n_layer,
         "global_batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
-        "interval": ELASTIC_INTERVAL, "killed_after_step": ELASTIC_KILL_AT,
+        "interval": ELASTIC_INTERVAL, "killed_after_step": state["step"],
         "staged_step": staged, "restored_step": restored,
         "kill_to_first_step_s": at("first_step") - state["t_kill"],
         "parts": parts, "warm_restore_ms": restore_ms,
@@ -2919,10 +2988,94 @@ def phase_elastic(train, card: str, one_steps: dict) -> dict:
         "steps_after_restore_bit_equal": sorted(got),
         "launches_restarted_worker": fields["launches"],
         "master_rpc_calls": int(rpc[1]) if rpc else None,
+        "master_ha": ha,
         "launcher_wall_s": wall,
     }
     log("phase11 elastic " + json.dumps(res))
     return res
+
+
+def ha_events(lines, state: dict, check, journal_bytes: dict) -> dict:
+    """Phase 11's master failover from the launcher's merged output: the
+    primary master SIGKILLed at ``state["t_master_kill"]``, the standby's
+    takeover, the first RPC the promoted master answered, the fresh
+    standby, the RPC retries of the agent and the worker, the journal's
+    counters and the statecheck of its dir (``check``, a finished
+    ``subprocess.run``).  Raises ``SystemExit`` on a missing step."""
+    t_mk = state["t_master_kill"]
+
+    def first(mark, after=t_mk):
+        return next(((t, m) for t, ln in lines if t >= after
+                     for m in [re.search(HA_MARKS[mark], ln)] if m),
+                    (None, None))
+
+    t_over, over = first("took_over")
+    t_rpc, rpc = first("first_rpc")
+    t_prom, prom = first("promoted")
+    t_fresh, fresh = first("standby")
+    missing = [name for name, hit in (("takeover", over),
+                                      ("first RPC", rpc),
+                                      ("promotion", prom),
+                                      ("fresh standby", fresh)) if not hit]
+    starts = [t for t, ln in lines if re.search(
+        r"started 1 worker\(s\): pids=", ln)]
+    if missing or len(starts) != 2 or any(
+            t_mk <= t < state["t_kill"] for t in starts):
+        raise SystemExit(f"phase 11: the master failover lacks {missing}; "
+                         f"worker starts at {starts}, the master killed at "
+                         f"{t_mk}, the worker at {state['t_kill']}")
+    if int(prom[1]) != state["master_pid"] or rpc[1] != over[2].rsplit(
+            ":", 1)[1]:
+        raise SystemExit(f"phase 11: promoted pid {prom[1]} (killed "
+                         f"{state['master_pid']}), first RPC on :{rpc[1]}, "
+                         f"takeover on {over[2]}")
+    try:
+        report = json.loads(check.stdout)
+    except ValueError:
+        report = {}
+    if check.returncode != 0 or not report.get("clean"):
+        raise SystemExit(f"phase 11: statecheck rc {check.returncode}: "
+                         f"{check.stdout[-2000:]} {check.stderr[-2000:]}")
+    kinds = report["kinds"]
+    if kinds.get("ha.takeover") != 1 or kinds.get("ha.shutdown") != 1 \
+            or report["generations"] != [1, 2]:
+        raise SystemExit(f"phase 11: the journal's kinds {kinds}, "
+                         f"generations {report['generations']}")
+    retries = {}
+    for t, ln in lines:
+        m = re.search(RETRY_LINE, ln)
+        if m:
+            key = f"{m[1]} {m[2]} {m[3]}"
+            retries[key] = retries.get(key, 0) + 1
+    journal = {}
+    for t, ln in lines:
+        m = re.search(HA_MARKS["journal"], ln)
+        if m:  # each master's last counters
+            journal["primary" if m[1] == "master" else "promoted"] = {
+                "appends": int(m[2]), "bytes": int(m[3]),
+                "mean_append_ms": float(m[4]), "fsync": m[5] == "True",
+                "logged_after_master_kill_s": t - t_mk}
+    return {
+        "master_kill_to_takeover_s": t_over - t_mk,
+        "master_kill_to_first_rpc_s": t_rpc - t_mk,
+        "first_rpc": rpc[2],
+        "standby_takeover_ms": float(over[5]),
+        "records_replayed": int(over[4]),
+        "promoted_seen_by_launcher_s": t_prom - t_mk,
+        "fresh_standby_spawn_s": float(fresh[3]),
+        "takeover_to_fresh_standby_s": t_fresh - t_over,
+        "rpc_retries": retries,
+        "agent_rpc_retries": sum(n for k, n in retries.items()
+                                 if k.startswith("agent-0")),
+        "worker_rpc_retries": sum(n for k, n in retries.items()
+                                  if k.startswith("worker-0")),
+        "journal_records": report["records"],
+        "journal_kinds": kinds,
+        "journal_bytes": journal_bytes,
+        "append_counters": journal,
+        "statecheck_clean": True,
+        "worker_killed_after_step": state["step"],
+    }
 
 
 SDK_KILL_AT = 4  # phase 12: the worker is SIGKILLed once it logs this step
@@ -2975,6 +3128,7 @@ class Report(sdk.TrainerCallback):
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--model", default="800m")
+    p.add_argument("--n_layer", type=int, default=0)
     p.add_argument("--seq_len", type=int, default=2048)
     p.add_argument("--ckpt_dir", default="")
     p.add_argument("--device", default="cuda")
@@ -2983,7 +3137,8 @@ def parse_args(argv=None):
 
 def run(args, ctx=None):
     cfg = cli.build_config(cli.parse_args(
-        ["--model", args.model, "--seq_len", str(args.seq_len)]))
+        ["--model", args.model, "--n_layer", str(args.n_layer),
+         "--seq_len", str(args.seq_len)]))
     dev = torch.device(args.device)
 
     def fetch(indices):
@@ -3062,8 +3217,9 @@ def phase_trainer_sdk(train, card: str) -> dict:
     job_mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(job_mod)
     model = "800m" if DEV == "cuda" else "tiny"
-    n = train.build_config(train.parse_args(["--model", model])).n_layer
-    argv = ["--model", model, "--seq_len", str(TRAIN_SEQ), "--device", DEV]
+    argv = ["--model", model, "--n_layer", str(ELASTIC_LAYERS),
+            "--seq_len", str(TRAIN_SEQ), "--device", DEV]
+    n = train.build_config(train.parse_args(argv[:4])).n_layer
 
     # The uninterrupted run, in this process, without a checkpoint.
     t0 = time.perf_counter()

@@ -41,11 +41,11 @@ from typing import Dict, Optional
 
 from dlrover_tpu_torch.checkpoint import shard_file, slicer
 from dlrover_tpu_torch.checkpoint.engine import (
-    MULTICARD_SLICE,
     ckpt_lock_name,
     ckpt_queue_name,
     ckpt_stat_name,
 )
+from dlrover_tpu_torch.common.constants import MULTICARD_ITEM
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import (
     SharedDict,
@@ -115,13 +115,13 @@ class AsyncCheckpointSaver:
 
     def _replica_loop(self) -> None:
         raise NotImplementedError(
-            f"cross-node checkpoint replicas come with {MULTICARD_SLICE}")
+            f"cross-node checkpoint replicas come with {MULTICARD_ITEM}")
 
     def seed_from_replicas(self, process_ids: Dict[int, int],
                            num_processes: int) -> int:
         raise NotImplementedError(
             f"seeding arenas from cross-node replicas comes with "
-            f"{MULTICARD_SLICE}")
+            f"{MULTICARD_ITEM}")
 
     def stop(self) -> None:
         self._stop.set()

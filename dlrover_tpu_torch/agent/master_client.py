@@ -6,13 +6,18 @@ of ``dlrover_tpu/agent/master_client.py`` (``MasterClient``,
 
 Reads and tokened writes are sent ``idempotent`` (a timed-out attempt is
 retried), as the reference sends them; a heartbeat is not (it pops the
-master's pending actions).  Not here yet, each raising
-``NotImplementedError`` by name: the master-failover address chain
-(``state_dir=``, ``standby_addr=``; ``constants.HA_ITEM``), the live
-reshard calls (``get_reshard_epoch``, ``announce_reshard``,
-``report_reshard``) and ``journal_fetch`` (``constants.HOST_LAYERS``,
-``HA_ITEM``).  The data-sharding calls reach the master's task manager
-and the node-check calls its network-check rendezvous.
+master's pending actions).  The client follows a failed-over master
+(reference ``:27-56``): when the transport rebuilds its connections it
+asks :meth:`MasterClient._resolve_addr`, which reads the ``addr`` file of
+the HA state dir (``state_dir=``, default ``DLROVER_TPU_MASTER_STATE_DIR``;
+every leader rewrites it), or else moves to ``standby_addr=`` (default
+``DLROVER_TPU_MASTER_STANDBY_ADDR``) once the primary no longer takes a
+TCP connection and the standby does.  ``journal_fetch`` streams a
+primary's journal to a standby.  Not here yet, each raising
+``NotImplementedError`` by name: the live reshard calls
+(``get_reshard_epoch``, ``announce_reshard``, ``report_reshard``;
+``constants.HOST_LAYERS``).  The data-sharding calls reach the master's
+task manager and the node-check calls its network-check rendezvous.
 """
 
 from __future__ import annotations
@@ -23,21 +28,41 @@ import uuid
 from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.common import messages as m
-from dlrover_tpu_torch.common.constants import HA_ITEM, HOST_LAYERS
-from dlrover_tpu_torch.common.env import get_master_addr, get_node_id
-from dlrover_tpu_torch.common.rpc import RpcClient
+from dlrover_tpu_torch.common.constants import HOST_LAYERS
+from dlrover_tpu_torch.common.env import (
+    get_master_addr,
+    get_master_standby_addr,
+    get_master_state_dir,
+    get_node_id,
+)
+from dlrover_tpu_torch.common.rpc import RpcClient, addr_connectable
+from dlrover_tpu_torch.master.state import read_addr
 
 
 class MasterClient:
     def __init__(self, master_addr: str, node_id: int = 0,
                  state_dir: str = "", standby_addr: str = ""):
-        if state_dir or standby_addr:
-            raise NotImplementedError(
-                f"following a failed-over master (state_dir=, "
-                f"standby_addr=) comes with {HA_ITEM}")
-        self._client = RpcClient(master_addr)
+        self._state_dir = state_dir or get_master_state_dir()
+        self._standby_addr = standby_addr or get_master_standby_addr()
+        self._client = RpcClient(master_addr,
+                                 addr_provider=self._resolve_addr)
         self.node_id = node_id
         self.master_addr = master_addr
+
+    def _resolve_addr(self) -> str:
+        """The freshest master address: the state dir's ``addr`` file,
+        else the standby once the primary stops taking connections, else
+        the address in use."""
+        if self._state_dir:
+            published = read_addr(self._state_dir)
+            if published:
+                self.master_addr = published
+                return published
+        if self._standby_addr and self._standby_addr != self.master_addr \
+                and not addr_connectable(self.master_addr, timeout=0.5) \
+                and addr_connectable(self._standby_addr, timeout=0.5):
+            self.master_addr = self._standby_addr
+        return self.master_addr
 
     @property
     def addr(self) -> str:
@@ -296,6 +321,16 @@ class MasterClient:
         return (resp if isinstance(resp, m.ParallelConfig)
                 else m.ParallelConfig())
 
+    # -- master HA ------------------------------------------------------------
+    def journal_fetch(self, offset: int,
+                      max_bytes: int = 1 << 20) -> m.JournalChunk:
+        """Raw journal bytes from ``offset`` (``-1``: the snapshot)."""
+        resp = self._client.call(
+            m.JournalFetch(offset=offset, max_bytes=max_bytes),
+            idempotent=True)
+        return (resp if isinstance(resp, m.JournalChunk)
+                else m.JournalChunk(found=False))
+
     # -- not here yet
     def get_reshard_epoch(self):
         raise NotImplementedError(
@@ -313,10 +348,6 @@ class MasterClient:
                        moved_mb: float = 0.0) -> bool:
         raise NotImplementedError(
             f"reporting a live reshard comes with {HOST_LAYERS}")
-
-    def journal_fetch(self, offset: int, max_bytes: int = 1 << 20):
-        raise NotImplementedError(
-            f"the control-state journal comes with {HA_ITEM}")
 
     def reconnect(self) -> None:
         self._client.reconnect(force=True)

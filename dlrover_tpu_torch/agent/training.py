@@ -286,8 +286,9 @@ class ElasticTrainingAgent:
             old_pp = env.get("PYTHONPATH", "")
             env["PYTHONPATH"] = os.pathsep.join(
                 [p for p in extra_path if p] + ([old_pp] if old_pp else []))
+            # The client's address: after a master failover, the leader's.
             env.update(worker_env(
-                job_name=cfg.job_name, master_addr=self.master_addr,
+                job_name=cfg.job_name, master_addr=self.client.master_addr,
                 node_id=cfg.node_id, node_rank=world_info["my_rank"],
                 node_num=len(world), process_id=base + lr,
                 num_processes=world_info["num_processes"],

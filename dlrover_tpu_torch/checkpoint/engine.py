@@ -51,6 +51,7 @@ import torch
 from dlrover_tpu_torch.checkpoint import shard_file, slicer, tree_utils
 from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common import env as env_utils
+from dlrover_tpu_torch.common.constants import MULTICARD_ITEM
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import (
     SharedDict,
@@ -62,8 +63,6 @@ from dlrover_tpu_torch.common.shm import SharedMemoryArena, arena_name
 from dlrover_tpu_torch.common.storage import CheckpointStorage, storage_for
 from dlrover_tpu_torch.common.tensor_bytes import nbytes
 
-MULTICARD_SLICE = "Queue A item 5 of the port (multi-card training; " \
-    "see ROADMAP.md)"
 # Page-locked staging comes in chunks of this size: the host allocator
 # rounds a request up to a power of two, which one buffer of the whole
 # state (9.3 GB at Llama-800M with AdamW) would nearly double.
@@ -472,7 +471,7 @@ class CheckpointEngine:
         agreement is collective)."""
         if target_mesh is not None:
             raise NotImplementedError(
-                f"restore onto another mesh comes with {MULTICARD_SLICE}")
+                f"restore onto another mesh comes with {MULTICARD_ITEM}")
         t0 = time.perf_counter()
         self._restore_boxes = (self._target_boxes(target)
                                if target is not None else None)
@@ -558,7 +557,7 @@ class CheckpointEngine:
             if any(idx != whole for idx, _ in pieces):
                 raise NotImplementedError(
                     f"{path}: the checkpoint holds partial boxes (a sharded "
-                    f"layout); restoring them comes with {MULTICARD_SLICE}")
+                    f"layout); restoring them comes with {MULTICARD_ITEM}")
         tensors = source.whole()
         if target is not None:
             tree_utils.check_target(tensors, target)
@@ -600,7 +599,7 @@ class CheckpointEngine:
             if hasattr(leaf.tensor, "placements"):
                 raise NotImplementedError(
                     f"{leaf.path}: a sharded target leaf; restoring into "
-                    f"partial boxes comes with {MULTICARD_SLICE}")
+                    f"partial boxes comes with {MULTICARD_ITEM}")
             out[leaf.path] = [tuple((0, int(d)) for d in leaf.tensor.shape)]
         return out
 

@@ -6,11 +6,11 @@ env contract's ``NodeEnv`` is in ``common/env.py``), with the same names
 and values, so that the two packages' control planes speak one
 vocabulary.
 
-The names at the end say where each part of the control plane that the
-port does not have yet comes in (ROADMAP.md, Queue A); the options that
-would reach one raise ``NotImplementedError`` naming it.  Items 3c.1-3c.4
-(the node check, data sharding, the diagnosis manager, the trainer SDK)
-are ported; ``HA_ITEM`` (3c.5) is next.
+The table at the end, ``QUEUE_A_ITEMS``, names each ROADMAP.md Queue A
+item that the port does not have yet; every option that would reach one
+raises ``NotImplementedError`` naming it through the table (the names
+below it read it), so an item is named one way everywhere.  Item 3 (the
+elastic job, master HA included) is ported; item 4 is next.
 """
 
 from __future__ import annotations
@@ -89,16 +89,30 @@ class Defaults:
     RDZV_TIMEOUT = 600
 
 
-def _item(what: str) -> str:
-    return f"{what} (see ROADMAP.md)"
+#: ROADMAP.md Queue A's items still to port, by key.
+QUEUE_A_ITEMS = {
+    "1": "Queue A item 1 of the port (the checkpoint slice's leftovers: "
+         "object stores)",
+    "4": "Queue A item 4 of the port (the later serving slice: "
+         "speculative decoding, serve_journaled and the serving host "
+         "layers)",
+    "5": "Queue A item 5 of the port (multi-card training)",
+    "6": "Queue A item 6 of the port (model features: MoE, fp8, LoRA and "
+         "the HF import)",
+    "rest": "the host-only layers of the port (brain/, cells/, fleet/, "
+            "scheduler/, obs/, reshard/: Queue A, the rest)",
+    "chaos": "the chaos layer of the port (chaos/: Queue A, the rest)",
+}
 
 
-HA_ITEM = _item(
-    "Queue A item 3c.5 of the port (master/{state,standby}.py, the HA "
-    "journal and the warm standby)")
-#: The host-only layers of ROADMAP.md's Queue A, "the rest".
-HOST_LAYERS = _item(
-    "the host-only layers of the port (brain/, cells/, fleet/, "
-    "scheduler/, obs/, reshard/: Queue A, the rest)")
-CHAOS_LAYER = _item("the chaos layer of the port (chaos/: Queue A, the rest)")
-MULTICARD_ITEM = _item("Queue A item 5 of the port (multi-card training)")
+def item(key: str) -> str:
+    """The refusal text of Queue A item ``key``."""
+    return f"{QUEUE_A_ITEMS[key]} (see ROADMAP.md)"
+
+
+OBJECT_STORE_ITEM = item("1")
+SERVING_ITEM = item("4")
+MULTICARD_ITEM = item("5")
+MODEL_ITEM = item("6")
+HOST_LAYERS = item("rest")
+CHAOS_LAYER = item("chaos")

@@ -1,7 +1,9 @@
 """Environment helpers — the port's own copy of the getters of
 ``dlrover_tpu/common/env.py`` that ``trainer/bootstrap.py``,
-``common/dist_env.py`` and the checkpoint read (``get_coordinator``,
-``worker_env``: ``env.py:77-105``), with the names of
+``common/dist_env.py``, the checkpoint and the master client read
+(``get_coordinator``, ``worker_env``: ``env.py:77-105``;
+``get_master_standby_addr`` ``:37``, ``get_master_state_dir`` ``:43``),
+with the names of
 ``dlrover_tpu/common/constants.py`` ``NodeEnv`` (the agent/worker
 environment contract)."""
 
@@ -16,6 +18,8 @@ class NodeEnv:
 
     JOB_NAME = "DLROVER_TPU_JOB_NAME"
     MASTER_ADDR = "DLROVER_TPU_MASTER_ADDR"
+    MASTER_STANDBY_ADDR = "DLROVER_TPU_MASTER_STANDBY_ADDR"
+    MASTER_STATE_DIR = "DLROVER_TPU_MASTER_STATE_DIR"
     NODE_ID = "DLROVER_TPU_NODE_ID"
     NODE_RANK = "DLROVER_TPU_NODE_RANK"
     NODE_NUM = "DLROVER_TPU_NODE_NUM"
@@ -52,6 +56,18 @@ def get_node_num() -> int:
 
 def get_master_addr() -> str:
     return get_env_str(NodeEnv.MASTER_ADDR)
+
+
+def get_master_standby_addr() -> str:
+    """The warm standby master's address, when one runs: clients move to
+    it once the primary stops answering."""
+    return get_env_str(NodeEnv.MASTER_STANDBY_ADDR)
+
+
+def get_master_state_dir() -> str:
+    """The master's HA state dir: clients read the serving master's
+    address from its ``addr`` file, which every leader rewrites."""
+    return get_env_str(NodeEnv.MASTER_STATE_DIR)
 
 
 def get_job_name() -> str:

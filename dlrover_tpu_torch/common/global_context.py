@@ -4,8 +4,9 @@
 
 Each knob has the reference's name, default and environment variable
 (``DLROVER_TPU_<UPPER_NAME>``).  Only the knobs that the port's master,
-agent and launcher read are here; the checkpoint's, live resharding's and
-master HA's come with the modules that read them.
+agent, launcher and master HA (``master/state.py``, ``master/standby.py``;
+reference ``:92-107``) read are here; the checkpoint's and live
+resharding's come with the modules that read them.
 """
 
 from __future__ import annotations
@@ -34,6 +35,19 @@ class Context:
         self.hang_timeout_s: float = 1800.0
         self.train_speed_record_num: int = 50
         self.auto_tune: bool = False
+        # Master HA.  The standby declares the primary dead once the
+        # journal and the lease file stop changing for ha_lease_s on the
+        # standby's own clock (the two processes' clocks are never
+        # compared); the primary bumps the lease every ha_lease_interval_s,
+        # well under it.  The standby polls the journal every
+        # ha_tail_poll_s, the primary snapshots every ha_snapshot_every
+        # records, and a step baseline is journaled at most every
+        # ha_speed_journal_s.
+        self.ha_lease_s: float = 4.0
+        self.ha_lease_interval_s: float = 1.0
+        self.ha_tail_poll_s: float = 0.2
+        self.ha_snapshot_every: int = 1000
+        self.ha_speed_journal_s: float = 15.0
         self._apply_env_overrides()
 
     def _apply_env_overrides(self) -> None:

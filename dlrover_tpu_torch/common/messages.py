@@ -11,9 +11,10 @@ the port depends on no ``msgpack`` — including the omission of an empty
 ``_WIRE_OPTIONAL`` field, so that each package decodes the other's bytes.
 Only control data travels here; tensors ride the shm arena.
 
-The serving (``Serve*``, ``Replica*``, ``KvSegment*``, ``Draft*``), fleet,
-cell, journal, reshard, embedding and observability types come with the
-slices that bring those layers.
+The master-HA types (``JournalFetch``, ``JournalChunk``: reference
+``:1121``, ``:1134``) are here.  The serving (``Serve*``, ``Replica*``,
+``KvSegment*``, ``Draft*``), fleet, cell, reshard, embedding and
+observability types come with the slices that bring those layers.
 """
 
 from __future__ import annotations
@@ -479,3 +480,28 @@ class JobExitRequest(Message):
     node_id: int = 0
     reason: str = ""
     success: bool = True
+
+
+# -- master HA ------------------------------------------------------------------
+@dataclasses.dataclass
+class JournalFetch(Message):
+    """A standby's read of the primary's control-state WAL from byte
+    ``offset``; ``offset=-1`` asks for the snapshot file."""
+
+    offset: int = 0
+    max_bytes: int = 1 << 20
+
+
+@dataclasses.dataclass
+class JournalChunk(Message):
+    """Bytes of the primary's WAL from ``offset`` (the snapshot for
+    ``offset=-1``).  ``eof``: nothing past ``offset`` now; ``found``:
+    False when the primary keeps no journal; ``wal_size``/``wal_ino`` (of
+    the file the bytes were read from) show a compaction to the mirror."""
+
+    data: bytes = b""
+    offset: int = 0
+    eof: bool = True
+    found: bool = True
+    wal_size: int = -1
+    wal_ino: int = 0

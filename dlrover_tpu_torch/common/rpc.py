@@ -184,7 +184,7 @@ class RpcServer:
         self._bound_port = self._server.server_address[1]
 
     def _dispatch(self, request: bytes) -> bytes:
-        self._calls_now = next(self._calls) + 1
+        nth = self._calls_now = next(self._calls) + 1
         try:
             msg = deserialize(request)
         except Exception as e:  # noqa: BLE001 - the control plane stays up
@@ -199,6 +199,10 @@ class RpcServer:
             logger.exception("RPC handler error")
             resp = BaseResponse(success=False,
                                 reason=f"{type(e).__name__}: {e}")
+        if nth == 1:
+            # A promoted standby's first answer ends a failover's gap.
+            logger.info("RPC server on :%d answered its first request (%s)",
+                        self._bound_port, type(msg).__name__)
         return serialize(resp)
 
     @property

@@ -20,9 +20,8 @@ import shutil
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Tuple
 
-OBJECT_STORE_SLICE = (
-    "a later checkpoint slice of the port (object stores; see ROADMAP.md)"
-)
+from dlrover_tpu_torch.common.constants import OBJECT_STORE_ITEM
+
 
 
 class ShardSink:
@@ -215,6 +214,6 @@ def storage_for(path: str) -> CheckpointStorage:
     if "://" in path:
         raise NotImplementedError(
             f"object-store checkpoint storage ({path}) comes with "
-            f"{OBJECT_STORE_SLICE}"
+            f"{OBJECT_STORE_ITEM}"
         )
     return PosixDiskStorage()

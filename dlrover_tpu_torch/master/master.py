@@ -10,9 +10,17 @@ its alive nodes the training rendezvous'); a node whose heartbeats stop
 is handed to ``AllReduceNodeHandlingCallback``, which tells its survivors
 to rebuild the world.  The launcher starts it as ``python -m
 dlrover_tpu_torch.master.main``; tests build it in process (``port=0``
-binds a free port).  The reference's strategy generator, reshard and cell
-managers and HA journal come with the items that ``constants`` names; the
-keywords that would reach them raise ``NotImplementedError`` by name.
+binds a free port).
+
+``state_dir=`` gives it durable control state (reference ``:140-170``,
+``:238-244``; ``master/state.py``): what an earlier master journaled in
+the dir is recovered at construction, every mutation is journaled before
+its ack, ``prepare`` publishes the address in the dir and starts the
+lease keeper, and ``stop`` journals a clean ``ha.shutdown``, so that a
+tailing standby stands down instead of taking a finished job over.  The
+reference's strategy generator, reshard and cell managers come with the
+items that ``constants`` names; the keywords that would reach them raise
+``NotImplementedError`` by name.
 """
 
 from __future__ import annotations
@@ -22,7 +30,6 @@ import threading
 from typing import Optional
 
 from dlrover_tpu_torch.common.constants import (
-    HA_ITEM,
     HOST_LAYERS,
     JobExitReason,
     JobStage,
@@ -68,9 +75,7 @@ class LocalJobMaster(JobMaster):
                  run_config: Optional[dict] = None,
                  resource_optimizer=None, state_dir: str = "",
                  cell_id: str = ""):
-        refused = [(state_dir, "state_dir= (the durable control state)",
-                    HA_ITEM),
-                   (resource_optimizer is not None,
+        refused = [(resource_optimizer is not None,
                     "resource_optimizer= (the Brain service)", HOST_LAYERS),
                    (cell_id, "cell_id= (the multi-cell control plane)",
                     HOST_LAYERS)]
@@ -110,6 +115,14 @@ class LocalJobMaster(JobMaster):
             speed_monitor=self.speed_monitor,
             diagnosis_manager=self.diagnosis_manager, job_context=self)
         self._server = RpcServer(port, self.servicer)
+        self.state_dir = state_dir
+        self._ha_journal = None
+        self._ha_state = None
+        self._ha_keeper = None
+        if state_dir:
+            from dlrover_tpu_torch.master.state import attach_state
+
+            attach_state(self, state_dir)
 
     @property
     def port(self) -> int:
@@ -129,6 +142,12 @@ class LocalJobMaster(JobMaster):
         self.job_manager.start()
         self.diagnosis_manager.start()
         self._server.start()
+        if self._ha_journal is not None:
+            from dlrover_tpu_torch.master.state import write_addr
+
+            write_addr(self.state_dir, self.addr)
+            self._ha_journal.write_lease()
+            self._ha_keeper.start()
         self.stage = JobStage.RUNNING
         logger.info("local master for %s ready on :%d", self.job_name,
                     self.port)
@@ -166,6 +185,14 @@ class LocalJobMaster(JobMaster):
         self.job_manager.stop()
         self.diagnosis_manager.stop()
         self._server.stop()
+        if self._ha_keeper is not None:
+            self._ha_keeper.stop()
+        if self._ha_journal is not None:
+            # A clean end: a tailing standby stands down on this record.
+            self._ha_journal.append("ha.shutdown",
+                                    {"reason": self._exit_reason})
+            self._ha_journal.close()
+            logger.info("control journal: %s", self._ha_journal.stats())
         logger.info("master stopped: rpc_calls=%d", self.rpc_calls)
 
 

@@ -9,9 +9,13 @@
 Nodes register over RPC and heartbeat; a running node silent for
 ``node_heartbeat_timeout`` is marked FAILED and handed to
 ``on_node_dead`` (the master wires ``AllReduceNodeHandlingCallback``).
-The reference mixes ``JournalBound`` into this manager
-(``master/state.py:96``); its journal hooks and snapshot surface come with
-``constants.HA_ITEM``.
+With the HA journal bound (``master/state.py``) a registration
+(``node.meta``) and a status change (``node.status``) are journaled before
+the ack (reference ``:42-63`` for ``dump_state``, ``load_state`` and
+``rearm_heartbeats``); heartbeats, resource gauges and the model info are
+not, as in the reference.  The reference's ``ReshardManager`` and
+``CellManager`` journal too; they come with their host layers
+(``constants.HOST_LAYERS``).
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ from dlrover_tpu_torch.common.constants import NodeStatus, NodeType
 from dlrover_tpu_torch.common.global_context import get_context
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.node import Node
+from dlrover_tpu_torch.master.state import JournalBound
 
 
-class LocalJobManager:
+class LocalJobManager(JournalBound):
     def __init__(self, job_name: str = "local-job"):
         self.job_name = job_name
         self._lock = threading.Lock()
@@ -39,6 +44,45 @@ class LocalJobManager:
         self._stop = threading.Event()
         self._heartbeat_thread: Optional[threading.Thread] = None
         self.on_node_dead = None
+
+    # -- the HA snapshot --------------------------------------------------------
+    def dump_state(self) -> dict:
+        with self._lock:
+            return {
+                "nodes": {nid: {"type": n.type, "rank": n.rank_index,
+                                "status": n.status,
+                                "exit_reason": n.exit_reason,
+                                "host": n.host, "agent_port": n.agent_port,
+                                "slice_id": n.slice_id,
+                                "host_id": n.host_id}
+                          for nid, n in self._nodes.items()},
+                "meta": {nid: dict(meta)
+                         for nid, meta in self._node_meta.items()},
+            }
+
+    def load_state(self, state: dict) -> None:
+        with self._lock:
+            self._nodes.clear()
+            for nid, d in state.get("nodes", {}).items():
+                node = Node(d.get("type") or NodeType.WORKER, int(nid),
+                            rank_index=d.get("rank"),
+                            status=d.get("status", NodeStatus.INITIAL))
+                node.exit_reason = d.get("exit_reason", "")
+                node.host = d.get("host", "")
+                node.agent_port = int(d.get("agent_port", 0))
+                node.slice_id = d.get("slice_id", "")
+                node.host_id = d.get("host_id", "")
+                self._nodes[int(nid)] = node
+            self._node_meta = {int(nid): dict(meta) for nid, meta
+                               in state.get("meta", {}).items()}
+
+    def rearm_heartbeats(self) -> None:
+        """Give every running node a fresh heartbeat: the silence that
+        happened under the dead primary is not the node's."""
+        with self._lock:
+            for node in self._nodes.values():
+                if node.status == NodeStatus.RUNNING:
+                    node.update_heartbeat()
 
     # -- registration ---------------------------------------------------------
     def register_node_meta(self, meta: m.NodeMeta) -> None:
@@ -64,6 +108,12 @@ class LocalJobManager:
                 "local_world_size": meta.local_world_size,
                 "tpu_chips": meta.tpu_chips,
             }
+            self._jrec("node.meta", node_type=meta.node_type,
+                       node_id=meta.node_id, node_rank=meta.node_rank,
+                       host=meta.host, agent_port=meta.agent_port,
+                       slice_id=meta.slice_id, host_id=meta.host_id,
+                       tpu_chips=meta.tpu_chips,
+                       local_world_size=meta.local_world_size)
             logger.info("registered node %d (%s) at %s slice=%s",
                         meta.node_id, meta.node_type, meta.host,
                         meta.slice_id)
@@ -92,9 +142,14 @@ class LocalJobManager:
             if node is None:
                 node = Node(node_type or NodeType.WORKER, node_id)
                 self._nodes[node_id] = node
+            prev = node.status
             node.update_status(status)
             if exit_reason:
                 node.exit_reason = exit_reason
+            if node.status != prev:
+                self._jrec("node.status", node_id=node_id,
+                           node_type=node.type, status=node.status,
+                           exit_reason=exit_reason)
 
     def collect_heartbeat(self, node_id: int, ts: float) -> None:
         with self._lock:

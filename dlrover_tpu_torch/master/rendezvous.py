@@ -11,27 +11,35 @@ lastcall window (3 s); the world is rounded down to a multiple of
 current world that joins again with a new attempt id was restarted: it is
 evicted from the world, and its peers see ``num_nodes_waiting() > 0``.
 
-The reference's chaos sites (``rdzv.late_join``, ``rdzv.lost_node``) and
-its HA journal surface (``dump_state``, ``load_state``, ``restore_world``,
-``rearm_clocks``) come with ``constants.CHAOS_LAYER`` and
-``constants.HA_ITEM``.
+With the HA journal bound (``master/state.py``) a join, a removal, a
+checkpoint vote and a completed round are journaled before the ack.  The
+round's completion is a wall-clock decision, so its result, the latched
+world, is journaled as a state record (``rdzv.world``) that replay applies
+as it is (``restore_world``, reference ``:328-349``); ``dump_state``,
+``load_state`` and ``rearm_clocks`` (``:412-422``) are the snapshot and the
+takeover's re-arm.  The reference's chaos sites (``rdzv.late_join``,
+``rdzv.lost_node``) come with ``constants.CHAOS_LAYER``, and the
+journaled ``ReshardManager`` and ``CellManager`` with their host layers
+(``constants.HOST_LAYERS``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Dict, List, Tuple
 
 from dlrover_tpu_torch.common.global_context import get_context
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.master.state import JournalBound
 from dlrover_tpu_torch.master.topology import (
     DpTopologySorter,
     NodeTopologyMeta,
 )
 
 
-class RendezvousManager:
+class RendezvousManager(JournalBound):
     def __init__(self, name: str):
         self.name = name
         self._lock = threading.Lock()
@@ -68,8 +76,12 @@ class RendezvousManager:
 
     def remove_alive_node(self, node_id: int) -> None:
         with self._lock:
+            known = (node_id in self._alive_nodes
+                     or node_id in self._waiting_nodes)
             self._alive_nodes.discard(node_id)
             self._waiting_nodes.pop(node_id, None)
+            if known:
+                self._jrec("rdzv.remove", name=self.name, node_id=node_id)
 
     def alive_nodes(self) -> list:
         with self._lock:
@@ -105,6 +117,12 @@ class RendezvousManager:
                 "host": host, "coordinator_port": coordinator_port,
                 "attempt_id": attempt_id}
             self._alive_nodes.add(node_id)
+            self._jrec("rdzv.join", name=self.name, node_id=node_id,
+                       node_rank=node_rank,
+                       local_world_size=local_world_size, host=host,
+                       coordinator_port=coordinator_port,
+                       slice_id=slice_id, host_id=host_id,
+                       attempt_id=attempt_id)
             self._lastcall_time = time.monotonic()
             if not self._start_waiting_time:
                 self._start_waiting_time = self._lastcall_time
@@ -133,6 +151,12 @@ class RendezvousManager:
         self._rdzv_round += 1
         self._start_waiting_time = 0.0
         self._latched_world = self._build_world_locked(ordered)
+        self._jrec("rdzv.world", name=self.name,
+                   latched_round=self._latched_round,
+                   rdzv_round=self._rdzv_round,
+                   nodes={m.node_id: dataclasses.asdict(m)
+                          for m in self._rdzv_nodes.values()},
+                   world=dict(self._latched_world))
         logger.info("rdzv[%s]: round %d complete with %d nodes (left "
                     "waiting: %d)", self.name, self._latched_round, usable,
                     len(self._waiting_nodes))
@@ -201,11 +225,77 @@ class RendezvousManager:
     def sync_ckpt_nodes(self, node_id: int, step: int) -> bool:
         """True once every node of the current world reported ``step``."""
         with self._lock:
+            if self._ckpt_steps.get(node_id) != step:
+                self._jrec("rdzv.ckpt_vote", name=self.name,
+                           node_id=node_id, step=step)
             self._ckpt_steps[node_id] = step
             world = set(self._rdzv_nodes.keys())
             if not world:
                 return False
             return all(self._ckpt_steps.get(nid) == step for nid in world)
+
+    # -- the HA snapshot and replay --------------------------------------------
+    def restore_world(self, rec: dict) -> None:
+        """Apply an ``rdzv.world`` record: the latched world of a completed
+        round, whose members leave the waiting list."""
+        with self._lock:
+            nodes = {int(nid): NodeTopologyMeta(**meta)
+                     for nid, meta in (rec.get("nodes") or {}).items()}
+            self._rdzv_nodes = nodes
+            self._latched_world = {int(r): dict(info) for r, info
+                                   in (rec.get("world") or {}).items()}
+            self._latched_round = int(rec.get("latched_round", -1))
+            self._rdzv_round = int(rec.get("rdzv_round", 0))
+            for nid in nodes:
+                self._waiting_nodes.pop(nid, None)
+                self._alive_nodes.add(nid)
+            self._start_waiting_time = 0.0
+
+    def dump_state(self) -> dict:
+        with self._lock:
+            return {
+                "waiting": {nid: dataclasses.asdict(meta) for nid, meta
+                            in self._waiting_nodes.items()},
+                "extra": {nid: dict(e)
+                          for nid, e in self._node_extra.items()},
+                "rdzv_nodes": {nid: dataclasses.asdict(meta) for nid, meta
+                               in self._rdzv_nodes.items()},
+                "world": dict(self._latched_world),
+                "latched_round": self._latched_round,
+                "rdzv_round": self._rdzv_round,
+                "alive": sorted(self._alive_nodes),
+                "ckpt_steps": dict(self._ckpt_steps),
+            }
+
+    def load_state(self, state: dict) -> None:
+        with self._lock:
+            self._waiting_nodes = {int(nid): NodeTopologyMeta(**meta)
+                                   for nid, meta
+                                   in state.get("waiting", {}).items()}
+            self._node_extra = {int(nid): dict(e) for nid, e
+                                in state.get("extra", {}).items()}
+            self._rdzv_nodes = {int(nid): NodeTopologyMeta(**meta)
+                                for nid, meta
+                                in state.get("rdzv_nodes", {}).items()}
+            self._latched_world = {int(r): dict(info) for r, info
+                                   in state.get("world", {}).items()}
+            self._latched_round = int(state.get("latched_round", -1))
+            self._rdzv_round = int(state.get("rdzv_round", 0))
+            self._alive_nodes = set(state.get("alive", []))
+            self._ckpt_steps = {int(nid): int(step) for nid, step
+                                in state.get("ckpt_steps", {}).items()}
+
+    def rearm_clocks(self) -> None:
+        """Restart the lastcall and pending windows on this process's
+        clock, so that a replayed waiting list neither completes at once
+        nor reads as timed out."""
+        with self._lock:
+            now = time.monotonic()
+            if self._waiting_nodes:
+                self._lastcall_time = now
+                self._start_waiting_time = now
+            else:
+                self._start_waiting_time = 0.0
 
 
 class ElasticTrainingRendezvousManager(RendezvousManager):
@@ -220,12 +310,31 @@ class NetworkCheckRendezvousManager(RendezvousManager):
     (round 0 adjacent ranks, later rounds fastest with slowest), so that a
     node slow in both pairings is the straggler and a node failing beside a
     good partner is faulty.  The launcher drives it
-    (``agent/node_check.py``)."""
+    (``agent/node_check.py``).  Its results are not journaled, as the
+    reference's are not: a failover mid-check loses at most one round,
+    which the agents run again."""
 
     def __init__(self) -> None:
         super().__init__("network-check")
         self._results: Dict[int, Dict[int, Tuple[bool, float]]] = {}
         self._check_round = 0
+
+    def dump_state(self) -> dict:
+        state = super().dump_state()
+        with self._lock:
+            state["results"] = {r: {nid: list(v) for nid, v in by.items()}
+                                for r, by in self._results.items()}
+            state["check_round"] = self._check_round
+        return state
+
+    def load_state(self, state: dict) -> None:
+        super().load_state(state)
+        with self._lock:
+            self._results = {
+                int(r): {int(nid): (bool(v[0]), float(v[1]))
+                         for nid, v in by.items()}
+                for r, by in state.get("results", {}).items()}
+            self._check_round = int(state.get("check_round", 0))
 
     def get_comm_world(self, node_id: int
                        ) -> Tuple[int, int, Dict[int, dict], str]:

@@ -9,14 +9,18 @@ checkpoint perf and the checkpoint barrier, diagnosis reports, named
 barriers, the run and parallel configs and the job's exit, as the
 reference does.  A node failure goes to the diagnosis manager and
 re-queues the node's data shards; a heartbeat carries back the actions
-the diagnosis manager queued for the node.  The serving, fleet, cell,
-journal and reshard messages are not part of the port's wire yet (a type
-it does not know does not decode, and is answered as a failed
+the diagnosis manager queued for the node.  With master HA on, the
+managers journal each mutation inside its handler, so before the reply
+(``master/state.py``), and ``JournalFetch`` (reference ``:400-430``) serves
+the WAL's or the snapshot's bytes to a standby that mirrors them.  The
+serving, fleet, cell and reshard messages are not part of the port's wire
+yet (a type it does not know does not decode, and is answered as a failed
 ``BaseResponse`` by the transport).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -75,6 +79,7 @@ class MasterServicer:
             m.ElasticRunConfigRequest: self._on_run_config,
             m.ParallelConfigRequest: self._on_paral_config,
             m.JobExitRequest: self._on_job_exit,
+            m.JournalFetch: self._on_journal_fetch,
         }
 
     def __call__(self, msg: m.Message) -> Optional[m.Message]:
@@ -295,3 +300,31 @@ class MasterServicer:
                     msg.node_id, msg.success, msg.reason)
         if self.job_context is not None:
             self.job_context.request_stop(msg.success, msg.reason)
+
+    # -- master HA ------------------------------------------------------------
+    def _on_journal_fetch(self, msg: m.JournalFetch):
+        """Raw WAL bytes from ``msg.offset`` (the snapshot file for -1)."""
+        from dlrover_tpu_torch.master.state import SNAP_NAME, WAL_NAME
+
+        journal = getattr(self.job_context, "_ha_journal", None)
+        if journal is None:
+            return m.JournalChunk(found=False)
+        if msg.offset < 0:
+            try:
+                with open(os.path.join(journal.state_dir, SNAP_NAME),
+                          "rb") as f:
+                    data = f.read()
+            except OSError:
+                data = b""
+            return m.JournalChunk(data=data, offset=-1, eof=True)
+        try:
+            with open(os.path.join(journal.state_dir, WAL_NAME), "rb") as f:
+                # Size and inode from the fd the bytes come from: a
+                # compaction's rename between two opens would mix files.
+                st = os.fstat(f.fileno())
+                f.seek(msg.offset)
+                data = f.read(max(0, min(msg.max_bytes, 16 << 20)))
+        except OSError:
+            return m.JournalChunk(offset=msg.offset, eof=True)
+        return m.JournalChunk(data=data, offset=msg.offset, eof=not data,
+                              wal_size=st.st_size, wal_ino=st.st_ino)

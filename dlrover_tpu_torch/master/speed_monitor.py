@@ -6,8 +6,15 @@ checkpoint gauges the master logs, ``running_speed``, ``goodput``,
 
 Goodput is the share of wall time since the first step spent making new
 progress: the down windows (restart, rendezvous) and the synchronous
-checkpoint stalls (per save step, the worst rank's) are taken out.  The
-throttled journal of step baselines comes with ``constants.HA_ITEM``.
+checkpoint stalls (per save step, the worst rank's) are taken out.
+
+A step report is a gauge, so with the HA journal bound
+(``master/state.py``) only a baseline is journaled, at most every
+``ha_speed_journal_s`` (reference ``:57-76``); ``dump_state`` and
+``load_state`` (``:86-97``) carry the step records, the first and last
+step times and the down and stall totals across a failover.  The
+reference's ``ReshardManager`` and ``CellManager`` journal too; they come
+with their host layers (``constants.HOST_LAYERS``).
 """
 
 from __future__ import annotations
@@ -18,9 +25,10 @@ from collections import deque
 from typing import Deque, Dict, Optional, Tuple
 
 from dlrover_tpu_torch.common.global_context import get_context
+from dlrover_tpu_torch.master.state import JournalBound
 
 
-class SpeedMonitor:
+class SpeedMonitor(JournalBound):
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._ctx = get_context()
@@ -40,6 +48,7 @@ class SpeedMonitor:
         self._ckpt_staged_mbps = 0.0
         self._ckpt_agg_by_node: Dict[int, float] = {}
         self._ckpt_skipped_by_node: Dict[int, int] = {}
+        self._last_step_journal = float("-inf")  # monotonic, this process
 
     def collect_global_step(self, step: int, timestamp: float = 0.0) -> None:
         ts = timestamp or time.time()
@@ -52,9 +61,37 @@ class SpeedMonitor:
                 self._first_step_time = ts
             self._last_step_time = ts
             self._sample_count += 1
+            if self._journal is not None:
+                now = time.monotonic()
+                if now - self._last_step_journal >= \
+                        self._ctx.ha_speed_journal_s:
+                    self._last_step_journal = now
+                    self._journal.append("speed.step",
+                                         {"step": step, "ts": ts})
             if self._down_since is not None:
                 self._downtime_total += ts - self._down_since
                 self._down_since = None
+
+    def dump_state(self) -> dict:
+        with self._lock:
+            return {"global_step": self._global_step,
+                    "records": [list(r) for r in self._records],
+                    "first_step_time": self._first_step_time,
+                    "last_step_time": self._last_step_time,
+                    "downtime_total": self._downtime_total,
+                    "ckpt_stall_total": self._ckpt_stall_total}
+
+    def load_state(self, state: dict) -> None:
+        with self._lock:
+            self._global_step = int(state.get("global_step", 0))
+            self._records.clear()
+            for ts, step in state.get("records", []):
+                self._records.append((float(ts), int(step)))
+            self._first_step_time = state.get("first_step_time")
+            self._last_step_time = state.get("last_step_time")
+            self._downtime_total = float(state.get("downtime_total", 0.0))
+            self._ckpt_stall_total = float(state.get("ckpt_stall_total",
+                                                     0.0))
 
     def mark_down(self) -> None:
         """Training paused (a restart, a rendezvous)."""

@@ -9,10 +9,15 @@ re-queued by the loop (every 30 s), and the cursor (todo and doing) is a
 JSON string a worker can checkpoint and restore.  ``checkpoint_dataset``
 returns the reference's string byte for byte.
 
-``dump_state``/``load_state`` are plain methods here.  The reference's
-``JournalBound`` base and the records it appends at every mutation come
-with the HA journal: :meth:`TaskManager.bind_journal` raises naming
-``constants.HA_ITEM``.
+With the HA journal bound (``master/state.py``) every mutation is
+journaled before the RPC is acked: a dataset's registration, a grant (with
+the task id it gave), a result, a dead worker's recovery, a timeout
+requeue (by task id, so that replay does not depend on the primary's
+clock) and a cursor restore.  ``dump_state``/``load_state`` are the
+snapshot's part; the snapshot carries the retried-fetch cache as plain
+data (:func:`grants_as_data`: ``[task_id, shard fields, epoch]``), where
+the reference's msgpack refuses the ``Shard`` of a tokened grant, and
+``load_state`` takes either form.
 """
 
 from __future__ import annotations
@@ -23,7 +28,6 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from dlrover_tpu_torch.common.constants import HA_ITEM
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.token_cache import BoundedTokenCache
 from dlrover_tpu_torch.master.dataset_splitter import (
@@ -31,6 +35,7 @@ from dlrover_tpu_torch.master.dataset_splitter import (
     Shard,
     new_dataset_splitter,
 )
+from dlrover_tpu_torch.master.state import JournalBound
 
 #: Seconds between two passes of the timeout reassign loop.
 REASSIGN_INTERVAL_S = 30.0
@@ -155,7 +160,21 @@ class DatasetManager:
         self._task_id_seq = data.get("task_id_seq", len(self._todo))
 
 
-class TaskManager:
+def grants_as_data(state: dict) -> dict:
+    """``dump_state`` with each cached grant ``(task_id, Shard, epoch)``
+    as ``[task_id, shard fields, epoch]``, which msgpack can carry."""
+    return dict(state, fetch_tokens=[
+        [token, [got[0], dataclasses.asdict(got[1]), got[2]]]
+        for token, got in state.get("fetch_tokens", [])])
+
+
+def _grant_of_data(got):
+    if isinstance(got, list) and len(got) == 3 and isinstance(got[1], dict):
+        return got[0], Shard(**got[1]), got[2]
+    return got
+
+
+class TaskManager(JournalBound):
     """Every dataset of one job and the timeout reassign loop."""
 
     def __init__(self, task_timeout: float = 1800.0):
@@ -167,16 +186,13 @@ class TaskManager:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
-    def bind_journal(self, journal) -> None:
-        raise NotImplementedError(
-            f"journaling the task queues comes with {HA_ITEM}")
-
     def new_dataset(self, splitter: DatasetSplitter,
                     params: Optional[dict] = None) -> None:
         with self._lock:
             if splitter.dataset_name not in self._datasets:
                 self._datasets[splitter.dataset_name] = DatasetManager(
                     splitter, self._task_timeout, params=params)
+                self._jrec("task.dataset", params=dict(params or {}))
                 logger.info("task manager: registered dataset %s",
                             splitter.dataset_name)
 
@@ -204,6 +220,8 @@ class TaskManager:
             got = ds.get_task(worker_id)
             if got is not None:
                 self._fetch_tokens.put(token, got)
+                self._jrec("task.grant", dataset=dataset_name,
+                           worker=worker_id, token=token, task_id=got[0])
             return got
 
     def report_task_result(self, dataset_name: str, task_id: int,
@@ -212,11 +230,16 @@ class TaskManager:
             ds = self._datasets.get(dataset_name)
             if ds is not None:
                 ds.report_task_result(task_id, success)
+                self._jrec("task.report", dataset=dataset_name,
+                           task_id=task_id, success=success)
 
     def recover_worker_tasks(self, worker_id: int) -> int:
         with self._lock:
-            return sum(ds.recover_worker_tasks(worker_id)
-                       for ds in self._datasets.values())
+            n = sum(ds.recover_worker_tasks(worker_id)
+                    for ds in self._datasets.values())
+            if n:
+                self._jrec("task.recover", worker=worker_id)
+            return n
 
     def requeue_tasks(self, dataset_name: str, task_ids: List[int]) -> int:
         with self._lock:
@@ -249,6 +272,8 @@ class TaskManager:
             if ds is None or not content:
                 return False
             ds.restore(content)
+            self._jrec("task.restore", dataset=dataset_name,
+                       content=content)
             return True
 
     def dump_state(self) -> dict:
@@ -285,7 +310,9 @@ class TaskManager:
                 if offset is not None and hasattr(ds.splitter, "_offset"):
                     ds.splitter._offset = offset
                 self._datasets[name] = ds
-            self._fetch_tokens.load_state(state.get("fetch_tokens", []))
+            self._fetch_tokens.load_state(
+                [[t, _grant_of_data(got)]
+                 for t, got in state.get("fetch_tokens", [])])
 
     def start(self) -> None:
         if self._thread is None:
@@ -304,6 +331,7 @@ class TaskManager:
                 ids = ds.reassign_timeout_tasks()
                 if ids:
                     moved[name] = ids
+                    self._jrec("task.requeue", dataset=name, task_ids=ids)
                     logger.warning("task manager: re-queued %d timed-out "
                                    "tasks of %s", len(ids), name)
         return moved

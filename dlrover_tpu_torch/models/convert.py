@@ -21,8 +21,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.common.constants import MODEL_ITEM
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
-from dlrover_tpu_torch.models.llama import TRAINING_SLICE, LlamaConfig
+from dlrover_tpu_torch.models.llama import LlamaConfig
 
 _GAINS = ("ln1", "ln2", "ln_f")
 
@@ -49,7 +50,7 @@ def params_from_numpy(tree: Dict, cfg: LlamaConfig,
         if "moe" in layer:
             raise NotImplementedError(
                 f"layer {i} is an MoE layer; MoE layers come with "
-                f"{TRAINING_SLICE}"
+                f"{MODEL_ITEM}"
             )
     out = conv({k: v for k, v in tree.items() if k != "layers"})
     out["layers"] = [conv(layer) for layer in tree["layers"]]

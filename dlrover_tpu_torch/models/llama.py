@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from dlrover_tpu_torch.common.constants import MODEL_ITEM, MULTICARD_ITEM
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.cross_entropy import (
     linear_softmax_cross_entropy,
@@ -44,7 +45,6 @@ from dlrover_tpu_torch.ops.flash_attention import flash_attention, \
     reference_attention
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 
-TRAINING_SLICE = "a later training slice of the port (see ROADMAP.md)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +71,7 @@ class LlamaConfig:
         if self.num_experts > 0:
             raise NotImplementedError(
                 "MoE layers (num_experts > 0) are not ported yet; they "
-                f"come with {TRAINING_SLICE}"
+                f"come with {MODEL_ITEM}"
             )
 
     @property
@@ -190,8 +190,7 @@ def _attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
     if attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={attn_impl!r} (sequence-parallel attention over a "
-            f"mesh) comes with the multi-card slice of the port (see "
-            f"ROADMAP.md)"
+            f"mesh) comes with {MULTICARD_ITEM}"
         )
     if attn_impl in ("auto", "pallas"):
         attend = flash_attention
@@ -228,7 +227,7 @@ def block_apply(layer: Dict, x: torch.Tensor, cfg: LlamaConfig,
     MoE aux loss, is always zero for a dense block and is not returned."""
     if "moe" in layer:
         raise NotImplementedError(
-            f"MoE layers are not ported yet; they come with {TRAINING_SLICE}"
+            f"MoE layers are not ported yet; they come with {MODEL_ITEM}"
         )
     h = rmsnorm(x, layer["ln1"], eps=cfg.rms_eps)
     if attn_fn is not None:
@@ -263,7 +262,7 @@ def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     segment boundary."""
     if fp8_states is not None:
         raise NotImplementedError(
-            f"fp8 projections (fp8_states) come with {TRAINING_SLICE}"
+            f"fp8 projections (fp8_states) come with {MODEL_ITEM}"
         )
     B, S = tokens.shape
     x = params["embed"].to(cfg.dtype)[tokens]

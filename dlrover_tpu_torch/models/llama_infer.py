@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.common import msgpack_lite
+from dlrover_tpu_torch.common.constants import SERVING_ITEM
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.tensor_bytes import (
     byte_view,
@@ -75,7 +76,6 @@ from dlrover_tpu_torch.models.llama import LlamaConfig, _rope, block_apply
 from dlrover_tpu_torch.ops import rmsnorm as _rmsnorm_mod
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 
-SERVING_SLICE = "a later serving slice of the port (see ROADMAP.md)"
 NEG_INF = -1e30
 # The reference's ``max|x| / 127.0`` as XLA compiles it: times fp32(1/127).
 _INV_127 = 1.0 / 127.0
@@ -987,7 +987,7 @@ class DecodeServer:
         for what, asked in refused.items():
             if asked:
                 raise NotImplementedError(
-                    f"DecodeServer {what} comes with {SERVING_SLICE}"
+                    f"DecodeServer {what} comes with {SERVING_ITEM}"
                 )
         self.params = params
         self.cfg = cfg
@@ -2054,5 +2054,5 @@ class DecodeServer:
 def serve_journaled(*args, **kwargs):
     """Crash-safe batch serving over a request journal."""
     raise NotImplementedError(
-        f"serve_journaled comes with {SERVING_SLICE}"
+        f"serve_journaled comes with {SERVING_ITEM}"
     )

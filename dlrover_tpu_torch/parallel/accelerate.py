@@ -51,16 +51,10 @@ import torch
 import torch.distributed as dist
 
 from dlrover_tpu_torch.common import dist_env
+from dlrover_tpu_torch.common.constants import MODEL_ITEM, MULTICARD_ITEM
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import logger
 
-MULTICARD_SLICE = (
-    "the multi-card training slice of the port (ROADMAP.md, Queue A item 5)"
-)
-MODEL_SLICE = (
-    "the model-features slice of the port (ROADMAP.md, Queue A item 6)"
-)
-LATER_SLICE = "a later training slice of the port (see ROADMAP.md)"
 MESH_AXES = ("pp", "dp", "fsdp", "ep", "tp")
 
 
@@ -92,7 +86,7 @@ def check_strategy(strategy: Strategy, world: int = 1) -> None:
         if axis == "dp" and size > world:
             raise NotImplementedError(
                 f"mesh dp={size} over {world} process(es): more than one "
-                f"device a process comes with {MULTICARD_SLICE}")
+                f"device a process comes with {MULTICARD_ITEM}")
         if axis == "dp" and size != world:
             raise ValueError(
                 f"mesh dp={size} does not cover the {world} processes of "
@@ -100,20 +94,21 @@ def check_strategy(strategy: Strategy, world: int = 1) -> None:
         if axis != "dp" and size != 1:
             raise NotImplementedError(
                 f"mesh {axis}={size}: data, FSDP, tensor, pipeline and "
-                f"expert parallelism come with {MULTICARD_SLICE}"
+                f"expert parallelism come with {MULTICARD_ITEM}"
             )
     if strategy.remat not in ("none", "block"):
         raise NotImplementedError(
             f"remat={strategy.remat!r}: only 'none' and the model's "
             f"per-block remat ('block') are ported; the other policies come "
-            f"with {LATER_SLICE}"
+            f"with {MULTICARD_ITEM}"
         )
-    for flag, what in (("offload_opt", "optimizer-state offload"),
-                       ("fp8", "fp8 projections"),
-                       ("quant_grads", "int8 gradient reduction")):
+    for flag, what, where in (
+            ("offload_opt", "optimizer-state offload", MULTICARD_ITEM),
+            ("fp8", "fp8 projections", MODEL_ITEM),
+            ("quant_grads", "int8 gradient reduction", MULTICARD_ITEM)):
         if getattr(strategy, flag):
             raise NotImplementedError(
-                f"Strategy({flag}=True): {what} comes with {LATER_SLICE}"
+                f"Strategy({flag}=True): {what} comes with {where}"
             )
     if strategy.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {strategy.grad_accum}")
@@ -281,25 +276,25 @@ def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
         if asked:
             raise NotImplementedError(
                 f"accelerate({name}=...): sharded batches, device lists and "
-                f"the strategy search come with {MULTICARD_SLICE}"
+                f"the strategy search come with {MULTICARD_ITEM}"
             )
     if fp8_init is not None:
         raise NotImplementedError(
-            f"accelerate(fp8_init=...): fp8 comes with {MODEL_SLICE}"
+            f"accelerate(fp8_init=...): fp8 comes with {MODEL_ITEM}"
         )
     if isinstance(strategy, str):
         raise NotImplementedError(
             f"strategy={strategy!r}: the strategy search comes with "
-            f"{MULTICARD_SLICE}; pass a Strategy"
+            f"{MULTICARD_ITEM}; pass a Strategy"
         )
     if param_specs not in (None, "planner"):
         raise NotImplementedError(
             f"explicit param_specs (sharded layouts) come with "
-            f"{MULTICARD_SLICE}"
+            f"{MULTICARD_ITEM}"
         )
     if frozen is not None:
         raise NotImplementedError(
-            f"frozen parameters (LoRA) come with {LATER_SLICE}"
+            f"frozen parameters (LoRA) come with {MODEL_ITEM}"
         )
     if isinstance(strategy, Strategy):
         return _build_job(strategy, loss_fn, init_fn, optimizer,

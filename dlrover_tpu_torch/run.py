@@ -1,7 +1,8 @@
 """The job launcher: ``python -m dlrover_tpu_torch.run`` — the port's own
 copy of ``dlrover_tpu/run.py`` (``parse_nnodes``, ``parse_args``,
-``_master_cmd``, ``_launch_local_master``, ``_supervise_local_master``,
-``_gc_shm_arenas``, ``run``, ``main``)::
+``_master_cmd``, ``_launch_local_master``, ``_launch_standby_master``
+``:214-247``, ``_supervise_local_master``, ``_supervise_ha_masters``
+``:309-410``, ``_gc_shm_arenas``, ``run``, ``main``)::
 
     python -m dlrover_tpu_torch.run --standalone --nproc_per_node=2 \\
         dlrover_tpu_torch/train.py -- --model tiny --device cpu \\
@@ -23,9 +24,20 @@ launcher unwinds it as an error does: the agent stops its workers and the
 master is terminated, where the reference's default handler would orphan
 them.
 
-Refused by name: ``--standby`` and ``--master_state_dir`` (``HA_ITEM``),
-``--cell`` and ``--job_file`` (``HOST_LAYERS``), and what the agent
-refuses.
+With ``--standby`` the local master journals its control state in
+``--master_state_dir`` (default: a run-scoped dir under the temp dir) and
+a warm standby master tails it (``master/standby.py``).  When the primary
+dies the standby takes over; the supervisor promotes it into the primary's
+place and starts a fresh standby behind it, within the restart budget.
+Agents and workers follow the leader through the state dir's ``addr``
+file (``DLROVER_TPU_MASTER_STATE_DIR``), so repeated failovers need no
+change of environment.  Each master of this mode runs in a session of its
+own (the reference starts the standby in the launcher's group), so that no
+signal aimed at a master reaches the launcher; the launcher logs every
+master's pid and terminates the ones alive at its exit.
+
+Refused by name: ``--cell`` and ``--job_file`` (``HOST_LAYERS``), and what
+the agent refuses.
 """
 
 from __future__ import annotations
@@ -49,7 +61,8 @@ from dlrover_tpu_torch.agent.training import (
     launch_agent,
     refuse_later_options as refuse_agent_options,
 )
-from dlrover_tpu_torch.common.constants import HA_ITEM, HOST_LAYERS
+from dlrover_tpu_torch.common.constants import HOST_LAYERS
+from dlrover_tpu_torch.common.env import NodeEnv
 from dlrover_tpu_torch.common.log import logger, set_role
 from dlrover_tpu_torch.common.rpc import addr_connectable
 
@@ -67,8 +80,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                                 description="elastic training launcher")
     p.add_argument("--standalone", action="store_true",
                    help="one host: start a local master")
-    p.add_argument("--standby", action="store_true")
-    p.add_argument("--master_state_dir", default="")
+    p.add_argument("--standby", action="store_true",
+                   help="master HA: journal the local master's control "
+                        "state and keep a warm standby master")
+    p.add_argument("--master_state_dir", default="",
+                   help="the journal's dir for --standby (default: a "
+                        "run-scoped dir under the temp dir)")
     p.add_argument("--cell", type=int, default=0)
     p.add_argument("--nnodes", default="1",
                    help="'N' or 'MIN:MAX' elastic node range")
@@ -106,8 +123,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def refuse_later_options(args: argparse.Namespace) -> None:
     refused = [
-        (args.standby, "--standby (a warm standby master)", HA_ITEM),
-        (args.master_state_dir, "--master_state_dir", HA_ITEM),
         (args.cell > 0, "--cell (the multi-cell control plane)",
          HOST_LAYERS),
         (args.job_file, "--job_file (ElasticJob YAML)", HOST_LAYERS),
@@ -117,7 +132,8 @@ def refuse_later_options(args: argparse.Namespace) -> None:
             raise NotImplementedError(f"{what} comes with {where}")
 
 
-def _master_cmd(args, port: int, port_file: str = "") -> List[str]:
+def _master_cmd(args, port: int, port_file: str = "",
+                state_dir: str = "") -> List[str]:
     min_nodes, max_nodes = parse_nnodes(args.nnodes)
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.master.main",
            "--port", str(port), "--job_name", args.job_name,
@@ -125,15 +141,20 @@ def _master_cmd(args, port: int, port_file: str = "") -> List[str]:
            "--max_nodes", str(max_nodes), "--node_unit", str(args.node_unit)]
     if port_file:
         cmd += ["--port_file", port_file]
+    if state_dir:
+        cmd += ["--state_dir", state_dir]
     return cmd
 
 
-def _launch_local_master(args) -> Tuple[subprocess.Popen, str, int]:
-    """Start the master and wait for the port it bound."""
+def _await_port(cmd: List[str], what: str, own_session: bool
+                ) -> Tuple[subprocess.Popen, int]:
+    """Start a master with ``--port_file`` appended and wait for the port
+    it bound."""
     fd, port_file = tempfile.mkstemp(prefix="dlrtpu_master_port_")
     os.close(fd)
     os.unlink(port_file)  # the master writes it when it listens
-    proc = subprocess.Popen(_master_cmd(args, 0, port_file))
+    proc = subprocess.Popen(cmd + ["--port_file", port_file],
+                            start_new_session=own_session)
     deadline = time.time() + 60
     while time.time() < deadline:
         if os.path.exists(port_file):
@@ -141,13 +162,40 @@ def _launch_local_master(args) -> Tuple[subprocess.Popen, str, int]:
                 content = f.read().strip()
             if content:
                 os.unlink(port_file)
-                return proc, f"127.0.0.1:{content}", int(content)
+                return proc, int(content)
         if proc.poll() is not None:
             raise RuntimeError(
-                f"local master exited early with code {proc.returncode}")
+                f"{what} exited early with code {proc.returncode}")
         time.sleep(0.1)
     proc.kill()
-    raise TimeoutError("local master did not report its port in 60s")
+    proc.wait()
+    raise TimeoutError(f"{what} did not report its port in 60s")
+
+
+def _launch_local_master(args, state_dir: str = ""
+                         ) -> Tuple[subprocess.Popen, str, int]:
+    """Start the master (journaling in ``state_dir``, in a session of its
+    own, when given one) and wait for the port it bound."""
+    proc, port = _await_port(_master_cmd(args, 0, state_dir=state_dir),
+                             "local master", own_session=bool(state_dir))
+    addr = f"127.0.0.1:{port}"
+    logger.info("local master pid=%d on %s%s", proc.pid, addr,
+                f" journaling in {state_dir}" if state_dir else "")
+    return proc, addr, port
+
+
+def _launch_standby_master(args, state_dir: str, primary_addr: str
+                           ) -> Tuple[subprocess.Popen, str]:
+    """Start a warm standby of ``primary_addr`` in a session of its own
+    and wait for the port it bound (it serves only after a takeover)."""
+    cmd = _master_cmd(args, 0, state_dir=state_dir) + [
+        "--standby", "--primary_addr", primary_addr]
+    t0 = time.perf_counter()
+    proc, port = _await_port(cmd, "standby master", own_session=True)
+    addr = f"127.0.0.1:{port}"
+    logger.info("standby master pid=%d bound on %s in %.3f s", proc.pid,
+                addr, time.perf_counter() - t0)
+    return proc, addr
 
 
 def _supervise_local_master(args, holder: List[subprocess.Popen],
@@ -177,6 +225,86 @@ def _supervise_local_master(args, holder: List[subprocess.Popen],
             holder[0] = subprocess.Popen(_master_cmd(args, port))
 
     thread = threading.Thread(target=loop, name="master-supervisor",
+                              daemon=True)
+    thread.start()
+    return thread
+
+
+def _supervise_ha_masters(args, state_dir: str,
+                          primary_holder: List[subprocess.Popen],
+                          standby_holder: List[subprocess.Popen],
+                          stop_evt: threading.Event,
+                          max_restarts: int = 3) -> threading.Thread:
+    """The ``--standby`` supervision: when the primary dies the standby
+    takes the journaled state over, so the supervisor waits for the
+    takeover (the state dir's ``addr`` changes), promotes the standby into
+    the primary's place and starts a fresh standby behind the new leader.
+    A standby that dies while the primary lives is started again.  Each
+    new standby spends one of ``max_restarts``."""
+    from dlrover_tpu_torch.master.state import read_addr
+
+    def respawn(primary_addr: str) -> bool:
+        try:
+            standby_holder[0], _ = _launch_standby_master(args, state_dir,
+                                                          primary_addr)
+            return True
+        except (RuntimeError, TimeoutError) as e:
+            logger.error("could not start a standby: %s; the next master "
+                         "crash will be cold", e)
+            return False
+
+    def loop() -> None:
+        restarts = 0
+        while not stop_evt.wait(1.0):
+            primary, standby = primary_holder[0], standby_holder[0]
+            prc = primary.poll()
+            if prc is None:
+                src = standby.poll()
+                if src is None or src == 0 or stop_evt.is_set():
+                    continue
+                if restarts >= max_restarts:
+                    logger.error("standby exited rc=%d and the restart "
+                                 "budget (%d) is spent", src, max_restarts)
+                    return
+                restarts += 1
+                logger.warning("standby exited rc=%d; starting another "
+                               "(restart %d/%d)", src, restarts,
+                               max_restarts)
+                if not respawn(read_addr(state_dir)):
+                    return
+                continue
+            if prc == 0 or (prc < 0 and stop_evt.is_set()):
+                # The job ended, or the launcher's own teardown.  A signal
+                # death alone is the failure this mode covers.
+                return
+            old_addr, new_addr = read_addr(state_dir), ""
+            deadline = time.time() + 60
+            while time.time() < deadline and not stop_evt.is_set():
+                cur = read_addr(state_dir)
+                if cur and cur != old_addr:
+                    new_addr = cur
+                    break
+                if standby_holder[0].poll() is not None:
+                    break  # the standby died too
+                time.sleep(0.05)
+            if not new_addr:
+                logger.error("primary master (pid %d) exited rc=%d and no "
+                             "takeover followed; agents will time out",
+                             primary.pid, prc)
+                return
+            logger.warning("primary master (pid %d) exited rc=%d; standby "
+                           "(pid %d) took over at %s", primary.pid, prc,
+                           standby.pid, new_addr)
+            primary_holder[0] = standby
+            if restarts >= max_restarts:
+                logger.error("standby restart budget (%d) spent; the next "
+                             "master crash will be cold", max_restarts)
+                return
+            restarts += 1
+            if not respawn(new_addr):
+                return
+
+    thread = threading.Thread(target=loop, name="master-ha-supervisor",
                               daemon=True)
     thread.start()
     return thread
@@ -232,21 +360,43 @@ def run(args: argparse.Namespace) -> int:
         job_name=args.job_name, node_role=args.node_role)
     refuse_agent_options(config)
     master_holder: List[subprocess.Popen] = []
+    standby_holder: List[subprocess.Popen] = []
     master_stop = threading.Event()
     master_addr = args.master_addr
+    ha_state_dir = ""
     if args.standalone and not master_addr:
-        proc, master_addr, master_port = _launch_local_master(args)
+        if args.standby:
+            ha_state_dir = args.master_state_dir or os.path.join(
+                tempfile.gettempdir(), f"dlrtpu_ha_{args.job_name}_"
+                f"{os.environ['DLROVER_TPU_RUN_ID']}")
+            os.makedirs(ha_state_dir, exist_ok=True)
+        proc, master_addr, master_port = _launch_local_master(
+            args, ha_state_dir)
         master_holder.append(proc)
-        _supervise_local_master(args, master_holder, master_port,
-                                master_stop)
         atexit.register(lambda: master_holder[0].poll() is None
                         and master_holder[0].terminate())
+        if args.standby:
+            sb_proc, standby_addr = _launch_standby_master(
+                args, ha_state_dir, master_addr)
+            standby_holder.append(sb_proc)
+            atexit.register(lambda: standby_holder[0].poll() is None
+                            and standby_holder[0].terminate())
+            # The agent and its workers (by inheritance) follow the
+            # leader through the state dir.
+            os.environ[NodeEnv.MASTER_STATE_DIR] = ha_state_dir
+            os.environ[NodeEnv.MASTER_STANDBY_ADDR] = standby_addr
+            _supervise_ha_masters(args, ha_state_dir, master_holder,
+                                  standby_holder, master_stop,
+                                  args.max_restarts)
+        else:
+            _supervise_local_master(args, master_holder, master_port,
+                                    master_stop)
     if not master_addr:
         raise SystemExit("either --standalone or --master_addr is required")
     if not addr_connectable(master_addr, timeout=30):
         raise SystemExit(f"master at {master_addr} is not reachable")
 
-    client = MasterClient(master_addr, node_id)
+    client = MasterClient(master_addr, node_id, state_dir=ha_state_dir)
     try:
         for key, val in client.get_elastic_run_config().items():
             if hasattr(config, key):
@@ -279,12 +429,17 @@ def run(args: argparse.Namespace) -> int:
             client.report_job_exit(rc == 0, "launcher done")
         except Exception as e:  # noqa: BLE001
             logger.debug("job-exit report to master failed: %s", e)
-        try:
-            master_holder[0].wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            logger.warning("local master did not exit in 30s; terminating")
-            master_holder[0].terminate()
-            master_holder[0].wait()
+        # A standby stands down on the leader's clean shutdown record.
+        for what, holder in (("local master", master_holder),
+                             ("standby master", standby_holder)):
+            if not holder:
+                continue
+            try:
+                holder[0].wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                logger.warning("%s did not exit in 30s; terminating", what)
+                holder[0].terminate()
+                holder[0].wait()
     client.close()
     return rc
 

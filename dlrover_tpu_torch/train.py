@@ -68,22 +68,21 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.common import dist_env
+from dlrover_tpu_torch.common.constants import (
+    MODEL_ITEM,
+    MULTICARD_ITEM,
+    OBJECT_STORE_ITEM,
+)
 from dlrover_tpu_torch.common.device import process_device
 from dlrover_tpu_torch.common.env import NodeEnv
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.common.storage import OBJECT_STORE_SLICE
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.ops.cross_entropy import xent_fwd
 from dlrover_tpu_torch.ops.flash_attention import flash_dkv, flash_dq, \
     flash_fwd
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 from dlrover_tpu_torch.optim import adamw
-from dlrover_tpu_torch.parallel.accelerate import (
-    LATER_SLICE,
-    MULTICARD_SLICE,
-    Strategy,
-    accelerate,
-)
+from dlrover_tpu_torch.parallel.accelerate import Strategy, accelerate
 from dlrover_tpu_torch.trainer import bootstrap
 from dlrover_tpu_torch.trainer.sampler import ElasticSampler
 
@@ -128,14 +127,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def refuse_later_options(args: argparse.Namespace) -> None:
     refused = [
         (args.strategy == "auto", "--strategy auto (the strategy search)",
-         MULTICARD_SLICE),
-        (args.fp8, "--fp8", LATER_SLICE),
-        (args.quant_grads, "--quant_grads", MULTICARD_SLICE),
-        (args.lora_rank > 0, "--lora_rank > 0 (LoRA)", LATER_SLICE),
+         MULTICARD_ITEM),
+        (args.fp8, "--fp8", MODEL_ITEM),
+        (args.quant_grads, "--quant_grads", MULTICARD_ITEM),
+        (args.lora_rank > 0, "--lora_rank > 0 (LoRA)", MODEL_ITEM),
         (bool(args.init_from), "--init_from (checkpoint import)",
-         LATER_SLICE),
+         MODEL_ITEM),
         ("://" in args.ckpt_dir, "--ckpt_dir on an object store",
-         OBJECT_STORE_SLICE),
+         OBJECT_STORE_ITEM),
     ]
     for on, what, where in refused:
         if on:

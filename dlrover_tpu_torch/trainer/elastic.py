@@ -29,10 +29,14 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from dlrover_tpu_torch.common.constants import HOST_LAYERS, MULTICARD_ITEM
+from dlrover_tpu_torch.common.constants import (
+    HOST_LAYERS,
+    MODEL_ITEM,
+    MULTICARD_ITEM,
+)
 from dlrover_tpu_torch.common.device import process_device
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.parallel.accelerate import MODEL_SLICE, accelerate
+from dlrover_tpu_torch.parallel.accelerate import accelerate
 from dlrover_tpu_torch.trainer.sampler import ElasticSampler
 
 
@@ -90,7 +94,7 @@ class ElasticTrainer:
             (param_specs is not None, f"param_specs={param_specs!r} "
              f"(sharded layouts)", MULTICARD_ITEM),
             (frozen is not None, "frozen= (LoRA's frozen base)",
-             MODEL_SLICE),
+             MODEL_ITEM),
         ]
         for on, what, where in refused:
             if on:

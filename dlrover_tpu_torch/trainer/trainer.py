@@ -39,9 +39,12 @@ import torch
 import torch.distributed as dist
 
 from dlrover_tpu_torch.common import dist_env
-from dlrover_tpu_torch.common.constants import HOST_LAYERS, MULTICARD_ITEM
+from dlrover_tpu_torch.common.constants import (
+    HOST_LAYERS,
+    MODEL_ITEM,
+    MULTICARD_ITEM,
+)
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.parallel.accelerate import MODEL_SLICE
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer, TrainerConfig
 
 
@@ -269,7 +272,7 @@ class Trainer:
             (args.layout_planner, "TrainingArgs(layout_planner=True)",
              MULTICARD_ITEM),
             (frozen is not None, "frozen= (LoRA's frozen base)",
-             MODEL_SLICE),
+             MODEL_ITEM),
         ]
         for on, what, where in refused:
             if on:

@@ -435,15 +435,18 @@ def test_a_refused_connection_is_unavailable_after_the_budget():
 def test_master_main_serves_and_refuses_later_flags(tmp_path):
     args = master_main.parse_args(["--port_file", str(tmp_path / "p")])
     assert args.platform == "local" and args.port == 0
-    for flags, match in ([["--state_dir", "d"], "3c.5"],
-                         [["--standby"], "3c.5"],
-                         [["--brain_addr", "h:1"], "Brain"],
+    for flags, match in ([["--brain_addr", "h:1"], "Brain"],
                          [["--cell_id", "c0"], "multi-cell"],
                          [["--platform", "gke"], "gke"]):
         with pytest.raises(NotImplementedError, match=match):
             master_main.run(master_main.parse_args(flags))
-    with pytest.raises(NotImplementedError, match="3c.5"):
-        LocalJobMaster(0, state_dir="d")
+    with pytest.raises(NotImplementedError, match="Brain"):
+        LocalJobMaster(0, resource_optimizer=object())
+    # Master HA's flags are taken, not refused.
+    args = master_main.parse_args(["--standby", "--state_dir", "d",
+                                   "--primary_addr", "127.0.0.1:1"])
+    master_main.refuse_later_options(args)
+    assert args.standby and args.state_dir == "d"
 
 
 # -- constants, knobs, the token cache ---------------------------------------

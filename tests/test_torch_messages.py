@@ -17,8 +17,8 @@ from dlrover_tpu_torch.common import messages as P
 
 PORTED = sorted(n for n in P._REGISTRY)
 #: The slices that bring the rest of the reference's wire.
-LATER = ("Serve", "Replica", "Cell", "Fleet", "Journal", "Reshard",
-         "KvSegment", "Draft", "Embedding", "Obs")
+LATER = ("Serve", "Replica", "Cell", "Fleet", "Reshard", "KvSegment",
+         "Draft", "Embedding", "Obs")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -87,7 +87,8 @@ def test_registry_is_the_training_wire():
                "HeartbeatResponse", "RendezvousRound", "CommWorld",
                "WaitingNodeNum", "KVStoreValue", "KVStoreMultiValue",
                "KVStoreCount", "KVStoreScanResult", "Task", "FaultNodes",
-               "Stragglers", "ElasticRunConfig", "ParallelConfig"}
+               "Stragglers", "ElasticRunConfig", "ParallelConfig",
+               "JournalChunk"}
     assert set(PORTED) == (table - later) | replies
     assert set(PORTED) <= set(R._REGISTRY)
 

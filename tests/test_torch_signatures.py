@@ -327,6 +327,10 @@ CONTROL_PLANE = [
      "RpcClient.call"),
     ("dlrover_tpu.agent.master_client",
      "dlrover_tpu_torch.agent.master_client", "build_master_client"),
+    ("dlrover_tpu.common.env", "dlrover_tpu_torch.common.env",
+     "get_master_standby_addr"),
+    ("dlrover_tpu.common.env", "dlrover_tpu_torch.common.env",
+     "get_master_state_dir"),
     ("dlrover_tpu.diagnosis.agent", "dlrover_tpu_torch.diagnosis.agent",
      "DiagnosisAgent.diagnose_training_failure"),
 ] + [
@@ -361,6 +365,23 @@ CONTROL_PLANE = [
             "TrainingArgs", "TrainerState", "TrainerControl",
             "build_lr_schedule", "build_optimizer", "Trainer.__init__",
             "Trainer.save", "Trainer.train")),
+        ("master.state", (
+            "JournalBound.bind_journal", "write_addr", "read_addr",
+            "read_lease", "read_state_dir", "JournalTail.__init__",
+            "JournalTail.poll", "ControlStateJournal.__init__",
+            "ControlStateJournal.append", "ControlStateJournal.snapshot",
+            "ControlStateJournal.maybe_snapshot", "MasterState.__init__",
+            "MasterState.apply", "MasterState.replay", "recover_into",
+            "JournalKeeper.__init__", "attach_state")),
+        ("master.standby", (
+            "RpcJournalSource.__init__", "RpcJournalSource.sync",
+            "StandbyMaster.__init__", "StandbyMaster.watch",
+            "StandbyMaster.take_over", "StandbyMaster.rebootstrap",
+            "StandbyMaster.run")),
+        ("master.statecheck", ("check_state_dir", "main")),
+        ("master.main", ("run_standby",)),
+        ("run", ("_master_cmd", "_launch_local_master",
+                 "_launch_standby_master", "_supervise_ha_masters")),
     )
     for name in names
 ] + [

@@ -20,6 +20,7 @@ Everything is exact: no tolerance."""
 
 import dataclasses
 import random
+import types
 
 import pytest
 
@@ -185,8 +186,12 @@ def test_task_reschedule_callback_requeues_a_failed_workers_shards():
     assert tm.get_task("d", 5)[0] == first[0]
     cb.on_node_deleted(Node("ps", 4))  # only workers' shards move
     assert tm.queue_depths() == (2, 2)
-    with pytest.raises(NotImplementedError, match="3c.5"):
-        tm.bind_journal(object())
+    # The HA journal binds and receives the recovery of worker 5's shard.
+    appended = []
+    tm.bind_journal(types.SimpleNamespace(
+        append=lambda kind, fields: appended.append((kind, fields))))
+    assert tm.recover_worker_tasks(5) == 1
+    assert appended == [("task.recover", {"worker": 5})]
 
 
 def _task_sequence(seed: int) -> list:
