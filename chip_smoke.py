@@ -24,27 +24,30 @@ together), then runs the phases below and exits non-zero if any fails:
    eager prefills: 65 a forward, 2 per block + the final norm) plus the
    graph's recorded nodes (65 x K, counted during its capture) times its
    replays, one a round.
-3b. Serving slice 2 (run after phase 9, on the same 7B weights made again
-   from the seed) on the same requests (12 of 16-200 tokens,
+3b. Serving slice 2 (run last, on the same 7B weights made again from the
+   seed, at 16 of the 32 blocks) on the same requests (12 of
+   16-200 tokens,
    32 new tokens, 8 slots, max_len 512): seven servers, slotted and paged
    (blocks of 16), K = 1 and 8 tokens a dispatch, bf16 and int8 KV, and a
    paged pool too tight for every request (it must preempt).  Each captures
    its decode dispatch in a warm-up call, then serves; its RMSNorm
    launches are counted as in phase 3, and a profile of the replays (5 at
-   K 1, 1 at K 8) must show 65 x K ``rmsnorm_fwd_kernel`` launches a
-   replay, less at most 1 % that the profiler lost.  One replay of the K=1
+   K 1, 1 at K 8 at 32 blocks; 10 and 2 at 16) must show (2L+1) x K
+   ``rmsnorm_fwd_kernel`` launches a replay (33 x K at 16 blocks), less at
+   most 1 % that the profiler lost.  One replay of the K=1
    step against an eager ``forward_step`` on a copy of the same cache:
    logits within 1e-3 relative (bit-equal expected).  Greedy outputs equal
    across K 1 and 8, slotted and paged (tight pool included); int8 with
    K 8 and paging equals int8 K 1 slotted; the int8 cache's prefill logits
    within 0.05 of the dense cache's span through two 7B blocks in bf16 and
-   fp32 (the reference test's bound and depth; all 32 blocks reported).  Per variant: tokens/s, TTFT p50
+   fp32 (the reference test's bound and depth; all 16 blocks reported).  Per variant: tokens/s, TTFT p50
    and max, the dispatch eagerly and replayed (a step = a dispatch / K),
    the busy share of a replay, peak memory, the KV bytes and, paged, the
    peak blocks in use; its record is one line ``phase3b serve {...}``
    before the kernel line.
-3c. Prefix caching and the KV-segment handoff (run after phase 9, just
-   before 3b, on the same 7B weights made again from the seed): 3b's 12
+3c. Prefix caching and the KV-segment handoff (run after phase 12, on
+   the same 7B weights made again from the seed, at 16 of the 32
+   blocks): 3b's 12
    requests behind one shared 256-token prefix (combined 272-456 tokens,
    above the 256 bucket, so the template path engages), served three ways
    (``serve`` of the combined prompts, first and again last, between them
@@ -59,11 +62,57 @@ together), then runs the phases below and exits non-zero if any fails:
    runs ``prefill_request`` + ``export_kv`` for one request each turn of
    a decode server's ``serve_incremental``, which ``import_kv``s it; the
    streams equal that server serving the requests in place; the RMSNorm
-   launches are 65 a prefill forward on the prefill server and the graph's
+   launches are 2L+1 a prefill forward on the prefill server and the graph's
    nodes on the decode server.  Per variant: payload bytes against fp32
    bytes, prefill, export (pack), unpack and import ms, and TTFT through
    the handoff beside the in-place TTFT; lines ``phase3c prefix {...}``,
    ``phase3c handoff {...}`` and ``phase3c prefix_handoff {...}``.
+3d. Speculative decoding (after 3c, same weights and requests; each server
+   captures its plain graph in a warm-up call, then serves): the plain
+   server, then (a) the ceiling draft (the target's own weights, k 4):
+   tokens a round above the break-even 3.4, no plain fallback round; the
+   round's parts (draft roll, [8, 5] verify, host acceptance) timed apart;
+   (b) a 1-block draft of the 7B width (seed 7) with per-request widths:
+   more fallback rounds than speculative ones; (c) the same draft with the
+   global adaptive width: its final width below 4; (d) (a) paged (256
+   blocks of 16) and with int8 KV, each against the plain server of its
+   layout; (e) a remote draft (an in-process ``DraftWorker`` on the
+   ceiling weights), then a handle that raises ``DraftUnavailable`` from
+   its third call (the measured run's second round): the run completes
+   with a draft failure; (g) fp32 at 4 of the 32 blocks: (a), (b) and (e)
+   byte-equal to the fp32 plain server; on that cut model, also
+   byte-equal: (f) ``generate_speculative_batched`` against
+   ``generate_ragged``; (h) sampled at temperature 0.8 with (b)'s widths:
+   two seeds differ and ``top_k`` 1 is greedy; (i) ``serve_journaled``
+   stopped after 5 completions, run again by a fresh server over a torn
+   tail: 7 served, tokens byte-equal to an uninterrupted journaled run, 12
+   journal lines.  Every token a bf16 variant generates (the plain
+   server's too) must lie within ``NEAR_TIE_ULPS`` (10) bf16 ulps of its
+   position's top logit under one forward of the variant's own sequences
+   by the plain model, into a cache of the plain server's KV type; where
+   each request first leaves the plain server is recorded.  Every
+   server's RMSNorm launches
+   are 65 a target forward (prefills, verifies) and 2L+1 a draft forward
+   (its prefills, rolls, catch-ups; a remote worker's opens, deltas and
+   roll steps) eagerly, plus the plain graph's 65 nodes a fallback round.
+   Per variant: tokens/s, TTFT p50 and max, tokens a round, rounds; one
+   line ``phase3d serve {...}`` each and ``phase3d spec {...}``.
+3e. The fleet, one process a role (``python -m
+   dlrover_tpu_torch.serve_fleet``): a gateway (lease 3 s), two
+   speculative replicas of the 7B model (2 slots each) with journals and a
+   ceiling draft replica; the phase submits the 12 requests through
+   ``ServeClient`` at 20 a second and, once the targets have reported 6
+   speculative rounds and replica r0 has journaled a completion while a
+   request streams on it, SIGKILLs r0 and then the draft (the targets go
+   plain; no lease lapsed before, so only r0 held that request).  r0
+   starts again with the same id and journal once the gateway has logged,
+   after that kill, r0's lease lapse and a request requeued for it.  All
+   12 end done once; the restarted r0 replays at least one
+   journaled completion, which the gateway drops as a duplicate; every
+   token meets 3d's near-tie rule, and the gateway process neither
+   imported torch nor shows in ``nvidia-smi``'s compute processes.  Tokens/s,
+   TTFT p50, the kill to the requeue and the spec counters go on a line
+   ``phase3e fleet {...}``.
 4. Flash attention kernels (forward, dq, dk/dv) vs plain at the
    Llama-800M training shape, phase 8's shape, a GQA shape with a ragged
    length, and an fp32 case with a window and packed segments.  bf16 runs
@@ -706,6 +755,9 @@ SERVE_VARIANTS = (
     ("int8_paged_k8", {"quant_kv": True, "paged": True, "decode_chunk": 8}),
 )
 SERVE_REQUESTS, SERVE_MNT, SERVE_SLOTS, SERVE_MAX_LEN = 12, 32, 8, 512
+#: Phases 3b and 3c run at 16 of the 7B's 32 blocks (they ran all 32
+#: until phases 3d-3e joined the script, whose time bound this keeps).
+SERVE_CUT_LAYERS = 16
 BLOCK = 16
 
 
@@ -869,7 +921,9 @@ def serve_variant(infer, rms, params, cfg, prompts, name, kw) -> tuple:
             fn = srv._dispatch if which == "eager" else graph.graph.replay
             ms[which].append(time_ms(fn, iters=iters, warmup=2))
 
-        n_prof = 5 if K == 1 else 1
+        # 5 replays at K 1 and 1 at K 8 of the full 32 blocks: as many
+        # kernels in the window at a cut depth.
+        n_prof = (5 if K == 1 else 1) * 32 // cfg.n_layer
 
         def replays():
             for _ in range(n_prof):
@@ -933,9 +987,9 @@ def phase_serve_graph(infer, rms, params, cfg) -> dict:
         raise SystemExit("phase3b: the tight pool preempted nothing")
     # The reference holds the int8 cache within 0.05 of the dense cache's
     # logit span on a 2-layer model; here at the 7B's width and two
-    # blocks, in bf16 and fp32.  Through all 32 random blocks the distance
-    # grows with depth (the bf16 dense cache's own distance from fp32
-    # passes 0.05 there too), so the full depth is reported, not held.
+    # blocks, in bf16 and fp32.  Through more random blocks the distance
+    # grows with depth (at 32 the bf16 dense cache's own distance from
+    # fp32 passes 0.05 too), so the phase's depth is reported, not held.
     res["int8_vs_dense"] = [
         int8_vs_dense(infer, params, cfg, prompts[0], n)
         for n in (2, cfg.n_layer)]
@@ -1211,6 +1265,687 @@ def phase_prefix_handoff(infer, rms, params, cfg) -> dict:
     for name, kw in HANDOFF_VARIANTS:
         res["handoff"].append(handoff_variant(infer, rms, params, cfg,
                                               prompts, name, kw))
+    return res
+
+
+# Phase 3d: speculative decoding in process; 3e: the fleet, one process a
+# role.  Both on phase 3's 12 requests and the 7B weights of phase 3c.
+SPEC_K = 4
+SPEC_BREAK_EVEN = 1.0 + 0.6 * SPEC_K  # DecodeServer's default at k = 4
+SPEC_POOL = 256  # blocks of 16 in (d) paged
+SPEC_FP32_LAYERS = 4
+SPEC_JOURNAL_STOP = 5  # (i): on_serve raises at this completion
+FLEET_RPS = 20.0
+FLEET_TIMEOUT_S = 240.0
+#: The gateway must have declared r0 lost this long after its kill (the 3 s
+#: lease and the 1 s sweep, with room).
+FLEET_LAPSE_S = 15.0
+#: Slots a replica: two replicas hold 4 of the 12 requests, so a replica
+#: that has finished its first requests takes queued ones, on which it is
+#: killed (requests admitted together finish together).
+FLEET_SLOTS = 2
+#: The draft replica is SIGKILLed with r0, once the targets have reported
+#: this many speculative rounds.
+FLEET_DRAFT_ROUNDS = 6
+#: The model flags of the fleet's replicas and draft (``serve_fleet``).
+FLEET_MODEL = ("--config", "llama2_7b")
+
+
+#: The near-tie rule's bound, in bf16 ulps of the top logit.  A [B, k+1]
+#: verify, a [B, 1] step and a [B, S] forward round differently (cuBLAS
+#: picks its GEMMs by shape; ``spec_round_parts`` records how many logits
+#: differ at one context), so a token that one program takes as its argmax
+#: can sit a few ulps under another's top.  On the card such readings were
+#: up to 6 ulps (the int8 plain server's own tokens) while every fp32
+#: variant was byte-equal (PERF.md); a wrong token (a bad rewind, a replay
+#: of another request) sits far below: the check records at how many
+#: positions every token but the top would fail.
+NEAR_TIE_ULPS = 10
+
+
+class DyingDraft:
+    """A remote-draft handle that raises ``DraftUnavailable`` from its
+    ``n``-th proposal on."""
+
+    def __init__(self, inner, n: int, error):
+        self.inner, self.n, self.error, self.calls = inner, n, error, 0
+
+    def propose(self, *args, **kw):
+        self.calls += 1
+        if self.calls >= self.n:
+            raise self.error("the draft replica is gone")
+        return self.inner.propose(*args, **kw)
+
+
+def near_tie_check(infer, params, cfg, prompts, got, ref, what: str,
+                   exact: bool = False, quant_kv: bool = False) -> dict:
+    """Every generated token of ``got`` lies within ``NEAR_TIE_ULPS`` bf16
+    ulps of its position's top logit under one forward of ``got``'s own
+    sequences by the plain model, into a cache of the plain server's KV
+    type: all the tokens, not only those before a request first leaves
+    ``ref``.  ``exact``: byte-equal to ``ref`` instead.  Returns how many
+    requests equal ``ref``, where the others first leave it, and the
+    readings in ulps."""
+    import numpy as np
+    import torch
+
+    got = [np.asarray(g) for g in got]
+    first = []
+    for i, (g, r) in enumerate(zip(got, ref)):
+        r = np.asarray(r)
+        m = min(len(g), len(r))
+        diff = g[:m] != r[:m]
+        n = len(prompts[i])
+        if len(g) == len(r) and not diff.any():
+            continue
+        j = int(np.argmax(diff)) if diff.any() else m
+        if exact or j < n or len(g) != len(r):
+            raise SystemExit(f"{what}: request {i} differs from the plain "
+                             f"server at position {j} (prompt {n}, "
+                             f"{len(g)} / {len(r)} tokens)")
+        first.append(j - n)
+    rec = {"equal": len(got) - len(first), "first_divergence": first}
+    if exact:
+        return rec
+    L = max(len(g) for g in got)
+    toks = np.zeros((len(got), L), np.int64)
+    for i, g in enumerate(got):
+        toks[i, :len(g)] = g
+    below, gap2 = [], []
+    with torch.inference_mode():
+        cache = infer.init_cache(cfg, len(got), L, device=DEV,
+                                 quant_kv=quant_kv)
+        logits = infer.forward_step(params, torch.from_numpy(toks).to(DEV),
+                                    cfg, cache)[0]
+        for i, g in enumerate(got):
+            n = len(prompts[i])
+            lg = logits[i, n - 1:len(g) - 1].float()
+            tok = torch.from_numpy(g[n:].astype(np.int64)).to(DEV)
+            top2 = torch.topk(lg, 2, dim=-1).values
+            top, ulp = top2[:, 0], bf16_ulp(top2[:, 0]).float()
+            below.append(((top - lg.gather(1, tok[:, None])[:, 0])
+                          / ulp).cpu().numpy())
+            gap2.append(((top - top2[:, 1]) / ulp).cpu().numpy())
+        del logits, cache
+    below, gap2 = np.concatenate(below), np.concatenate(gap2)
+    worst = float(below.max())
+    if worst > NEAR_TIE_ULPS:
+        at = int(np.argmax(below))
+        raise SystemExit(f"{what}: a generated token sits {worst} bf16 ulps "
+                         f"under its position's top logit (token {at} of "
+                         f"{len(below)}; bound {NEAR_TIE_ULPS})")
+    rec.update({"tokens": int(below.size), "max_below_top_ulps": worst,
+                "off_top": int((below > 0).sum()),
+                "only_top_passes": int((gap2 > NEAR_TIE_ULPS).sum())})
+    return rec
+
+
+def spec_launch_check(srv, rms, eager, cfg, dcfg, what: str,
+                      draft_forwards: int = 0) -> int:
+    """A spec server's RMSNorm launches: the wrapper's count must be (2L+1)
+    x the target's eager forwards (prefills, verifies) + (2L_d+1) x the
+    draft's (its prefills, rolls and catch-ups, or ``draft_forwards`` of a
+    remote worker), and the plain fallback rounds one graph replay each.
+    Returns eager + recorded x replays."""
+    st = srv.last_stats
+    per_t = 2 * cfg.n_layer + 1
+    per_d = 2 * dcfg.n_layer + 1
+    replays = st["graph_replays"]
+    recorded = srv.decode_graph.recorded.get("rmsnorm", 0)
+    eager_t = st["forwards"] - replays + st["graph_warmup_forwards"] + \
+        st["template_forwards"]
+    want = per_t * eager_t + per_d * (st["draft_forwards"] + draft_forwards)
+    if eager != want or replays != st["plain_rounds"] or \
+            recorded != per_t or eager == 0:
+        raise SystemExit(
+            f"{what}: rmsnorm launches: {eager} eager, want {per_t} x "
+            f"{eager_t} + {per_d} x {st['draft_forwards']} + {per_d} x "
+            f"{draft_forwards}; {recorded} recorded a replay, {replays} "
+            f"replays for {st['plain_rounds']} plain rounds")
+    return eager + recorded * replays
+
+
+def spec_serve(infer, rms, params, cfg, prompts, name, kw,
+               dcfg=None, remote=None, seed: int = SEED) -> tuple:
+    """Serve the 12 requests through one server (its plain graph captured
+    in a warm-up call first); returns (record, outputs, server)."""
+    import torch
+
+    srv = infer.DecodeServer(params, cfg, slots=SERVE_SLOTS,
+                             max_len=SERVE_MAX_LEN, seed=seed,
+                             block_size=BLOCK, **kw)
+    if remote is not None:
+        srv.set_remote_draft(remote)
+    srv.serve(prompts[:1], 2)  # warm-up: the decode graph, cuBLAS plans
+    first: dict = {}
+    worker = getattr(remote, "inner", remote)
+    fwd0 = getattr(worker, "forwards", 0)
+    torch.cuda.synchronize()
+    reset_launches(rms.rmsnorm)
+    t0 = time.perf_counter()
+    outs = srv.serve(prompts, SERVE_MNT, on_token=lambda rid, _t:
+                     first.setdefault(rid, time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = dict(srv.last_stats)
+    new_tokens = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+    rec = {"variant": name, "serve_s": wall,
+           "tokens_per_s": new_tokens / wall,
+           "ttft_p50_ms": 1e3 * statistics.median(first.values()),
+           "ttft_max_ms": 1e3 * max(first.values()),
+           **{k: st[k] for k in ("path", "rounds", "forwards",
+                                 "graph_replays")}}
+    if st["path"] == "spec":
+        rec.update({k: st[k] for k in (
+            "tokens_per_round", "k_final", "k_history",
+            "spec_fallback_rounds", "spec_draft_failures", "plain_rounds",
+            "draft_forwards", "spec_round_s", "spec_propose_s")})
+        rec["rmsnorm_launches"] = spec_launch_check(
+            srv, rms, rms.rmsnorm.launches, cfg, dcfg or cfg,
+            f"phase3d {name}",
+            getattr(worker, "forwards", 0) - fwd0)
+    else:
+        rec["rmsnorm_launches"] = graph_launch_check(
+            srv, rms, rms.rmsnorm.launches, cfg, f"phase3d {name}")
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + SERVE_MNT or o.min() < 0 or \
+                o.max() >= cfg.vocab_size:
+            raise SystemExit(f"phase3d {name}: bad output for a {len(p)}-"
+                             "token prompt")
+    log(f"phase3d serve {json.dumps(rec)}")
+    return rec, outs, srv
+
+
+def spec_round_parts(infer, params, cfg, reps: int = 5) -> dict:
+    """The round's parts at 8 slots on offset 200, ceiling draft, k = 4:
+    the draft roll, the [8, 5] verify and the host acceptance, in ms; and
+    how far a [8, 1] step's logits and the verify's first position's
+    differ at one context (phase 3's first prompt, 8 rows): the share of
+    logits that differ and the largest difference in bf16 ulps of the
+    top logit."""
+    import numpy as np
+    import torch
+
+    progs = infer._spec_programs(cfg, cfg, SPEC_K, 0.0, 0, 0)
+    off = torch.full((SERVE_SLOTS,), 200, dtype=torch.long, device=DEV)
+    layers_t = infer.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN,
+                                device=DEV, ring=False)["layers"]
+    layers_d = infer.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN,
+                                device=DEV, ring=False)["layers"]
+    cur = torch.ones(SERVE_SLOTS, dtype=torch.long, device=DEV)
+    done = np.zeros(SERVE_SLOTS, bool)
+    ms = {"draft_roll": [], "verify": [], "accept": []}
+    with torch.inference_mode():
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, _, _ = progs["draft_roll"](params, {"layers": layers_d,
+                                                   "offset": off}, cur)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            g, _ = progs["target_verify"](
+                params, {"layers": layers_t, "offset": off},
+                torch.cat([cur[:, None], d], 1))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            infer._spec_accept(g, d.cpu().numpy(), None, cur.cpu().numpy(),
+                               done, SPEC_K, False, None, None)
+            t3 = time.perf_counter()
+            for k, v in (("draft_roll", t1 - t0), ("verify", t2 - t1),
+                         ("accept", t3 - t2)):
+                ms[k].append(1e3 * v)
+    del layers_t, layers_d
+    res = {k + "_ms": statistics.median(v[1:]) for k, v in ms.items()}
+    p = serve_prompts(cfg)[0][:150].astype(np.int64)
+    toks = torch.from_numpy(np.tile(p, (SERVE_SLOTS, 1))).to(DEV)
+    with torch.inference_mode():
+        layers = infer.init_cache(cfg, SERVE_SLOTS, SERVE_MAX_LEN, device=DEV,
+                                  ring=False)["layers"]
+        infer.forward_step(params, toks[:, :145], cfg,
+                           {"layers": layers, "offset": 0})
+        at = torch.full((SERVE_SLOTS,), 145, dtype=torch.long, device=DEV)
+        verify, _ = infer.forward_step(params, toks[:, 145:150], cfg,
+                                       {"layers": layers, "offset": at})
+        step, _ = infer.forward_step(params, toks[:, 145:146], cfg,
+                                     {"layers": layers, "offset": at})
+    a, b = verify[:, 0], step[:, 0]
+    ulp = bf16_ulp(b.max(dim=-1, keepdim=True).values)
+    res["step_vs_verify"] = {
+        "logits_differing": float((a != b).float().mean()),
+        "max_ulps_of_top": float(((a - b).abs() / ulp).max()),
+        "argmax_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1)))}
+    del layers
+    return res
+
+
+def phase_spec(infer, rms, params, cfg) -> dict:
+    """Phase 3d: speculative decoding in one process on the 7B weights."""
+    import numpy as np
+    import torch
+
+    from dlrover_tpu_torch import serve as tserve
+    from dlrover_tpu_torch.serving import draft as tdraft
+
+    prompts = serve_prompts(cfg)
+    t_phase = time.perf_counter()
+    res = {"requests": len(prompts), "max_new_tokens": SERVE_MNT,
+           "slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN, "k": SPEC_K,
+           "variants": [], "checks": {}}
+    recs, outs = {}, {}
+
+    def run(name, kw, **extra):
+        rec, outs[name], _ = spec_serve(infer, rms, params, cfg, prompts,
+                                        name, kw, **extra)
+        recs[name] = rec
+        res["variants"].append(rec)
+        gc.collect()  # a server and its graph's bound dispatch: a cycle
+        torch.cuda.empty_cache()
+
+    def near(name, ref, exact=False, p=params, c=cfg, quant_kv=False):
+        res["checks"][f"{name}_vs_{ref}"] = near_tie_check(
+            infer, p, c, prompts, outs[name], outs[ref], f"phase3d {name}",
+            exact, quant_kv)
+
+    ceiling = {"draft": (params, cfg), "draft_k": SPEC_K}
+    bad = tserve.draft_model(cfg, 1, DEV)
+    run("plain", {})
+    near("plain", "plain")  # the plain server's own tokens: the baseline
+    run("ceiling", ceiling)
+    near("ceiling", "plain")
+    a = recs["ceiling"]
+    if not (a["tokens_per_round"] > SPEC_BREAK_EVEN
+            and a["spec_fallback_rounds"] == 0):
+        raise SystemExit(f"phase3d (a) ceiling draft: {a}")
+    res["round_parts"] = spec_round_parts(infer, params, cfg)
+    run("bad_per_request", {"draft": bad, "draft_k": SPEC_K,
+                            "adapt_k_per_request": True}, dcfg=bad[1])
+    near("bad_per_request", "plain")
+    b = recs["bad_per_request"]
+    if not b["spec_fallback_rounds"] > b["rounds"]:
+        raise SystemExit(f"phase3d (b) per-request width: {b}")
+    run("bad_adapt_k", {"draft": bad, "draft_k": SPEC_K, "adapt_k": True},
+        dcfg=bad[1])
+    near("bad_adapt_k", "plain")
+    if not recs["bad_adapt_k"]["k_final"] < SPEC_K:
+        raise SystemExit(f"phase3d (c) adapt_k: {recs['bad_adapt_k']}")
+    for name, kw in (("paged", {"paged": True, "pool_blocks": SPEC_POOL}),
+                     ("int8", {"quant_kv": True})):
+        run(f"plain_{name}", kw)
+        run(f"ceiling_{name}", dict(ceiling, **kw))
+        for v in (f"plain_{name}", f"ceiling_{name}"):
+            near(v, f"plain_{name}", quant_kv=kw.get("quant_kv", False))
+    worker = tdraft.DraftWorker(params, cfg, max_len=SERVE_MAX_LEN,
+                                draft_k=SPEC_K, max_streams=16)
+    worker.warm()
+    run("remote", {"spec_remote": True, "draft_k": SPEC_K}, remote=worker)
+    near("remote", "plain")
+    # Its first call is the warm-up's; the measured run rolls once, then
+    # the draft is gone.
+    dying = DyingDraft(worker, 3, tdraft.DraftUnavailable)
+    run("remote_dies", {"spec_remote": True, "draft_k": SPEC_K},
+        remote=dying)
+    near("remote_dies", "plain")
+    if not (recs["remote_dies"]["spec_draft_failures"] > 0
+            and recs["remote_dies"]["rounds"] > 0
+            and recs["remote"]["spec_draft_failures"] == 0):
+        raise SystemExit(f"phase3d (e) remote draft: {recs['remote_dies']}")
+    del worker, dying
+    gc.collect()
+
+    # (g) fp32 at 4 of the 32 blocks: byte-equal to the fp32 plain server.
+    cfg32 = dataclasses.replace(cfg, n_layer=SPEC_FP32_LAYERS,
+                                dtype=torch.float32)
+    p32 = to_device(dict(params, layers=params["layers"][:SPEC_FP32_LAYERS]),
+                    torch.float32)
+    bad32 = (to_device(bad[0], torch.float32),
+             dataclasses.replace(bad[1], dtype=torch.float32))
+
+    def run32(name, kw, **extra):
+        rec, outs[name], _ = spec_serve(infer, rms, p32, cfg32, prompts,
+                                        name, kw, **extra)
+        res["variants"].append(rec)
+
+    per_request = {"draft": bad32, "draft_k": SPEC_K,
+                   "adapt_k_per_request": True}
+    run32("fp32_plain", {})
+    run32("fp32_ceiling", {"draft": (p32, cfg32), "draft_k": SPEC_K})
+    run32("fp32_bad_per_request", per_request, dcfg=bad32[1])
+    w32 = tdraft.DraftWorker(p32, cfg32, max_len=SERVE_MAX_LEN,
+                             draft_k=SPEC_K, max_streams=16)
+    run32("fp32_remote", {"spec_remote": True, "draft_k": SPEC_K},
+          remote=w32)
+    for name in ("fp32_ceiling", "fp32_bad_per_request", "fp32_remote"):
+        near(name, "fp32_plain", exact=True, p=p32, c=cfg32)
+    del w32
+    gc.collect()
+
+    # (f), (h) and (i) are host logic, held byte-equal to the reference on
+    # the CPU; they run on the fp32 cut model, where each is byte-equal.
+    # (f) the batched generator against the ragged plain decode.
+    lens = np.asarray([len(p) for p in prompts])
+    padded = np.zeros((len(prompts), int(lens.max())), np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    pad_t = torch.from_numpy(padded).to(DEV)
+    lens_t = torch.from_numpy(lens).to(DEV)
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sb, sl = infer.generate_speculative_batched(
+        p32, cfg32, p32, cfg32, pad_t, lens_t, max_new_tokens=SERVE_MNT,
+        k=SPEC_K, stats=stats)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rb, rl = infer.generate_ragged(p32, cfg32, pad_t, lens_t,
+                                   max_new_tokens=SERVE_MNT)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    outs["batched_spec"] = [sb[i, :int(sl[i])].cpu().numpy()
+                            for i in range(len(prompts))]
+    outs["ragged"] = [rb[i, :int(rl[i])].cpu().numpy()
+                      for i in range(len(prompts))]
+    near("batched_spec", "ragged", exact=True, p=p32, c=cfg32)
+    res["batched"] = {"spec_s": t1 - t0, "ragged_s": t2 - t1, **stats}
+
+    # (h) sampled at temperature 0.8 with per-request widths: seeds differ;
+    # top_k 1 is greedy.
+    sampled = dict(per_request, temperature=0.8)
+    for i in (0, 1):
+        run32(f"fp32_sampled_{i}", sampled, dcfg=bad32[1], seed=SEED + i)
+    a_, b_ = outs["fp32_sampled_0"], outs["fp32_sampled_1"]
+    if all(np.array_equal(x, y) for x, y in zip(a_, b_)):
+        raise SystemExit("phase3d (h): two seeds sampled the same tokens")
+    run32("fp32_top_k1", dict(sampled, top_k=1), dcfg=bad32[1])
+    near("fp32_top_k1", "fp32_plain", exact=True, p=p32, c=cfg32)
+    res["sampled"] = {"seeds_differ_on": sum(
+        not np.array_equal(x, y) for x, y in zip(a_, b_))}
+
+    # (i) serve_journaled: stopped after 5 completions, then run again by
+    # a fresh server (a restarted worker) over a torn tail.
+    tmp = tempfile.mkdtemp(prefix="phase3d_")
+    try:
+        def server():
+            return infer.DecodeServer(p32, cfg32, slots=SERVE_SLOTS,
+                                      max_len=SERVE_MAX_LEN, seed=SEED,
+                                      **per_request)
+
+        whole = infer.serve_journaled(server(), prompts, SERVE_MNT,
+                                      os.path.join(tmp, "whole.jsonl"))
+        part = os.path.join(tmp, "part.jsonl")
+        seen = []
+
+        def stop(rid, _toks):
+            seen.append(rid)
+            if len(seen) == SPEC_JOURNAL_STOP:
+                raise KeyboardInterrupt
+
+        try:
+            infer.serve_journaled(server(), prompts, SERVE_MNT, part,
+                                  on_serve=stop)
+            raise SystemExit("phase3d (i): the stopping run did not stop")
+        except KeyboardInterrupt:
+            pass
+        with open(part, "a") as f:
+            f.write('{"rid": 99, "ph": "torn')
+        served = []
+        again = infer.serve_journaled(server(), prompts, SERVE_MNT, part,
+                                      on_serve=lambda r, t: served.append(r))
+        with open(part) as f:
+            lines = f.read().splitlines()
+        ok = all(np.array_equal(x, y) for x, y in zip(whole, again))
+        if len(served) != len(prompts) - SPEC_JOURNAL_STOP or not ok or \
+                len(lines) != len(prompts) or \
+                sorted(json.loads(x)["rid"] for x in lines) != \
+                list(range(len(prompts))):
+            raise SystemExit(f"phase3d (i) serve_journaled: served "
+                             f"{len(served)}, equal {ok}, {len(lines)} "
+                             "journal lines")
+        res["journaled"] = {"stopped_after": SPEC_JOURNAL_STOP,
+                            "served_again": len(served),
+                            "byte_equal": len(prompts)}
+        outs["journaled"] = whole
+        near("journaled", "fp32_plain", exact=True, p=p32, c=cfg32)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del p32, bad32
+    res["near_tie_max_ulps"] = max(
+        c.get("max_below_top_ulps", 0.0) for c in res["checks"].values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["plain_outputs"] = outs["plain"]
+    return res
+
+
+def fleet_wait(path: str, pattern: str, what: str, procs: dict,
+               timeout: float = FLEET_TIMEOUT_S):
+    """The first match of ``pattern`` in the log ``path``; fails when one
+    of ``procs`` has died or the time is up."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(path) as f:
+            m = re.search(pattern, f.read())
+        if m:
+            return m
+        dead = {n: p.returncode for n, p in procs.items()
+                if p.poll() is not None}
+        if dead or time.monotonic() > deadline:
+            raise SystemExit(f"phase3e: waiting for {what}: dead {dead}")
+        time.sleep(0.05)
+
+
+def gpu_pids() -> set:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def phase_fleet(infer, params, cfg, plain_outs) -> dict:
+    """Phase 3e: the fleet with one process per role on the card."""
+    import numpy as np
+
+    from dlrover_tpu_torch.common.messages import (
+        ServeDrainRequest,
+        ServeFleetStatsRequest,
+    )
+    from dlrover_tpu_torch.common.rpc import RpcClient
+    from dlrover_tpu_torch.serving import ServeClient
+
+    prompts = serve_prompts(cfg)
+    tmp = tempfile.mkdtemp(prefix="phase3e_")
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT, OMP_NUM_THREADS="4")
+    fleet = [sys.executable, "-m", "dlrover_tpu_torch.serve_fleet"]
+    procs: dict = {}
+    client = None
+    t_phase = time.perf_counter()
+
+    def spawn(name, *argv):
+        with open(os.path.join(tmp, f"{name}.log"), "w") as out:
+            procs[name] = subprocess.Popen(
+                fleet + list(argv), cwd=REPO_ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+
+    def logf(name):
+        return os.path.join(tmp, f"{name}.log")
+
+    def restart_r0_once_lost(at: int, t_kill: float, events: dict) -> None:
+        # r0 starts again once the gateway has logged, after the kill, r0's
+        # lease lapse and a request requeued for it: events the draft's
+        # kill (before) cannot explain.
+        with open(logf("gateway"), "rb") as f:
+            f.seek(at)
+            text = f.read().decode(errors="replace")
+        for key, pat in (("lease_expiry_s", r"replica r0 lease expired"),
+                         ("requeue_s", r"re-queued \(lease expiry of "
+                                       r"replica r0\)")):
+            if key not in events and re.search(pat, text):
+                events[key] = time.perf_counter() - t_kill
+        if "lease_expiry_s" in events and "requeue_s" in events:
+            spawn("r0", *replica, "--replica_id", "r0")
+            events["r0_restart_at"] = time.perf_counter() - t0
+        elif time.perf_counter() - t_kill > FLEET_LAPSE_S:
+            raise SystemExit(f"phase3e: {FLEET_LAPSE_S} s after r0's kill "
+                             f"the gateway has not requeued its work: "
+                             f"{events}; {text[-3000:]}")
+
+    try:
+        spawn("gateway", "--role", "gateway", "--lease_timeout", "3")
+        gw = "127.0.0.1:" + fleet_wait(logf("gateway"),
+                                       r"GATEWAY_READY port=(\d+)",
+                                       "the gateway", procs)[1]
+        model = [*FLEET_MODEL, "--max_len", str(SERVE_MAX_LEN),
+                 "--gateway", gw]
+        replica = ["--role", "replica", *model, "--spec", "--slots",
+                   str(FLEET_SLOTS), "--journal_dir",
+                   os.path.join(tmp, "journal"), "--draft_k", str(SPEC_K)]
+        spawn("r0", *replica, "--replica_id", "r0")
+        spawn("r1", *replica, "--replica_id", "r1")
+        spawn("d0", "--role", "draft", *model, "--replica_id", "d0",
+              "--draft_seed", "-1", "--draft_k", str(SPEC_K),
+              "--draft_streams", "12")
+        t_up = time.perf_counter()
+        for name, line in (("r0", "REPLICA_READY"), ("r1", "REPLICA_READY"),
+                           ("d0", "DRAFT_READY")):
+            fleet_wait(logf(name), line, f"{name} ready", dict(procs))
+        up_s = time.perf_counter() - t_up
+        on_card = gpu_pids()
+        if procs["gateway"].pid in on_card:
+            raise SystemExit("phase3e: the gateway holds a CUDA context")
+        client = RpcClient(gw, timeout=10.0)
+        sc = ServeClient(client)
+
+        def stats():
+            return client.call(ServeFleetStatsRequest()).stats
+
+        gaps = np.random.RandomState(SEED + 7).exponential(
+            1.0 / FLEET_RPS, size=len(prompts))
+        submitted: dict = {}
+        first: dict = {}
+        done: dict = {}
+        events: dict = {}
+        t0 = time.perf_counter()
+        nxt = 0
+        r0_journal = os.path.join(tmp, "journal", "r0.jsonl")
+        due = t0
+        while len(done) < len(prompts):
+            now = time.perf_counter()
+            if nxt < len(prompts) and now >= due:
+                ack = sc.submit(f"req-{nxt}", prompts[nxt], SERVE_MNT)
+                if ack.status != "accepted":
+                    raise SystemExit(f"phase3e: submit {nxt}: {ack}")
+                submitted[nxt] = time.perf_counter()
+                nxt += 1
+                due += float(gaps[min(nxt, len(prompts) - 1)])
+            streaming_on_r0 = False
+            for i in list(submitted):
+                if i in done:
+                    continue
+                st = sc.status(f"req-{i}")
+                if st.tokens and i not in first:
+                    first[i] = time.perf_counter() - submitted[i]
+                if st.state in ("done", "failed", "timeout"):
+                    done[i] = st
+                elif st.replica == "r0" and \
+                        0 < len(st.tokens) < SERVE_MNT - 2:
+                    streaming_on_r0 = True
+            if "r0_killed" not in events and os.path.exists(r0_journal):
+                with open(r0_journal) as f:
+                    journaled = f.read().count("\n")
+                if journaled and "r0_journaled_at" not in events:
+                    events["r0_journaled_at"] = time.perf_counter() - t0
+                # r0 is killed once it has journaled a completion and
+                # while a request streams on it, which the gateway must
+                # requeue; the draft right after it.  Until then no lease
+                # has lapsed, so only r0 holds that request.
+                spec_rounds = stats()["counters"]["spec_rounds"]
+                if journaled >= 1 and streaming_on_r0 and \
+                        spec_rounds >= FLEET_DRAFT_ROUNDS:
+                    with open(logf("gateway"), "rb") as f:
+                        gw_at_kill = len(f.read())
+                    os.kill(procs["r0"].pid, signal.SIGKILL)
+                    procs["r0"].wait(timeout=60)
+                    t_kill = time.perf_counter()
+                    os.kill(procs["d0"].pid, signal.SIGKILL)
+                    events["r0_killed"] = t_kill - t0
+                    events["draft_killed"] = time.perf_counter() - t0
+                    events["spec_rounds_at_kill"] = spec_rounds
+                    events["done_at_kill"] = len(done)
+                    events["r0_journaled"] = journaled
+                    procs["r0_killed"] = procs.pop("r0")
+            if "r0_killed" in events and "r0_restart_at" not in events:
+                restart_r0_once_lost(gw_at_kill, t_kill, events)
+            if time.perf_counter() - t0 > FLEET_TIMEOUT_S:
+                raise SystemExit(f"phase3e: {len(done)} of {len(prompts)} "
+                                 f"done after {FLEET_TIMEOUT_S} s")
+            time.sleep(0.01)
+        wall = time.perf_counter() - t0
+        if "r0_killed" not in events or "draft_killed" not in events:
+            raise SystemExit(f"phase3e: the kills did not happen: {events}")
+        while "r0_restart_at" not in events:
+            restart_r0_once_lost(gw_at_kill, t_kill, events)
+            time.sleep(0.05)
+        live = {n: procs[n] for n in ("gateway", "r0", "r1")}
+        fleet_wait(logf("r0"), "REPLICA_READY", "r0 restarted", live)
+        snap = stats()
+        for rid in ("r0", "r1"):
+            client.call(ServeDrainRequest(replica_id=rid))
+        for name in ("r0", "r1"):
+            m = fleet_wait(logf(name), r"REPLICA_DONE id=\w+ served=(\d+) "
+                           r"replayed=(\d+)", f"{name} drained", {})
+            events[f"{name}_served_replayed"] = [int(m[1]), int(m[2])]
+        procs["gateway"].send_signal(signal.SIGTERM)
+        gdone = json.loads(fleet_wait(logf("gateway"), r"GATEWAY_DONE (.*)",
+                                      "the gateway's summary", {})[1])
+    finally:
+        if client is not None:
+            client.close()
+        for p in procs.values():
+            if p.poll() is None:
+                os.kill(p.pid, signal.SIGKILL)
+            p.wait(timeout=60)
+        logs = {}
+        for name in ("gateway", "r0", "r1", "d0"):
+            try:
+                with open(logf(name)) as f:
+                    logs[name] = f.read()[-2000:]
+            except OSError:
+                pass
+        shutil.rmtree(tmp, ignore_errors=True)
+    c = gdone["counters"]
+    bad = [i for i, st in done.items() if st.state != "done"]
+    if bad or c["completed"] != len(prompts) or c["redispatched"] < 1 or \
+            c["duplicate_completions"] < 1 or gdone["torch_imported"] or \
+            "requeue_s" not in events or "lease_expiry_s" not in events or \
+            events["r0_served_replayed"][1] < 1:
+        raise SystemExit(f"phase3e: not done {bad}, counters {c}, "
+                         f"events {events}, torch in the gateway "
+                         f"{gdone['torch_imported']}; "
+                         f"logs {json.dumps(logs)[-6000:]}")
+    got = [np.concatenate([p, np.asarray(done[i].tokens, np.int32)])
+           for i, p in enumerate(prompts)]
+    tie = near_tie_check(infer, params, cfg, prompts, got, plain_outs,
+                         "phase3e")
+    new_tokens = sum(len(done[i].tokens) for i in done)
+    res = {"requests": len(prompts), "rps": FLEET_RPS,
+           "fleet_up_s": up_s, "serve_s": wall,
+           "tokens_per_s": new_tokens / wall,
+           "ttft_p50_ms": 1e3 * statistics.median(first.values()),
+           "ttft_max_ms": 1e3 * max(first.values()),
+           "gateway_ttft_p50_ms": gdone["ttft_p50_ms"],
+           "events": events, "near_tie": tie,
+           "spec": {k: c[k] for k in ("spec_rounds", "spec_accepted",
+                                      "spec_fallbacks", "spec_grants",
+                                      "spec_bypass")},
+           "counters": {k: c[k] for k in ("completed", "redispatched",
+                                          "duplicate_completions",
+                                          "replicas_lost",
+                                          "late_completions")},
+           "replica_stats": {r: v.get("stats", {}) for r, v in
+                             snap["replicas"].items()},
+           "gateway_cuda_context": False,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase3e fleet {json.dumps(res)}")
     return res
 
 
@@ -3511,9 +4246,15 @@ def main() -> int:
     # kernel record.
     params = llama.init_params(
         cfg, torch.Generator(device=DEV).manual_seed(SEED), DEV)
-    prefixed = phase_prefix_handoff(infer, rms, params, cfg)
+    cut = (dict(params, layers=params["layers"][:SERVE_CUT_LAYERS]),
+           dataclasses.replace(cfg, n_layer=SERVE_CUT_LAYERS))
+    prefixed = phase_prefix_handoff(infer, rms, *cut)
     mark("phase 3c")
-    graphed = phase_serve_graph(infer, rms, params, cfg)
+    spec = phase_spec(infer, rms, params, cfg)
+    mark("phase 3d")
+    fleet = phase_fleet(infer, params, cfg, spec.pop("plain_outputs"))
+    mark("phase 3e")
+    graphed = phase_serve_graph(infer, rms, *cut)
     mark("phase 3b")
     del params
     torch.cuda.empty_cache()
@@ -3523,7 +4264,9 @@ def main() -> int:
     kernels = [
         kernel_record("rmsnorm", "dlrover_tpu_torch/ops/csrc/rmsnorm.cu",
                       "dlrover_tpu/ops/rmsnorm.py:25",
-                      served["rmsnorm_launches"], rec),
+                      served["rmsnorm_launches"] + sum(
+                          v["rmsnorm_launches"] for v in spec["variants"]),
+                      rec),
         kernel_record("flash_fwd", fa_src, f"{fa_ref}:105",
                       trained["launches"]["flash_fwd"], flash["fwd"]),
         kernel_record("flash_dq", fa_src, f"{fa_ref}:296",
@@ -3549,6 +4292,8 @@ def main() -> int:
     log("phase11 elastic " + json.dumps(elastic))
     log("phase12 trainer_sdk " + json.dumps(sdk))
     log("phase3c prefix_handoff " + json.dumps(prefixed))
+    log("phase3d spec " + json.dumps(spec))
+    log("phase3e fleet " + json.dumps(fleet))
     log("phase3b serve " + json.dumps(graphed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

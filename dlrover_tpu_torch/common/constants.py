@@ -9,8 +9,10 @@ vocabulary.
 The table at the end, ``QUEUE_A_ITEMS``, names each ROADMAP.md Queue A
 item that the port does not have yet; every option that would reach one
 raises ``NotImplementedError`` naming it through the table (the names
-below it read it), so an item is named one way everywhere.  Item 3 (the
-elastic job, master HA included) is ported; item 4 is next.
+below it read it), so an item is named one way everywhere.  Items 3 (the
+elastic job, master HA included) and 4a (speculative decoding,
+``serve_journaled`` and the one-host serving fleet) are ported; item 4b is
+next.
 """
 
 from __future__ import annotations
@@ -93,9 +95,9 @@ class Defaults:
 QUEUE_A_ITEMS = {
     "1": "Queue A item 1 of the port (the checkpoint slice's leftovers: "
          "object stores)",
-    "4": "Queue A item 4 of the port (the later serving slice: "
-         "speculative decoding, serve_journaled and the serving host "
-         "layers)",
+    "4b": "Queue A item 4b of the port (the sharded serving tier: the "
+          "gateway registry and tier, cross-cell spillover and the "
+          "master-side serving autoscaler)",
     "5": "Queue A item 5 of the port (multi-card training)",
     "6": "Queue A item 6 of the port (model features: MoE, fp8, LoRA and "
          "the HF import)",
@@ -111,7 +113,7 @@ def item(key: str) -> str:
 
 
 OBJECT_STORE_ITEM = item("1")
-SERVING_ITEM = item("4")
+SERVING_TIER_ITEM = item("4b")
 MULTICARD_ITEM = item("5")
 MODEL_ITEM = item("6")
 HOST_LAYERS = item("rest")

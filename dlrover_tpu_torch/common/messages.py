@@ -12,9 +12,10 @@ the port depends on no ``msgpack`` — including the omission of an empty
 Only control data travels here; tensors ride the shm arena.
 
 The master-HA types (``JournalFetch``, ``JournalChunk``: reference
-``:1121``, ``:1134``) are here.  The serving (``Serve*``, ``Replica*``,
-``KvSegment*``, ``Draft*``), fleet, cell, reshard, embedding and
-observability types come with the slices that bring those layers.
+``:1121``, ``:1134``) are here, and the serving fleet's (``ServeSubmit``
+through ``ServeFleetStats``, reference ``:665-970``).  The checkpoint
+replica (``Replica*``), fleet, cell, reshard, embedding and observability
+types come with the slices that bring those layers.
 """
 
 from __future__ import annotations
@@ -505,3 +506,316 @@ class JournalChunk(Message):
     found: bool = True
     wal_size: int = -1
     wal_ino: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Serving fleet (gateway <-> clients, gateway <-> replicas): the typed
+# wire surface of ``dlrover_tpu_torch.serving``, byte for byte the JAX
+# package's.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServeSubmit(Message):
+    """Client -> gateway: one inference request.  ``req_id`` doubles as
+    the idempotency token (BoundedTokenCache dedupe): a retried submit
+    of a completed request returns the cached result instead of
+    decoding twice.
+
+    Prefix-aware routing: ``prompt`` carries the FULL token
+    sequence; ``prefix_len > 0`` declares its leading tokens a shared
+    template whose fingerprint ``prefix_fp`` the gateway routes on
+    (warm replicas first) and the replica prefix-caches.
+
+    The same dataclass is the gateway -> replica grant: ``stage``
+    selects the path (``full`` = prefill+decode on one replica;
+    ``prefill`` = score the prompt and hand the KV segment back;
+    ``decode`` = continue from the attached ``kv`` segment, packed by
+    ``llama_infer.pack_kv_segment`` with an embedded CRC)."""
+
+    req_id: str = ""
+    prompt: List[int] = dataclasses.field(default_factory=list)
+    max_new_tokens: int = 16
+    deadline_s: float = 0.0  # 0 = no per-request deadline
+    prefix_len: int = 0  # leading tokens shared with other requests
+    prefix_fp: str = ""  # fingerprint of prompt[:prefix_len]
+    stage: str = "full"  # full | prefill | decode (grant direction)
+    kv: bytes = b""  # packed KV segment (relayed decode grants only)
+    # Peer-to-peer KV handoff.  On a decode grant, a
+    # non-empty ``kv_addr`` is a TICKET: the decode replica pulls the
+    # segment bytes directly from the prefill replica's segment server
+    # at that address (``KvSegmentFetch``), verifying ``kv_crc32`` /
+    # ``kv_nbytes`` / ``kv_fp`` — the gateway never touched the bytes.
+    # On a prefill grant, ``kv_relay=True`` orders the old
+    # through-the-gateway payload path (the fallback after a failed
+    # pull, and the compat mode for non-P2P replicas).
+    kv_addr: str = ""
+    kv_fp: str = ""
+    kv_crc32: int = 0
+    kv_nbytes: int = 0
+    kv_relay: bool = False
+    #: Distributed-trace context: ``{"tid": trace_id,
+    #: "sid": parent span id}``.  Wire-optional — a trace-less submit
+    #: (or an unsampled request's grant) encodes byte-identically to
+    #: the pre-trace wire, keeping the msgpack fast path intact.
+    trace: dict = dataclasses.field(default_factory=dict)
+    #: Cross-cell spillover.  A saturated/dying cell's
+    #: gateway forwards the submit to a sibling cell UNDER THE SAME
+    #: req_id — the hop rides the existing req_id-keyed dedupe/journal
+    #: contracts, so killing either side mid-hop still completes the
+    #: request exactly once.  ``spill_from`` names the origin cell;
+    #: ``spill_hops`` counts forwards so depth stays bounded (a request
+    #: never ping-pongs between two saturated cells).  Both are
+    #: wire-optional: a local submit encodes byte-identically to the
+    #: pre-spillover wire.
+    spill_from: str = ""
+    spill_hops: int = 0
+
+    _WIRE_OPTIONAL = frozenset({"trace", "spill_from", "spill_hops"})
+
+
+@dataclasses.dataclass
+class ServeAck(Message):
+    """Gateway's immediate answer to a submit: ``accepted`` (queued),
+    ``rejected`` with an explicit ``retry_after_s`` (bounded-queue
+    backpressure: the client backs off instead of the queue growing
+    without bound), or a terminal state from the dedupe cache —
+    ``done`` (tokens included), ``failed``, or ``timeout`` (the req_id
+    is the idempotency key; retry a failure under a fresh id)."""
+
+    req_id: str = ""
+    status: str = "accepted"  # accepted | done | rejected
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    retry_after_s: float = 0.0
+    reason: str = ""
+
+
+@dataclasses.dataclass
+class ServeStatusRequest(Message):
+    req_id: str = ""
+
+
+@dataclasses.dataclass
+class ServeStatusReply(Message):
+    """``state``: queued | running | done | failed | timeout | unknown.
+    ``tokens`` carries the streamed-so-far prefix while running and the
+    full completion once done."""
+
+    req_id: str = ""
+    state: str = "unknown"
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    replica: str = ""
+    reason: str = ""
+
+
+@dataclasses.dataclass
+class ServeReplicaRegister(Message):
+    """``role``: ``unified`` replicas run the full
+    prefill+decode path; ``prefill`` replicas only score prompts and
+    export KV segments; ``decode`` replicas only continue from imported
+    segments (missing field on old senders decodes to "" = unified).
+
+    Speculative serving: ``spec`` advertises that this
+    replica can run speculative decode rounds (a local draft model, or
+    a server sized to accept a remote draft handle) — the gateway's
+    grant scan prefers spec replicas for long-decode requests.  A
+    ``draft``-role replica additionally announces ``draft_addr``, the
+    address of its proposal server, which the gateway hands to spec
+    targets in every poll reply."""
+
+    replica_id: str = ""
+    slots: int = 0
+    role: str = "unified"  # unified | prefill | decode | draft
+    spec: bool = False
+    draft_addr: str = ""
+
+
+@dataclasses.dataclass
+class ServeReplicaDeregister(Message):
+    replica_id: str = ""
+
+
+@dataclasses.dataclass
+class ServeReplicaPoll(Message):
+    """Replica -> gateway heartbeat + work pull.  ``active`` lists every
+    req_id the replica currently owns (pending + in-flight) so the
+    gateway can reconcile lost grants; ``stats`` carries slot occupancy
+    / queue depth / TTFT / tokens-per-second / speculative acceptance
+    for the fleet gauges and the autoscaler."""
+
+    replica_id: str = ""
+    free_slots: int = 0
+    active: List[str] = dataclasses.field(default_factory=list)
+    stats: dict = dataclasses.field(default_factory=dict)
+    #: Prefix-template fingerprints this replica holds warm:
+    #: replaces the gateway's residency entry wholesale every poll, so
+    #: the routing map self-corrects (LRU evictions, restarts).
+    warm_prefixes: List[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class ServeGrants(Message):
+    """Gateway -> replica poll reply: new work, cancellations (deadline
+    expiries — the replica drops them from its pending queue, or sheds
+    the slot mid-decode via ``DecodeServer.abort``), the drain flag
+    (stop admitting, finish in-flight, deregister), and ``known``
+    (False = the gateway restarted and lost this replica — re-register)."""
+
+    requests: List[ServeSubmit] = dataclasses.field(default_factory=list)
+    cancel: List[str] = dataclasses.field(default_factory=list)
+    drain: bool = False
+    known: bool = True
+    #: Current draft-proposal endpoint: the address of a
+    #: live draft-role replica's proposal server, refreshed every poll
+    #: so spec targets attach/detach their remote draft as draft
+    #: replicas come and go ("" = no draft alive).
+    draft_addr: str = ""
+
+
+@dataclasses.dataclass
+class ServeTokens(Message):
+    """Replica -> gateway: streamed tokens for one in-flight request
+    (batched per poll round — the burst size is the dispatch batching
+    the decode paths buy throughput with)."""
+
+    replica_id: str = ""
+    req_id: str = ""
+    tokens: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class ServeDone(Message):
+    """Replica -> gateway: terminal completion report.  Idempotent: the
+    gateway dedupes by req_id, so a journal replay after a replica kill
+    (``replayed=True``) or a re-dispatch race can never complete a
+    request twice."""
+
+    replica_id: str = ""
+    req_id: str = ""
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    ok: bool = True
+    reason: str = ""
+    replayed: bool = False
+    #: Per-request speculation telemetry: the accepted-
+    #: tokens-per-round this request earned and the speculative rounds
+    #: it rode.  Journaled with the completion, so a replay reports
+    #: the SAME numbers the request earned live (0 = never speculated).
+    tokens_per_round: float = 0.0
+    spec_rounds: int = 0
+    #: Trace context of a JOURNAL-REPLAYED completion: the
+    #: replica ships the trace id the request earned when served live,
+    #: so a replay landing at a fresh gateway (failover adoption) joins
+    #: the ORIGINAL trace instead of orphaning a new one.  Empty on
+    #: live completions (the gateway already holds the context) and
+    #: omitted from the wire (byte compat).
+    trace: dict = dataclasses.field(default_factory=dict)
+
+    _WIRE_OPTIONAL = frozenset({"trace"})
+
+
+@dataclasses.dataclass
+class ServeKvReady(Message):
+    """Prefill replica -> gateway: the prefill-grant's KV segment is
+    ready (stage two of the disaggregated path).  ``payload``
+    is ``llama_infer.pack_kv_segment`` bytes (CRC embedded);
+    ``fp32_bytes`` is the segment's un-quantized size so the int8
+    transfer saving is measurable at the gateway without unpacking.
+
+    Peer-to-peer mode: ``payload`` stays EMPTY and the
+    message carries only a ticket — ``addr`` of the prefill replica's
+    segment server plus the segment's ``seg_fp``/``crc32``/``nbytes``
+    — which the gateway holds and attaches to the decode grant; the
+    decode replica pulls the bytes directly from the peer."""
+
+    replica_id: str = ""
+    req_id: str = ""
+    payload: bytes = b""
+    fp32_bytes: int = 0
+    addr: str = ""  # non-empty = ticket mode (P2P)
+    seg_fp: str = ""
+    crc32: int = 0
+    nbytes: int = 0
+    #: Trace context, wire-optional (byte compat).
+    trace: dict = dataclasses.field(default_factory=dict)
+
+    _WIRE_OPTIONAL = frozenset({"trace"})
+
+
+@dataclasses.dataclass
+class KvSegmentFetch(Message):
+    """Decode replica -> prefill replica's segment server:
+    pull the published KV segment for ``req_id``.  ``seg_fp`` pins the
+    exact segment the ticket promised — a re-prefilled request must
+    never decode from a stale publication under the same req_id."""
+
+    req_id: str = ""
+    seg_fp: str = ""
+
+
+@dataclasses.dataclass
+class KvSegmentData(Message):
+    found: bool = False
+    reason: str = ""
+    payload: bytes = b""
+    crc32: int = 0
+
+
+@dataclasses.dataclass
+class DraftRoll(Message):
+    """Spec target replica -> draft replica's proposal server: one
+    speculative round's proposal fetch for every stream the
+    target is speculating.  Each entry of ``streams`` is a dict —
+    ``{"rid": str, "ctx": [ints emitted since the last roll], "open":
+    [prompt tokens]}`` (``open`` only on the first roll of a stream, or
+    after the draft evicted it) — the draft catches its per-stream
+    cache up from exactly that delta, rolls ``k`` proposals, and ships
+    them back CRC-wrapped (the KV-segment envelope idiom).  ``close``
+    piggybacks finished/aborted stream ids for cache hygiene."""
+
+    replica_id: str = ""
+    k: int = 4
+    sample: bool = False
+    streams: List[dict] = dataclasses.field(default_factory=list)
+    close: List[str] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class DraftProposals(Message):
+    """Proposal-server reply: ``payload`` is the CRC-wrapped msgpack
+    proposal bundle (``serving.draft.pack_proposals``); ``found=False``
+    carries the failure reason — the target degrades to plain decode,
+    it never waits."""
+
+    found: bool = False
+    reason: str = ""
+    payload: bytes = b""
+
+
+@dataclasses.dataclass
+class ServeKvReject(Message):
+    """Decode replica -> gateway: the decode-grant's KV segment failed
+    verification (torn in flight).  The
+    gateway drops the payload and re-queues the request for a fresh
+    prefill (bounded by ``max_attempts``); a torn segment is NEVER
+    decoded from."""
+
+    replica_id: str = ""
+    req_id: str = ""
+    reason: str = ""
+
+
+@dataclasses.dataclass
+class ServeDrainRequest(Message):
+    """Operator/autoscaler -> gateway: drain one replica (scale-down)."""
+
+    replica_id: str = ""
+
+
+@dataclasses.dataclass
+class ServeFleetStatsRequest(Message):
+    pass
+
+
+@dataclasses.dataclass
+class ServeFleetStats(Message):
+    stats: dict = dataclasses.field(default_factory=dict)

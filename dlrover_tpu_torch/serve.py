@@ -8,6 +8,9 @@ with its own copy of ``examples/serve_common.py`` ``seeded_requests``:
         --paged --quant_kv
     python -m dlrover_tpu_torch.serve --config llama2_7b --prefix_len 256
     python -m dlrover_tpu_torch.serve --config tiny --device cpu
+    python -m dlrover_tpu_torch.serve --config llama2_7b --spec_server \
+        --draft_layers 1 --adapt_k
+    python -m dlrover_tpu_torch.serve --config tiny --device cpu --speculative
 
 ``--quant_kv`` and ``--decode_chunk`` are ``examples/llama_serve.py``'s
 (the int8 KV cache; tokens a decode dispatch), ``--paged``,
@@ -17,6 +20,16 @@ with its own copy of ``examples/serve_common.py`` ``seeded_requests``:
 prefix of N tokens (drawn after the prompts) shared by every request
 through prefix caching (``serve(shared_prefix=)``).  On the card the
 decode dispatch is one CUDA graph replay a round.
+
+Speculative decoding, as ``examples/llama_serve.py`` has it:
+``--speculative`` decodes every request in one
+``generate_speculative_batched`` call, ``--spec_server`` runs speculative
+rounds inside the server (``draft_k`` 4, ``--adapt_k`` for the global
+adaptive width).  The draft has the target's width at ``--draft_layers``
+blocks, its weights drawn from seed 7, as the reference's ``--hf_dir``
+branch builds it.  ``--stream`` prints request 0's tokens as they come.
+``--tp`` and ``--hf_dir`` raise ``NotImplementedError`` naming the Queue A
+items that bring them.
 
 Weights are random, drawn from ``--seed``; there is nothing to download.
 It prints tokens/s, the median time to first token, the decode path, the
@@ -30,6 +43,7 @@ replays (0 on the CPU, where the plain version runs).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import sys
@@ -39,9 +53,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.common.constants import MODEL_ITEM, MULTICARD_ITEM
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
-from dlrover_tpu_torch.models.llama_infer import DecodeServer
+from dlrover_tpu_torch.models.llama_infer import (
+    DecodeServer,
+    generate_speculative_batched,
+)
 from dlrover_tpu_torch.ops.rmsnorm import rmsnorm
 
 CONFIGS = {
@@ -62,6 +80,15 @@ def seeded_requests(cfg: LlamaConfig, requests: int, seed: int,
         for n in rng.randint(min_len, max_len, size=(requests,))
     ]
     return prompts, rng
+
+
+def draft_model(cfg: LlamaConfig, n_layer: int, dev):
+    """``(params, cfg)`` of the draft: the target's width at ``n_layer``
+    blocks, weights drawn from seed 7."""
+    dcfg = dataclasses.replace(cfg, n_layer=n_layer)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    return init_params(dcfg, gen, dev), dcfg
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -90,7 +117,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="share a random system prefix of N tokens across "
                          "all requests via prefix caching (prefilled once; "
                          "admissions copy or share its kv rows)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="draft-model speculative decode (one batched "
+                         "call over all requests)")
+    ap.add_argument("--spec_server", action="store_true",
+                    help="speculative rounds inside the continuous-"
+                         "batching server")
+    ap.add_argument("--draft_layers", type=int, default=1)
+    ap.add_argument("--adapt_k", action="store_true",
+                    help="(--spec_server) shrink/regrow the draft window "
+                         "from measured acceptance")
+    ap.add_argument("--stream", action="store_true",
+                    help="print request 0's tokens as they decode")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="shard params over N cards (not ported)")
+    ap.add_argument("--hf_dir", default="",
+                    help="HF checkpoint dir (not ported)")
     args = ap.parse_args(argv)
+    if args.tp > 0:
+        raise NotImplementedError(f"--tp comes with {MULTICARD_ITEM}")
+    if args.hf_dir:
+        raise NotImplementedError(f"--hf_dir comes with {MODEL_ITEM}")
+    if args.stream and args.speculative:
+        raise SystemExit(
+            "--stream requires a server mode (it rides serve's on_token "
+            "hook); the one-shot --speculative call has no streaming "
+            "surface"
+        )
 
     dev = resolve_device(args.device)
     cfg = CONFIGS[args.config]()
@@ -104,23 +157,35 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             1, cfg.vocab_size, size=(args.prefix_len,)).astype(np.int32)
     # + the chunk's headroom and the prefix every request's rows hold,
     # rounded up to whole blocks when paged.
-    max_len = max(64, args.max_new_tokens + 24) + args.decode_chunk - 1 \
-        + args.prefix_len
+    draft_k = 4
+    spec = args.spec_server or args.speculative
+    draft = draft_model(cfg, args.draft_layers, dev) if spec else None
+    if args.speculative:
+        return speculative_batched(args, cfg, params, draft, prompts,
+                                   draft_k, dev)
+    # + the chunk's (or the speculative round's) headroom and the prefix
+    # every request's rows hold, rounded up to whole blocks when paged.
+    slack = draft_k + 1 if spec else args.decode_chunk - 1
+    max_len = max(64, args.max_new_tokens + 24) + slack + args.prefix_len
     if args.paged:
         max_len = -(-max_len // args.block_size) * args.block_size
+    spec_kw = ({"draft": draft, "draft_k": draft_k, "adapt_k": args.adapt_k}
+               if spec else {})
     srv = DecodeServer(
         params, cfg, slots=args.slots, max_len=max_len,
         temperature=args.temperature, seed=args.seed,
         quant_kv=args.quant_kv, decode_chunk=args.decode_chunk,
         paged=args.paged, block_size=args.block_size,
-        pool_blocks=args.pool_blocks or None,
+        pool_blocks=args.pool_blocks or None, **spec_kw,
     )
     ttft: dict = {}
     launches0 = rmsnorm.launches
     t0 = time.perf_counter()
 
-    def on_token(rid, _tok):
+    def on_token(rid, tok):
         ttft.setdefault(rid, time.perf_counter() - t0)
+        if args.stream and rid == 0:
+            print(f"STREAM r0 +{int(tok)}", flush=True)
 
     outs = srv.serve(prompts, max_new_tokens=args.max_new_tokens,
                      on_token=on_token, shared_prefix=shared_prefix)
@@ -151,7 +216,52 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         f"quant_kv={args.quant_kv} preemptions={srv.preemptions} "
         f"rounds={st['rounds']} forwards={st['forwards']} "
         f"graph_replays={st['graph_replays']} "
-        f"rmsnorm_launches={launches}{prefix}{paged}"
+        f"rmsnorm_launches={launches}{prefix}{paged}{spec_line(st)}"
+    )
+    return 0
+
+
+def spec_line(st: dict) -> str:
+    """The speculative server's counters for the SERVE_DONE line."""
+    if st.get("path") != "spec":
+        return ""
+    return (f" tokens_per_round={st['tokens_per_round']:.2f} "
+            f"k_final={st['k_final']} "
+            f"spec_fallback_rounds={st['spec_fallback_rounds']} "
+            f"draft_forwards={st['draft_forwards']}")
+
+
+def speculative_batched(args, cfg, params, draft, prompts, k, dev) -> int:
+    """``--speculative``: every request in one batched call."""
+    lens = np.asarray([len(p) for p in prompts], np.int64)
+    padded = np.zeros((len(prompts), int(lens.max())), np.int64)
+    for b, p in enumerate(prompts):
+        padded[b, :len(p)] = p
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    stats: dict = {}
+    launches0 = rmsnorm.launches
+    t0 = time.perf_counter()
+    out, out_lens = generate_speculative_batched(
+        params, cfg, draft[0], draft[1],
+        torch.from_numpy(padded).to(dev), torch.from_numpy(lens).to(dev),
+        max_new_tokens=args.max_new_tokens, k=k, quant_kv=args.quant_kv,
+        temperature=args.temperature, generator=gen, stats=stats,
+    )
+    wall = time.perf_counter() - t0
+    out, out_lens = out.cpu().numpy(), out_lens.cpu().numpy()
+    total_new = int((out_lens - lens).sum())
+    for i in range(min(3, len(prompts))):
+        print(f"request {i}: {int(out_lens[i])} tokens -> "
+              f"{out[i, :12].tolist()}...")
+    print(
+        f"SERVE_DONE config={args.config} device={dev} "
+        f"requests={len(prompts)} mode=speculative(batched) k={k} "
+        f"new_tokens={total_new} tokens_per_sec={total_new / wall:.1f} "
+        f"rounds={stats['rounds']} "
+        f"tokens_per_round={stats['tokens_per_round']:.2f} "
+        f"quant_kv={args.quant_kv} "
+        f"rmsnorm_launches={rmsnorm.launches - launches0}"
     )
     return 0
 

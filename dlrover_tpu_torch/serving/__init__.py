@@ -1,0 +1,79 @@
+"""The one-host serving fleet of the port: the port's own copy of
+``dlrover_tpu/serving/`` without the sharded gateway tier and cross-cell
+spillover.
+
+- :mod:`dlrover_tpu_torch.serving.gateway`: the typed-RPC front door
+  (bounded admission with backpressure, prefix- and spec-aware
+  least-loaded routing, the two-stage prefill/decode grants, deadlines,
+  request-id dedupe, leases, requeue, drain);
+- :mod:`dlrover_tpu_torch.serving.replica`: the worker loop that feeds
+  grants into a continuous-batching ``DecodeServer``, streams tokens,
+  journals completions and replays them after a restart;
+- :mod:`dlrover_tpu_torch.serving.autoscale`: the queue-depth and
+  p95-TTFT replica-count policy with drain-aware scale-down;
+- :mod:`dlrover_tpu_torch.serving.kvseg`: the peer-to-peer KV-segment
+  plane (segment store and server, ticketed pulls);
+- :mod:`dlrover_tpu_torch.serving.draft`: draft replicas, speculative
+  proposals as a fleet service.
+
+No module here imports torch at module level: the gateway and the
+autoscaler are pure control plane, and only the replica's server and the
+draft worker touch the model.  The tier and spillover names
+(``TierClient``, ``TierReplicaLink``, ``ServeRegistry``, ``RpcKv``,
+``CellSpillRouter`` and the rest) raise ``NotImplementedError`` naming
+the Queue A item that brings them.
+"""
+
+from dlrover_tpu_torch.common.constants import SERVING_TIER_ITEM
+from dlrover_tpu_torch.serving.autoscale import (  # noqa: F401
+    PoolAutoScaler,
+    ScalePolicy,
+    ScaleState,
+    ServeAutoScaler,
+    decide,
+    decide_pools,
+)
+from dlrover_tpu_torch.serving.draft import (  # noqa: F401
+    DraftReplicaRunner,
+    DraftServer,
+    DraftUnavailable,
+    DraftWorker,
+    RemoteDraftClient,
+    connect_remote_draft,
+)
+from dlrover_tpu_torch.serving.gateway import (  # noqa: F401
+    Gateway,
+    GatewayConfig,
+    GatewayCore,
+    LoopbackTransport,
+    ServeClient,
+)
+from dlrover_tpu_torch.serving.kvseg import (  # noqa: F401
+    KvPullError,
+    KvSegmentServer,
+    KvSegmentStore,
+    pull_kv_segment,
+)
+from dlrover_tpu_torch.serving.replica import (  # noqa: F401
+    ReplicaRunner,
+    prefix_fingerprint,
+)
+
+#: The reference's tier and spillover names, still to port.
+TIER_NAMES = frozenset({
+    "CellSpillRouter", "GlobalClient", "SpillDecision", "SpilloverConfig",
+    "SpilloverPolicy", "merge_global_snapshots", "GatewayTierNode",
+    "HashRing", "LocalKv", "MasterKv", "RegistryServer", "RpcKv",
+    "ServeRegistry", "TierActuator", "TierClient", "TierReplicaLink",
+    "TierStats", "merge_snapshots", "pick_drain_victim_merged",
+})
+
+
+def __getattr__(name: str):
+    if name in TIER_NAMES:
+        raise NotImplementedError(
+            f"dlrover_tpu_torch.serving.{name} comes with "
+            f"{SERVING_TIER_ITEM}"
+        )
+    raise AttributeError(
+        f"module 'dlrover_tpu_torch.serving' has no attribute {name!r}")

@@ -3,7 +3,8 @@ messages.py``) against the reference's (``dlrover_tpu/common/
 messages.py``): for every ported type, with seeded field values, the
 port's bytes equal the reference's ``serialize`` and each package decodes
 the other's bytes; the port's registry is the training wire the reference
-servicer's table names, with the reference's fields and defaults."""
+servicer's table names, plus the serving fleet's messages (serving slice
+3), with the reference's fields and defaults."""
 
 import dataclasses
 import random
@@ -19,6 +20,16 @@ PORTED = sorted(n for n in P._REGISTRY)
 #: The slices that bring the rest of the reference's wire.
 LATER = ("Serve", "Replica", "Cell", "Fleet", "Reshard", "KvSegment",
          "Draft", "Embedding", "Obs")
+#: The serving fleet's messages (reference ``common/messages.py:665-970``),
+#: ported with serving slice 3; its gateway dispatches them, not the
+#: master's servicer.
+SERVING = {"ServeSubmit", "ServeAck", "ServeStatusRequest",
+           "ServeStatusReply", "ServeReplicaRegister",
+           "ServeReplicaDeregister", "ServeReplicaPoll", "ServeGrants",
+           "ServeTokens", "ServeDone", "ServeKvReady", "KvSegmentFetch",
+           "KvSegmentData", "DraftRoll", "DraftProposals", "ServeKvReject",
+           "ServeDrainRequest", "ServeFleetStatsRequest",
+           "ServeFleetStats"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -89,7 +100,7 @@ def test_registry_is_the_training_wire():
                "KVStoreCount", "KVStoreScanResult", "Task", "FaultNodes",
                "Stragglers", "ElasticRunConfig", "ParallelConfig",
                "JournalChunk"}
-    assert set(PORTED) == (table - later) | replies
+    assert set(PORTED) == (table - later) | replies | SERVING
     assert set(PORTED) <= set(R._REGISTRY)
 
 
@@ -121,7 +132,7 @@ def test_bytes_equal_and_decode_both_ways(name):
 
 def test_a_bad_payload_does_not_decode():
     for bad in (b"", b"\xc1", P.serialize(P.Empty())[:-1] + b"\xc1",
-                R.serialize(R.ServeAck())):
+                R.serialize(R.ReplicaFetch())):
         with pytest.raises((ValueError, KeyError)):
             P.deserialize(bad)
 

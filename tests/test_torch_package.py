@@ -95,7 +95,12 @@ def test_import_leaves_jax_and_reference_out():
         "dlrover_tpu_torch.diagnosis.inference, "
         "dlrover_tpu_torch.diagnosis.operators, "
         "dlrover_tpu_torch.diagnosis.manager, "
-        "dlrover_tpu_torch.trainer.elastic, dlrover_tpu_torch.trainer.trainer\n"
+        "dlrover_tpu_torch.trainer.elastic, dlrover_tpu_torch.trainer.trainer, "
+        "dlrover_tpu_torch.serving, dlrover_tpu_torch.serving.gateway, "
+        "dlrover_tpu_torch.serving.replica, dlrover_tpu_torch.serving.draft, "
+        "dlrover_tpu_torch.serving.kvseg, dlrover_tpu_torch.serving.autoscale, "
+        "dlrover_tpu_torch.agent.metrics, dlrover_tpu_torch.serve_fleet, "
+        "dlrover_tpu_torch.serve_elastic\n"
         "import dlrover_tpu_torch.trainer as sdk\n"
         "assert sdk.Trainer and sdk.init and sdk.ElasticDataLoader\n"
         "from dlrover_tpu_torch.models.llama_infer import ("
@@ -124,6 +129,13 @@ def test_default_device_raises_without_cuda(no_cuda):
         tinfer.init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         tserve.main(["--config", "tiny"])
+    from dlrover_tpu_torch import serve_elastic, serve_fleet
+
+    for role in ("replica", "draft", "all"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_fleet.main(["--role", role, "--gateway", "127.0.0.1:1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_elastic.main(["--journal_dir", "unused"])
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
 
@@ -158,28 +170,39 @@ def test_chip_smoke_fails_without_cuda(no_cuda, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"paged": True}, {"quant_kv": True}, {"decode_chunk": 2},
-    {"spec_remote": True}, {"draft": ({}, None)},
+    {"spec_remote": True}, {"draft": "self"},
 ])
 def test_server_refuses_later_slice_options(tiny, kw):
-    """Speculation still comes with a later slice and is refused; the
-    paged arena, the int8 cache and chunked decode came with serving slice
-    2 and now serve on the CPU."""
+    """Every option of the reference's server now serves on the CPU: the
+    paged arena, the int8 cache and chunked decode (serving slice 2), a
+    local draft and a spec_remote server with no draft attached (its
+    rounds are plain fallbacks); speculation keeps the greedy tokens."""
     cfg, params = tiny
-    if "draft" in kw or "spec_remote" in kw:
-        with pytest.raises(NotImplementedError,
-                           match="later serving slice"):
-            tinfer.DecodeServer(params, cfg, **kw)
-        return
+    if kw.get("draft") == "self":
+        kw = {"draft": (params, cfg)}
     srv = tinfer.DecodeServer(params, cfg, slots=2, max_len=32, **kw)
-    outs = srv.serve([np.ones(4, np.int32), np.arange(1, 7)], 5)
+    prompts = [np.ones(4, np.int32), np.arange(1, 7)]
+    outs = srv.serve(prompts, 5)
     assert [len(o) for o in outs] == [9, 11]
-    assert srv.last_stats["emitted_tokens"] == 2 * 4
+    st = srv.last_stats
+    if srv.spec_capable:
+        plain = tinfer.DecodeServer(params, cfg, slots=2, max_len=32)
+        for a, b in zip(outs, plain.serve(prompts, 5)):
+            np.testing.assert_array_equal(a, b)
+        assert st["path"] == "spec"
+        if "draft" in kw:
+            assert st["spec_fallback_rounds"] == 0
+            assert st["tokens_per_round"] == 5.0  # the ceiling draft
+        else:
+            assert st["rounds"] == 0 and st["spec_fallback_rounds"] > 0
+        return
+    assert st["emitted_tokens"] == 2 * 4
 
 
-def test_other_later_slice_paths_are_refused(tiny):
-    """Journaled serving is still refused; prefix caching and the
-    KV-segment handoff came with serving slice 2's second part and now
-    serve on the CPU."""
+def test_other_later_slice_paths_are_refused(tiny, tmp_path):
+    """Prefix caching and the KV-segment handoff (serving slice 2) and
+    journaled serving (serving slice 3) serve on the CPU; MoE and the ring
+    and Ulysses attentions are still refused by name."""
     cfg, params = tiny
     srv = tinfer.DecodeServer(params, cfg, slots=1, max_len=32)
     p = np.ones(4, np.int32)
@@ -192,8 +215,12 @@ def test_other_later_slice_paths_are_refused(tiny):
     srv.import_kv("a", payload, p, 2)
     assert srv.cancel("a")
     assert 0 <= first < cfg.vocab_size
-    with pytest.raises(NotImplementedError, match="serve_journaled"):
-        tinfer.serve_journaled(params, cfg, [p], 2)
+    journal = str(tmp_path / "j.jsonl")
+    outs = tinfer.serve_journaled(srv, [p], 2, journal)
+    assert len(outs) == 1 and len(outs[0]) == len(p) + 2
+    assert tinfer.serve_journaled(srv, [p], 2, journal,
+                                  on_serve=lambda *a: 1 / 0)[0].tolist() \
+        == outs[0].tolist()
     cache = tinfer.init_cache(cfg, 1, 8, device="cpu", quant_kv=True)
     assert cache["layers"][0]["k"].dtype == torch.int8
     assert tuple(cache["layers"][0]["ks"].shape) == (1, cfg.n_kv_head, 8)
@@ -269,3 +296,37 @@ def test_serve_requests_match_reference_stream():
     a, _ = tserve.seeded_requests(cfg, 7, 3)
     b, _ = ref.seeded_requests(cfg, 7, 3)
     assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def test_fleet_config_names_are_serves():
+    """``serve_fleet`` names ``serve.CONFIGS`` without importing torch in
+    the gateway; the two lists stay one."""
+    from dlrover_tpu_torch import serve_fleet
+
+    assert serve_fleet.CONFIG_NAMES == tuple(sorted(tserve.CONFIGS))
+
+
+def test_fleet_refuses_the_tier_metrics_and_faults(monkeypatch):
+    """The sharded tier, the Prometheus gauges and fault injection come
+    with later items and are refused by name."""
+    import dlrover_tpu_torch.serving as tserving
+    from dlrover_tpu_torch import serve_fleet
+
+    with pytest.raises(NotImplementedError, match="item 4b"):
+        serve_fleet.main(["--registry", "127.0.0.1:1"])
+    with pytest.raises(NotImplementedError, match="host-only layers"):
+        serve_fleet.main(["--role", "gateway", "--metrics_port", "0"])
+    for name in ("TierClient", "TierReplicaLink", "CellSpillRouter"):
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            getattr(tserving, name)
+    with pytest.raises(AttributeError):
+        tserving.NoSuchName  # noqa: B018
+    gw = tserving.Gateway(port=0)
+    try:
+        with pytest.raises(NotImplementedError, match="host-only layers"):
+            gw.register_gauges(object())
+    finally:
+        gw.stop()
+    monkeypatch.setenv("DLROVER_TPU_FAULTS", "plan.json")
+    with pytest.raises(NotImplementedError, match="chaos"):
+        serve_fleet.main(["--role", "gateway"])

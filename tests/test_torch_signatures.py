@@ -85,6 +85,18 @@ COUNTERPARTS = {
         tinfer,
     ("dlrover_tpu.models.llama_infer",
      "DecodeServer.clear_prefix_templates"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "DecodeServer.__init__"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "DecodeServer.set_remote_draft"):
+        tinfer,
+    ("dlrover_tpu.models.llama_infer", "DecodeServer.pop_request_stats"):
+        tinfer,
+    ("dlrover_tpu.models.llama_infer", "serve_journaled"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "_spec_accept_round"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "_spec_accept_batch"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "_spec_programs"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "_spec_remote_round"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "_adapt_spec_k"): tinfer,
+    ("dlrover_tpu.models.llama_infer", "_spec_k_request"): tinfer,
 }
 
 
@@ -111,6 +123,23 @@ def test_port_takes_every_reference_keyword(ref_mod, name):
             if isinstance(q.default, torch.dtype):  # jnp.float32 -> name
                 want = getattr(torch, np.dtype(want).name)
             assert q.default == want, (name, k, q.default, p.default)
+
+
+@pytest.mark.parametrize("name", ["generate_speculative",
+                                  "generate_speculative_batched",
+                                  "_spec_decode_round"])
+def test_speculative_generators_take_the_reference_keywords(name):
+    """The speculative generators take every keyword of the reference with
+    its default; the reference's JAX key (``rng``, or the round's draft
+    key ``sub``) is a ``torch.Generator`` here (``generator``), as in
+    ``generate``."""
+    ref = inspect.signature(getattr(jinfer, name)).parameters
+    port = inspect.signature(getattr(tinfer, name)).parameters
+    renamed = {"rng": "generator", "sub": "generator"}
+    assert [renamed.get(k, k) for k in ref] == list(port), name
+    for k, p in ref.items():
+        if k not in renamed:
+            assert port[k].default == p.default, (name, k)
 
 
 def test_decode_server_takes_prefix_cache_cap():
@@ -408,6 +437,61 @@ def test_control_plane_takes_every_reference_keyword(ref_mod, port_mod,
         assert port.parameters[k].default == p.default, (name, k)
 
 
+# -- the serving fleet ---------------------------------------------------------
+
+SERVING_MODULES = ("serving.gateway", "serving.replica", "serving.draft",
+                   "serving.kvseg", "serving.autoscale", "agent.metrics")
+
+
+def _public_callables(mod_name):
+    """(module, dotted name) of every public function and class method of
+    the port's module that the reference's module also has."""
+    port = importlib.import_module(f"dlrover_tpu_torch.{mod_name}")
+    ref = importlib.import_module(f"dlrover_tpu.{mod_name}")
+    out = []
+    for name, obj in sorted(vars(port).items()):
+        if name.startswith("_") or getattr(obj, "__module__", None) != \
+                port.__name__ or not hasattr(ref, name):
+            continue
+        if inspect.isfunction(obj):
+            out.append((mod_name, name))
+        elif inspect.isclass(obj):
+            out.append((mod_name, f"{name}.__init__"))
+            for m, v in sorted(vars(obj).items()):
+                if callable(v) and not m.startswith("_") and \
+                        hasattr(getattr(ref, name), m):
+                    out.append((mod_name, f"{name}.{m}"))
+    return out
+
+
+SERVING = [c for m in SERVING_MODULES for c in _public_callables(m)]
+
+
+@pytest.mark.parametrize("mod_name,name", SERVING,
+                         ids=[f"{m}:{n}" for m, n in SERVING])
+def test_serving_takes_every_reference_keyword(mod_name, name):
+    """The fleet's classes and functions take the reference's parameters,
+    in its order, with its defaults."""
+    ref = inspect.signature(_attr(importlib.import_module(
+        f"dlrover_tpu.{mod_name}"), name))
+    port = inspect.signature(_attr(importlib.import_module(
+        f"dlrover_tpu_torch.{mod_name}"), name))
+    assert list(port.parameters) == list(ref.parameters), name
+    for k, p in ref.parameters.items():
+        assert port.parameters[k].default == p.default, (name, k)
+
+
+def test_serving_covers_the_fleet():
+    names = {n for _, n in SERVING}
+    for want in ("GatewayCore.submit", "GatewayCore.poll", "Gateway.__init__",
+                 "ReplicaRunner.__init__", "CompletionJournal.append",
+                 "DraftWorker.propose", "RemoteDraftClient.propose",
+                 "connect_remote_draft", "KvSegmentStore.put",
+                 "pull_kv_segment", "Histogram.percentile",
+                 "pack_proposals", "decide", "ServeClient.submit"):
+        assert want in names, want
+
+
 def _parser(parse_args, argv, monkeypatch):
     import argparse
 
@@ -462,3 +546,18 @@ def test_every_reference_flag_is_taken_or_refused_by_name(
             assert getattr(got, act.dest) == getattr(want, act.dest), argv
         seen += 1
     assert seen >= 10
+
+
+def test_serve_elastic_takes_the_reference_flags_and_device(monkeypatch):
+    # The port's worker has the reference's flags and defaults, and only
+    # ``--device`` besides (the model is the seeded tiny one in fp32).
+    import sys
+
+    ref = importlib.import_module("examples.llama_serve_elastic")
+    from dlrover_tpu_torch import serve_elastic
+
+    argv = ["--journal_dir", "j", "--slots", "3"]
+    monkeypatch.setattr(sys, "argv", ["llama_serve_elastic.py", *argv])
+    got = vars(serve_elastic.parse_args(argv))
+    assert got.pop("device") == "cuda"
+    assert got == vars(ref.parse_args())
