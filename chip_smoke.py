@@ -110,9 +110,48 @@ together), then runs the phases below and exits non-zero if any fails:
    12 end done once; the restarted r0 replays at least one
    journaled completion, which the gateway drops as a duplicate; every
    token meets 3d's near-tie rule, and the gateway process neither
-   imported torch nor shows in ``nvidia-smi``'s compute processes.  Tokens/s,
-   TTFT p50, the kill to the requeue and the spec counters go on a line
-   ``phase3e fleet {...}``.
+   imported torch nor shows in ``nvidia-smi``'s compute processes; each
+   replica's ``REPLICA_DONE`` line reports its RMSNorm launches (> 0).
+   Tokens/s, TTFT p50, the kill to the requeue and the spec counters go on
+   a line ``phase3e fleet {...}``.
+3f. The sharded gateway tier, one process a role (``python -m
+   dlrover_tpu_torch.serve_fleet --registry``): a ``RegistryServer`` in
+   this process, two gateways (g0 and g1, 2 s leases, g0 with
+   ``--metrics_port 0``) and two replicas of the 7B model (2 slots,
+   journals).  A ``TierClient`` submits the 12 requests at 20 a second;
+   once g1 has completed one and owns one that streams, g1 is SIGKILLed by
+   its pid.  All 12 end done once with ``resubmitted`` >= 1; a resubmit of
+   every id brings the ids whose terminal died with g1 back through the
+   replicas' journals, byte-equal, and a second round is answered from
+   g0's dedupe cache (byte-equal, ``completed`` unchanged, 12 dedupe
+   hits); every token meets 3d's near-tie rule; g0's ``/metrics`` parses,
+   holds the ``serve_*`` and ``tier_*`` gauges and shows one gateway; the
+   gateways hold no CUDA context and map no torch.  Then g1 starts again
+   under its id, both replicas register at both gateways, and
+   ``ServingFleetAutoScaler`` over ``TierActuator(registry=...)`` (a
+   job-manager stand-in over the replica processes, ``ScalePolicy(min 1,
+   max 2, down_patience 1)``) drains one replica at idle at both
+   gateways: it prints ``REPLICA_DONE`` and exits 0, and the next pass
+   lowers the target to 1 with no request failed.  Each replica's RMSNorm
+   launches must be 65 x its eager forwards + 65 x its graph replays.
+   The fleet's bring-up, tokens/s, TTFT, the kill to g1 leaving the
+   client's ring and to the last done, each replica's longest poll gap,
+   the scrape's ms and the drain to ``REPLICA_DONE`` go on a line
+   ``phase3f tier {...}``.
+3g. Cross-cell spillover in this process on 3c's cut weights (16 blocks):
+   two cells (jobs ``cellA`` and ``cellB`` on one ``RegistryServer``),
+   each an in-process ``GatewayTierNode`` with one ``ReplicaRunner``
+   thread on a ``TierReplicaLink`` (the runners share the weights); A's
+   queue cap is 2 and each gateway's ``spill_router`` is a
+   ``CellSpillRouter`` to the other cell.  A burst of 12 at A ends all
+   done once, with A's ``spill_forwarded`` >= 1 equal to B's
+   ``spill_ingress``; a resubmit at A of a spilled id is answered
+   byte-equal from the adopted terminal; ``merge_global_snapshots`` counts
+   12 unique submits; a ``GlobalClient`` submits 4 fresh ids homed on A,
+   A is crashed and its runner stopped, and all 4 end done at B
+   (``cell_failovers`` >= 1).  Tokens meet the near-tie rule against a
+   plain server on the same weights; RMSNorm launches are 33 x the eager
+   forwards + 33 x the replays.  One line ``phase3g spill {...}``.
 4. Flash attention kernels (forward, dq, dk/dv) vs plain at the
    Llama-800M training shape, phase 8's shape, a GQA shape with a ragged
    length, and an fp32 case with a window and packed segments.  bf16 runs
@@ -1730,7 +1769,7 @@ def fleet_wait(path: str, pattern: str, what: str, procs: dict,
         dead = {n: p.returncode for n, p in procs.items()
                 if p.poll() is not None}
         if dead or time.monotonic() > deadline:
-            raise SystemExit(f"phase3e: waiting for {what}: dead {dead}")
+            raise SystemExit(f"waiting for {what}: dead {dead}")
         time.sleep(0.05)
 
 
@@ -1887,13 +1926,26 @@ def phase_fleet(infer, params, cfg, plain_outs) -> dict:
             time.sleep(0.05)
         live = {n: procs[n] for n in ("gateway", "r0", "r1")}
         fleet_wait(logf("r0"), "REPLICA_READY", "r0 restarted", live)
-        snap = stats()
+        # The restarted r0 prints REPLICA_READY before it registers, and
+        # the gateway refuses the drain of a replica it does not hold
+        # (r0's entry went with its lease): each drain is sent until the
+        # gateway takes it.
         for rid in ("r0", "r1"):
-            client.call(ServeDrainRequest(replica_id=rid))
+            deadline = time.monotonic() + FLEET_TIMEOUT_S
+            while not client.call(ServeDrainRequest(replica_id=rid)).success:
+                dead = {n: p.returncode for n, p in live.items()
+                        if p.poll() is not None}
+                if dead or time.monotonic() > deadline:
+                    raise SystemExit(f"phase3e: the gateway did not take "
+                                     f"{rid}'s drain: dead {dead}")
+                time.sleep(0.05)
+        snap = stats()
+        launches = {}
         for name in ("r0", "r1"):
-            m = fleet_wait(logf(name), r"REPLICA_DONE id=\w+ served=(\d+) "
-                           r"replayed=(\d+)", f"{name} drained", {})
-            events[f"{name}_served_replayed"] = [int(m[1]), int(m[2])]
+            m = fleet_wait(logf(name), REPLICA_DONE_RE, f"{name} drained", {})
+            events[f"{name}_served_replayed"] = [int(m["served"]),
+                                                 int(m["replayed"])]
+            launches[name] = replica_launches(m, None, f"phase3e {name}")
         procs["gateway"].send_signal(signal.SIGTERM)
         gdone = json.loads(fleet_wait(logf("gateway"), r"GATEWAY_DONE (.*)",
                                       "the gateway's summary", {})[1])
@@ -1911,13 +1963,18 @@ def phase_fleet(infer, params, cfg, plain_outs) -> dict:
                     logs[name] = f.read()[-2000:]
             except OSError:
                 pass
+        if sys.exc_info()[0] is not None:
+            # A failed wait names what it waited for; the logs say why.
+            print(f"phase3e logs: {json.dumps(logs)[-6000:]}",
+                  file=sys.stderr, flush=True)
         shutil.rmtree(tmp, ignore_errors=True)
     c = gdone["counters"]
     bad = [i for i, st in done.items() if st.state != "done"]
     if bad or c["completed"] != len(prompts) or c["redispatched"] < 1 or \
             c["duplicate_completions"] < 1 or gdone["torch_imported"] or \
             "requeue_s" not in events or "lease_expiry_s" not in events or \
-            events["r0_served_replayed"][1] < 1:
+            events["r0_served_replayed"][1] < 1 or \
+            not all(v["rmsnorm_launches"] > 0 for v in launches.values()):
         raise SystemExit(f"phase3e: not done {bad}, counters {c}, "
                          f"events {events}, torch in the gateway "
                          f"{gdone['torch_imported']}; "
@@ -1944,9 +2001,573 @@ def phase_fleet(infer, params, cfg, plain_outs) -> dict:
            "replica_stats": {r: v.get("stats", {}) for r, v in
                              snap["replicas"].items()},
            "gateway_cuda_context": False,
+           "replica_launches": launches,
+           "rmsnorm_launches": sum(v["rmsnorm_launches"]
+                                   for v in launches.values()),
            "phase_s": time.perf_counter() - t_phase}
     log(f"phase3e fleet {json.dumps(res)}")
     return res
+
+
+TIER_JOB = "smoke"
+TIER_LEASE_S = 2.0
+TIER_REFRESH_S = 0.2
+#: The tier's phase bounds: every wait of 3f and 3g ends by these.
+TIER_TIMEOUT_S = 240.0
+
+
+class ReplicaJobArgs:
+    """3f's job: one to two replica workers."""
+
+    class workers:
+        min_count, max_count, count = 1, 2, 2
+
+
+class ReplicaJM:
+    """The job-manager stand-in of 3f's auto-scaler over the replica
+    processes: a worker is alive while its process runs."""
+
+    def __init__(self, procs):
+        self.procs, self.targets = procs, []
+
+    def alive_workers(self):
+        return [p for p in self.procs.values() if p.poll() is None]
+
+    def pending_workers(self):
+        return []
+
+    def scale_workers_to(self, n):
+        self.targets.append(n)
+        return n - len(self.alive_workers())
+
+
+def no_torch_in(pid: int) -> bool:
+    """Whether the process ``pid`` has mapped neither libtorch nor the CUDA
+    driver (read from ``/proc``)."""
+    with open(f"/proc/{pid}/maps") as f:
+        maps = f.read()
+    return "libtorch" not in maps and "libcuda" not in maps
+
+
+def scrape_metrics(port: int) -> tuple:
+    """(gauges, ms): one GET of ``/metrics``, parsed as Prometheus text."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                  timeout=30).read().decode()
+    ms = 1e3 * (time.perf_counter() - t0)
+    gauges = {}
+    for line in body.splitlines():
+        if line.startswith("# TYPE "):
+            if not line.endswith(" gauge"):
+                raise SystemExit(f"phase3f: /metrics line {line!r}")
+            continue
+        name, val = line.split(" ")
+        gauges[name] = float(val)
+    return gauges, ms
+
+
+def poll_until(cond, what: str, timeout: float = TIER_TIMEOUT_S):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise SystemExit(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def phase_tier(infer, params, cfg, plain_outs) -> dict:
+    """Phase 3f: the sharded gateway tier, one process a role."""
+    import numpy as np
+
+    from dlrover_tpu_torch.master.job_auto_scaler import (
+        ServingFleetAutoScaler,
+    )
+    from dlrover_tpu_torch.serving import (
+        RegistryServer,
+        RpcKv,
+        ScalePolicy,
+        ServeRegistry,
+        TierActuator,
+        TierClient,
+    )
+
+    prompts = serve_prompts(cfg)
+    tmp = tempfile.mkdtemp(prefix="phase3f_")
+    reg = RegistryServer(0)
+    addr = f"127.0.0.1:{reg.addr.rsplit(':', 1)[1]}"
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT, OMP_NUM_THREADS="4")
+    fleet = [sys.executable, "-m", "dlrover_tpu_torch.serve_fleet",
+             "--registry", addr, "--job", TIER_JOB, "--lease_timeout",
+             str(TIER_LEASE_S)]
+    procs: dict = {}
+    client = actuator = None
+    t_phase = time.perf_counter()
+
+    def logf(name):
+        return os.path.join(tmp, f"{name}.log")
+
+    def spawn(name, *argv):
+        with open(logf(name), "a") as out:
+            procs[name] = subprocess.Popen(
+                fleet + list(argv), cwd=REPO_ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT, start_new_session=True)
+
+    def registry():
+        return ServeRegistry(RpcKv(addr), job=TIER_JOB, lease_s=TIER_LEASE_S)
+
+    gateway = {"g0": ["--metrics_port", "0"], "g1": []}
+    replica = ["--role", "replica", *FLEET_MODEL, "--max_len",
+               str(SERVE_MAX_LEN), "--slots", str(FLEET_SLOTS),
+               "--journal_dir", os.path.join(tmp, "journal")]
+    ev: dict = {}
+    try:
+        t_up = time.perf_counter()
+        for gid, extra in gateway.items():
+            spawn(gid, "--role", "gateway", "--gateway_id", gid, *extra)
+        for rid in ("r0", "r1"):
+            spawn(rid, *replica, "--replica_id", rid)
+        metrics_port = int(fleet_wait(
+            logf("g0"), r"GATEWAY_READY port=\d+ id=g0 metrics=(\d+)",
+            "g0", procs)[1])
+        fleet_wait(logf("g1"), r"GATEWAY_READY port=\d+ id=g1", "g1", procs)
+        for rid in ("r0", "r1"):
+            fleet_wait(logf(rid), "REPLICA_READY", f"{rid} ready", procs)
+        up_s = time.perf_counter() - t_up
+        on_card = gpu_pids()
+        for gid in gateway:
+            if procs[gid].pid in on_card or not no_torch_in(procs[gid].pid):
+                raise SystemExit(f"phase3f: gateway {gid} holds a CUDA "
+                                 "context or imported torch")
+        client = TierClient(registry(), refresh_s=TIER_REFRESH_S)
+        poll_until(lambda: len(client._set.refresh(force=True)) == 2,
+                   "phase3f: both gateways in the client's ring")
+        owner = {i: client._set.owner(f"req-{i}")
+                 for i in range(len(prompts))}
+        gaps = np.random.RandomState(SEED + 7).exponential(
+            1.0 / FLEET_RPS, size=len(prompts))
+        submitted, first, done = {}, {}, {}
+        t0 = due = time.perf_counter()
+        nxt = 0
+        t_kill = None
+        while len(done) < len(prompts):
+            now = time.perf_counter()
+            if nxt < len(prompts) and now >= due:
+                ack = client.submit(f"req-{nxt}", prompts[nxt], SERVE_MNT)
+                if ack.status != "accepted":
+                    raise SystemExit(f"phase3f: submit {nxt}: {ack}")
+                submitted[nxt] = time.perf_counter()
+                nxt += 1
+                due += float(gaps[min(nxt, len(prompts) - 1)])
+            g1_streaming = False
+            for i in list(submitted):
+                if i in done:
+                    continue
+                # One status poll (a terminal one is forgotten by the
+                # client; an unknown one after the kill is resubmitted).
+                st = client.result(f"req-{i}", timeout=0.0)
+                if st.tokens and i not in first:
+                    first[i] = time.perf_counter() - submitted[i]
+                if st.state in ("done", "failed", "timeout"):
+                    done[i] = st
+                    ev["last_done_s"] = time.perf_counter() - t0
+                elif owner[i] == "g1" and st.tokens:
+                    g1_streaming = True
+            if t_kill is None and g1_streaming and any(
+                    owner[i] == "g1" for i in done):
+                # g1 has completed a request and owns one that streams.
+                os.kill(procs["g1"].pid, signal.SIGKILL)
+                t_kill = time.perf_counter()
+                ev.update(kill_at_s=t_kill - t0, kill_wall=time.time(),
+                          done_at_kill=len(done),
+                          g1_done_at_kill=sum(owner[i] == "g1"
+                                              for i in done))
+                procs["g1"].wait(timeout=60)
+                procs["g1_killed"] = procs.pop("g1")
+            if t_kill is not None and "ring_drop_s" not in ev and \
+                    "g1" not in dict(client._set.items()):
+                ev["ring_drop_s"] = time.perf_counter() - t_kill
+            if time.perf_counter() - t0 > TIER_TIMEOUT_S:
+                raise SystemExit(f"phase3f: {len(done)} of {len(prompts)} "
+                                 f"done; events {ev}")
+            time.sleep(0.01)
+        wall = time.perf_counter() - t0
+        if t_kill is None:
+            raise SystemExit(f"phase3f: g1 was never killed: {ev}")
+        ev["kill_to_last_done_s"] = ev["last_done_s"] - ev["kill_at_s"]
+        poll_until(lambda: "g1" not in client._set.refresh(force=True),
+                   "phase3f: g1 out of the client's ring")
+        ev.setdefault("ring_drop_s", time.perf_counter() - t_kill)
+        bad = [i for i, st in done.items() if st.state != "done"]
+        if bad:
+            raise SystemExit(f"phase3f: not done {bad}")
+        # The ids whose terminal died with g1 are admitted again at g0 and
+        # answered from the replicas' journals; then every id is answered
+        # from g0's dedupe cache.
+        readmitted = 0
+        for i, p in enumerate(prompts):
+            ack = client.submit(f"req-{i}", p, SERVE_MNT)
+            state, tokens = ack.status, ack.tokens
+            if state != "done":
+                readmitted += 1
+                reply = client.result(f"req-{i}", timeout=TIER_TIMEOUT_S)
+                state, tokens = reply.state, reply.tokens
+            if state != "done" or list(tokens) != list(done[i].tokens):
+                raise SystemExit(f"phase3f: re-admission of req-{i}: "
+                                 f"{state}, tokens equal "
+                                 f"{list(tokens) == list(done[i].tokens)}")
+
+        def g0_counters():
+            return next(s for s in client.stats()
+                        if s["gateway_id"] == "g0")["counters"]
+
+        before = g0_counters()
+        second = [client.submit(f"req-{i}", p, SERVE_MNT)
+                  for i, p in enumerate(prompts)]
+        after = g0_counters()
+        if any(a.status != "done" or list(a.tokens) != list(done[i].tokens)
+               for i, a in enumerate(second)) or \
+                after["completed"] != before["completed"] or \
+                after["dedupe_hits"] - before["dedupe_hits"] < len(prompts):
+            raise SystemExit(
+                f"phase3f: the second round: {[a.status for a in second]}, "
+                f"counters {before} -> {after}")
+        gauges, scrape_ms = poll_until(
+            lambda: (lambda g: g if g[0].get(
+                "dlrover_tpu_tier_gateways") == 1.0 else None)(
+                    scrape_metrics(metrics_port)),
+            "phase3f: g0's /metrics to show one gateway")
+        for name in ("serve_completed", "serve_dedupe_hits",
+                     "serve_ttft_p95_ms", "serve_pool_unified_alive",
+                     "tier_gateways", "tier_replicas_alive",
+                     "tier_queue_depth", "tier_ttft_p95_ms"):
+            if f"dlrover_tpu_{name}" not in gauges:
+                raise SystemExit(f"phase3f: /metrics lacks {name}")
+        # g1 comes back under its id; the auto-scaler at idle drains one
+        # replica at both gateways and, once it left, lowers the target.
+        spawn("g1b", "--role", "gateway", "--gateway_id", "g1")
+        fleet_wait(logf("g1b"), r"GATEWAY_READY port=\d+ id=g1", "g1 again",
+                   {k: procs[k] for k in ("g0", "g1b", "r0", "r1")})
+        poll_until(lambda: len(client.stats()) == 2 and all(
+            set(s["replicas"]) == {"r0", "r1"} for s in client.stats()),
+            "phase3f: both replicas registered at both gateways")
+        actuator = TierActuator(registry=registry(),
+                                refresh_s=TIER_REFRESH_S)
+        jm = ReplicaJM({r: procs[r] for r in ("r0", "r1")})
+        scaler = ServingFleetAutoScaler(
+            ReplicaJobArgs(), jm, actuator, policy=ScalePolicy(
+                min_replicas=1, max_replicas=2, down_patience=1),
+            interval=3600.0)
+        scaler.scale_once()
+        if scaler._pending_drain is None:
+            raise SystemExit("phase3f: the auto-scaler drained nothing at "
+                             f"idle: {actuator.stats_snapshot()}")
+        victim = scaler._pending_drain[0]
+        t_drain = time.perf_counter()
+        # Each gateway shows the victim draining, or already gone: it
+        # leaves only once every gateway it polls has set the flag.
+        drained_at = {s["gateway_id"]: s["replicas"].get(victim, {}).get(
+            "draining", "deregistered") for s in client.stats()}
+        m = fleet_wait(logf(victim), REPLICA_DONE_RE, f"{victim} drained",
+                       {})
+        ev["drain_to_replica_done_s"] = time.perf_counter() - t_drain
+        ev["victim_rc"] = procs[victim].wait(timeout=60)
+        poll_until(lambda: scaler.scale_once() is not None and
+                   jm.targets == [1],
+                   "phase3f: the auto-scaler to lower the target")
+        merged = actuator.stats_snapshot()
+        other = "r1" if victim == "r0" else "r0"
+        actuator.drain(other)
+        m_other = fleet_wait(logf(other), REPLICA_DONE_RE, f"{other} done",
+                             {})
+        replica_done = {victim: m, other: m_other}
+        gdone = {}
+        for name in ("g0", "g1b"):
+            procs[name].send_signal(signal.SIGTERM)
+            gdone[name] = json.loads(fleet_wait(
+                logf(name), r"GATEWAY_DONE (.*)", f"{name}'s summary", {})[1])
+    finally:
+        for c in (client, actuator):
+            if c is not None:
+                c.close()
+        for p in procs.values():
+            if p.poll() is None:
+                os.kill(p.pid, signal.SIGKILL)
+            p.wait(timeout=60)
+        reg.stop()
+        logs = {}
+        for name in ("g0", "g1", "g1b", "r0", "r1"):
+            try:
+                with open(logf(name)) as f:
+                    logs[name] = f.read()[-3000:]
+            except OSError:
+                pass
+        if sys.exc_info()[0] is not None:
+            print(f"phase3f logs: {json.dumps(logs)[-6000:]}",
+                  file=sys.stderr, flush=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if ev["victim_rc"] != 0 or not all(
+            v in (True, "deregistered") for v in drained_at.values()) or \
+            len(drained_at) != 2 or merged["counters"].get("failed", 0) or \
+            any(g["torch_imported"] for g in gdone.values()) or \
+            client.resubmitted < 1:
+        raise SystemExit(f"phase3f: victim rc {ev['victim_rc']}, drained at "
+                         f"{drained_at}, counters {merged['counters']}, "
+                         f"gateways {gdone}, resubmitted "
+                         f"{client.resubmitted}; "
+                         f"logs {json.dumps(logs)[-8000:]}")
+    launches, poll_gap = {}, {}
+    for rid, m in replica_done.items():
+        launches[rid] = replica_launches(m, cfg.n_layer, f"phase3f {rid}")
+        poll_gap[rid] = {"max_s": float(m["gap"]),
+                         "ends_after_kill_s": float(m["gap_at"])
+                         - ev["kill_wall"]}
+    got = [np.concatenate([p, np.asarray(done[i].tokens, np.int32)])
+           for i, p in enumerate(prompts)]
+    tie = near_tie_check(infer, params, cfg, prompts, got, plain_outs,
+                         "phase3f")
+    new_tokens = sum(len(done[i].tokens) for i in done)
+    res = {"requests": len(prompts), "rps": FLEET_RPS, "lease_s": TIER_LEASE_S,
+           "fleet_up_s": up_s, "serve_s": wall,
+           "tokens_per_s": new_tokens / wall,
+           "ttft_p50_ms": 1e3 * statistics.median(first.values()),
+           "ttft_max_ms": 1e3 * max(first.values()),
+           "kill_to_ring_drop_s": ev["ring_drop_s"],
+           "kill_to_last_done_s": ev["kill_to_last_done_s"],
+           "resubmitted": client.resubmitted, "readmitted": readmitted,
+           "dedupe_round_hits": after["dedupe_hits"] - before["dedupe_hits"],
+           "replica_poll_gap": poll_gap,
+           "scrape_ms": scrape_ms,
+           "drain_victim": victim,
+           "drain_to_replica_done_s": ev["drain_to_replica_done_s"],
+           "scaler_targets": jm.targets, "events": ev,
+           "g0_counters": {k: gdone["g0"]["counters"][k] for k in (
+               "completed", "dedupe_hits", "redispatched",
+               "duplicate_completions", "replicas_lost", "failed")},
+           "near_tie": tie, "replica_launches": launches,
+           "rmsnorm_launches": sum(v["rmsnorm_launches"]
+                                   for v in launches.values()),
+           "gateway_cuda_context": False,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase3f tier {json.dumps(res)}")
+    return res
+
+
+SPILL_QUEUE_CAP = 2  # cell A's admission cap in 3g
+SPILL_FRESH = 4  # 3g's GlobalClient requests homed on A
+
+
+def server_launches(srv, warm_forwards: int) -> dict:
+    """An in-process replica's RMSNorm record: its eager forwards (its
+    warm-up and its run) and its graph's recorded nodes and replays."""
+    from dlrover_tpu_torch import serve_fleet
+
+    graph = srv.decode_graph
+    return {"eager": warm_forwards + serve_fleet.eager_forwards(srv),
+            "recorded": graph.recorded.get("rmsnorm", 0),
+            "replays": graph.replays}
+
+
+def server_launch_check(counted: int, launches: dict, per: int,
+                        what: str) -> None:
+    """The wrapper's count over in-process replicas must be ``per`` x their
+    eager forwards, and each graph must have recorded ``per`` nodes."""
+    eager = per * sum(v["eager"] for v in launches.values())
+    if counted != eager or any(v["recorded"] != per or v["eager"] == 0
+                               for v in launches.values()):
+        raise SystemExit(f"{what}: rmsnorm launches {counted} eager, want "
+                         f"{per} x eager forwards: {launches}")
+
+
+def phase_spill(infer, rms, params, cfg) -> dict:
+    """Phase 3g: cross-cell spillover, two cells in this process on the
+    cut 7B weights."""
+    import numpy as np
+
+    from dlrover_tpu_torch import serve_fleet
+    from dlrover_tpu_torch.serving import (
+        CellSpillRouter,
+        GatewayConfig,
+        GatewayTierNode,
+        GlobalClient,
+        RegistryServer,
+        RpcKv,
+        ServeRegistry,
+        TierClient,
+        TierReplicaLink,
+        merge_global_snapshots,
+        merge_snapshots,
+    )
+
+    prompts = serve_prompts(cfg)
+    t_phase = time.perf_counter()
+    plain = infer.DecodeServer(params, cfg, slots=SERVE_SLOTS,
+                               max_len=SERVE_MAX_LEN, seed=SEED)
+    plain_outs = plain.serve(prompts, SERVE_MNT)
+    del plain
+    reg = RegistryServer(0)
+    addr = f"127.0.0.1:{reg.addr.rsplit(':', 1)[1]}"
+
+    def registry(cell):
+        return ServeRegistry(RpcKv(addr), job=f"cell{cell}",
+                             lease_s=TIER_LEASE_S)
+
+    nodes, clients, runners, threads = {}, {}, {}, {}
+    ev: dict = {}
+    try:
+        for cell, cap in (("A", SPILL_QUEUE_CAP), ("B", 256)):
+            nodes[cell] = GatewayTierNode(
+                f"gw{cell}", registry(cell),
+                config=GatewayConfig(queue_cap=cap))
+            nodes[cell].start()
+            clients[cell] = TierClient(registry(cell),
+                                       refresh_s=TIER_REFRESH_S)
+        for cell, other in (("A", "B"), ("B", "A")):
+            clients[f"to{other}"] = TierClient(registry(other),
+                                               refresh_s=TIER_REFRESH_S)
+            nodes[cell].gateway.spill_router = CellSpillRouter(
+                cell, nodes[cell].core, {other: clients[f"to{other}"]})
+        reset_launches(rms.rmsnorm)
+        warm = {}
+        for cell in "AB":
+            args = serve_fleet.parse_args([
+                "--config", "llama2_7b", "--max_len", str(SERVE_MAX_LEN),
+                "--slots", str(FLEET_SLOTS), "--replica_id", f"r{cell}"])
+            runners[cell] = serve_fleet.build_replica(
+                args, TierReplicaLink(registry(cell), f"r{cell}"),
+                model=(params, cfg))
+            warm[cell] = runners[cell].warmup_forwards
+        for cell in "AB":
+            threads[cell] = threading.Thread(
+                target=runners[cell].run, name=f"replica-{cell}",
+                daemon=True)
+            threads[cell].start()
+        poll_until(lambda: all(
+            len(nodes[c].core.stats_snapshot()["replicas"]) == 1
+            for c in "AB"), "phase3g: each cell's replica registered")
+        # A burst at A: two admitted there, the rest forwarded to B.
+        t0 = time.perf_counter()
+        acks = [clients["A"].submit(f"s-{i}", p, SERVE_MNT)
+                for i, p in enumerate(prompts)]
+        if any(a.status != "accepted" for a in acks):
+            raise SystemExit(f"phase3g: burst acks {[a.status for a in acks]}")
+        done = {i: clients["A"].result(f"s-{i}", timeout=TIER_TIMEOUT_S)
+                for i in range(len(prompts))}
+        burst_s = time.perf_counter() - t0
+        if any(st.state != "done" for st in done.values()):
+            raise SystemExit(f"phase3g: burst states "
+                             f"{[st.state for st in done.values()]}")
+        snaps = {c: merge_snapshots(clients[c].stats()) for c in "AB"}
+        glob = merge_global_snapshots(snaps)
+        ca, cb = snaps["A"]["counters"], snaps["B"]["counters"]
+        # A resubmit at A of a spilled id: answered from A's adopted
+        # terminal, byte-equal.
+        spilled = next(i for i, st in done.items() if st.replica == "rB")
+        again = clients["A"].submit(f"s-{spilled}", prompts[spilled],
+                                    SERVE_MNT)
+        adopted = nodes["A"].core.counters["spill_adopted"]
+        # The GlobalClient: fresh ids homed on A; then cell A goes dark.
+        gcl = GlobalClient({c: clients[c] for c in "AB"})
+        fresh, n = [], 0
+        while len(fresh) < SPILL_FRESH:
+            if gcl.home_cell(f"g-{n}") == "A":
+                fresh.append(f"g-{n}")
+            n += 1
+        gacks = [gcl.submit(rid, prompts[k], SERVE_MNT)
+                 for k, rid in enumerate(fresh)]
+        t_dark = time.perf_counter()
+        nodes["A"].crash()
+        runners["A"].stop()
+        gdone = {rid: gcl.result(rid, timeout=TIER_TIMEOUT_S)
+                 for rid in fresh}
+        ev["dark_to_done_s"] = time.perf_counter() - t_dark
+        nodes["B"].core.drain("rB")
+        for cell in "AB":
+            threads[cell].join(timeout=TIER_TIMEOUT_S)
+            if threads[cell].is_alive():
+                raise SystemExit(f"phase3g: replica {cell} did not end")
+        per = 2 * cfg.n_layer + 1
+        launches = {c: server_launches(runners[c].server, warm[c])
+                    for c in "AB"}
+        counted = rms.rmsnorm.launches
+    finally:
+        for c in list(clients.values()):
+            c.close()
+        for node in nodes.values():
+            node.stop(0.0)
+        reg.stop()
+    server_launch_check(counted, launches, per, "phase3g")
+    if ca["spill_forwarded"] < 1 or \
+            ca["spill_forwarded"] != cb["spill_ingress"] or \
+            glob["submitted_unique"] != len(prompts) or \
+            again.status != "done" or \
+            list(again.tokens) != list(done[spilled].tokens) or \
+            adopted < 1 or gcl.cell_failovers < 1 or \
+            any(a.status == "rejected" for a in gacks) or \
+            any(st.state != "done" or st.replica != "rB"
+                for st in gdone.values()):
+        raise SystemExit(
+            f"phase3g: A {ca}, B {cb}, global {glob}, resubmit "
+            f"{again.status}, adopted {adopted}, failovers "
+            f"{gcl.cell_failovers}, fresh acks {[a.status for a in gacks]}, "
+            f"fresh {[(st.state, st.replica) for st in gdone.values()]}")
+    got = [np.concatenate([p, np.asarray(done[i].tokens, np.int32)])
+           for i, p in enumerate(prompts)]
+    got += [np.concatenate([prompts[k], np.asarray(gdone[rid].tokens,
+                                                   np.int32)])
+            for k, rid in enumerate(fresh)]
+    tie = near_tie_check(infer, params, cfg, prompts + prompts[:SPILL_FRESH],
+                         got, list(plain_outs) + list(
+                             plain_outs[:SPILL_FRESH]), "phase3g")
+    new_tokens = sum(len(st.tokens) for st in done.values())
+    res = {"requests": len(prompts), "queue_cap_A": SPILL_QUEUE_CAP,
+           "burst_s": burst_s, "burst_tokens_per_s": new_tokens / burst_s,
+           "served_at": {c: sum(st.replica == f"r{c}"
+                                for st in done.values()) for c in "AB"},
+           "spill_forwarded_A": ca["spill_forwarded"],
+           "spill_ingress_B": cb["spill_ingress"],
+           "spill_adopted_A": adopted,
+           "submitted_unique": glob["submitted_unique"],
+           "submitted_sum": glob["counters"].get("submitted", 0),
+           "fresh_homed_on_A": len(fresh),
+           "fresh_acks": [a.status for a in gacks],
+           "cell_failovers": gcl.cell_failovers,
+           "dark_to_fresh_done_s": ev["dark_to_done_s"],
+           "near_tie": tie, "replica_launches": launches,
+           "rmsnorm_launches": counted + sum(
+               v["recorded"] * v["replays"] for v in launches.values()),
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"phase3g spill {json.dumps(res)}")
+    return res
+
+
+#: A replica's last line (``serve_fleet``).
+REPLICA_DONE_RE = (r"REPLICA_DONE id=(?P<id>\w+) served=(?P<served>\d+) "
+                   r"replayed=(?P<replayed>\d+) rmsnorm_launches=(?P<launches>"
+                   r"\d+) eager_forwards=(?P<eager>\d+) graph_recorded=(?P<"
+                   r"recorded>\d+) graph_replays=(?P<replays>\d+)"
+                   r"(?: max_poll_gap_s=(?P<gap>[\d.]+) max_poll_gap_at="
+                   r"(?P<gap_at>[\d.]+))?")
+
+
+def replica_launches(m, n_layer, what: str) -> dict:
+    """A replica's RMSNorm record from its ``REPLICA_DONE`` match.  With
+    ``n_layer``, its launches must be (2L+1) a forward: (2L+1) x its eager
+    forwards plus (2L+1) recorded nodes x its graph replays."""
+    rec = {k: int(m[k]) for k in ("eager", "recorded", "replays")}
+    rec["rmsnorm_launches"] = int(m["launches"])
+    if n_layer is not None:
+        per = 2 * n_layer + 1
+        want = per * rec["eager"] + per * rec["replays"]
+        if rec["recorded"] != per or rec["eager"] == 0 or \
+                rec["rmsnorm_launches"] != want:
+            raise SystemExit(f"{what}: rmsnorm launches {rec}, want {per} x "
+                             f"{rec['eager']} eager + {per} x "
+                             f"{rec['replays']} replays = {want}")
+    return rec
 
 
 def graph_launch_check(srv, rms, eager, cfg, what: str) -> int:
@@ -4252,8 +4873,13 @@ def main() -> int:
     mark("phase 3c")
     spec = phase_spec(infer, rms, params, cfg)
     mark("phase 3d")
-    fleet = phase_fleet(infer, params, cfg, spec.pop("plain_outputs"))
+    plain_outs = spec.pop("plain_outputs")
+    fleet = phase_fleet(infer, params, cfg, plain_outs)
     mark("phase 3e")
+    tier = phase_tier(infer, params, cfg, plain_outs)
+    mark("phase 3f")
+    spill = phase_spill(infer, rms, *cut)
+    mark("phase 3g")
     graphed = phase_serve_graph(infer, rms, *cut)
     mark("phase 3b")
     del params
@@ -4265,7 +4891,10 @@ def main() -> int:
         kernel_record("rmsnorm", "dlrover_tpu_torch/ops/csrc/rmsnorm.cu",
                       "dlrover_tpu/ops/rmsnorm.py:25",
                       served["rmsnorm_launches"] + sum(
-                          v["rmsnorm_launches"] for v in spec["variants"]),
+                          v["rmsnorm_launches"] for v in spec["variants"])
+                      + fleet["rmsnorm_launches"]
+                      + tier["rmsnorm_launches"]
+                      + spill["rmsnorm_launches"],
                       rec),
         kernel_record("flash_fwd", fa_src, f"{fa_ref}:105",
                       trained["launches"]["flash_fwd"], flash["fwd"]),
@@ -4294,6 +4923,8 @@ def main() -> int:
     log("phase3c prefix_handoff " + json.dumps(prefixed))
     log("phase3d spec " + json.dumps(spec))
     log("phase3e fleet " + json.dumps(fleet))
+    log("phase3f tier " + json.dumps(tier))
+    log("phase3g spill " + json.dumps(spill))
     log("phase3b serve " + json.dumps(graphed))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,15 +1,24 @@
-"""The gateway's instruments — the port's own copy of ``CounterSet``
-(``dlrover_tpu/agent/metrics.py:22``), ``StatSet`` (``:62``) and
-``Histogram`` (``:95``), with the same arithmetic.  The Prometheus
-registry and its HTTP endpoint (``MetricsRegistry``, ``register_gauges``)
-are refused with the ``rest`` item of ``common/constants.py``.
+"""The gateway's instruments and its /metrics endpoint — the port's own
+copy of ``CounterSet`` (``dlrover_tpu/agent/metrics.py:22``), ``StatSet``
+(``:62``), ``Histogram`` (``:95``, with ``register_gauges`` ``:280``),
+``MetricsRegistry`` (``:291``, Prometheus text exposition) and
+``MetricsServer`` (``:370``, stdlib ``http.server``), with the same
+arithmetic and the same text.  The tier gateways serve it
+(``serving/tier.py``); the agent's own endpoint
+(``DLROVER_TPU_METRICS_PORT``) and its gauges stay refused with the
+``rest`` item of ``common/constants.py``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional
+
+from dlrover_tpu_torch.common.log import logger
+
+PREFIX = "dlrover_tpu"
 
 
 class CounterSet:
@@ -245,3 +254,131 @@ class Histogram:
         for st in states:
             agg.merge(st)
         return agg
+
+    def register_gauges(self, registry: "MetricsRegistry",
+                        name: str) -> None:
+        """Expose count/p50/p95/p99 as ``<name>_*`` gauges."""
+        registry.gauge(f"{name}_count", lambda: float(self.count))
+        for q, label in ((0.50, "p50"), (0.95, "p95"), (0.99, "p99")):
+            registry.gauge(
+                f"{name}_{label}_ms",
+                lambda q=q: self.percentile(q),
+            )
+
+
+class MetricsRegistry:
+    """Name -> callable returning a float (sampled at scrape time)."""
+
+    #: Consecutive scrape failures before a gauge's callback failure is
+    #: promoted from per-scrape debug to a once-per-gauge WARNING: one
+    #: blip during startup is noise, a gauge that never answers is a
+    #: blind spot an operator believes is being watched.
+    FAIL_PROMOTE_AFTER = 3
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._gauges: Dict[str, Callable[[], float]] = {}
+        self._overwrite_warned: set = set()
+        self._fail_streak: Dict[str, int] = {}
+        self._fail_warned: set = set()
+
+    def gauge(self, name: str, fn: Callable[[], float]) -> None:
+        with self._lock:
+            if name in self._gauges and \
+                    name not in self._overwrite_warned:
+                # Two subsystems exporting the same name means one of
+                # them is unknowingly dark.  Warn ONCE per name
+                # (re-registration is also a legitimate restart idiom).
+                self._overwrite_warned.add(name)
+                logger.warning(
+                    "metrics: gauge %r re-registered; previous "
+                    "callback replaced (this warning fires once per "
+                    "name)", name,
+                )
+            self._gauges[name] = fn
+
+    def set(self, name: str, value: float) -> None:
+        """Pin a constant value.  Repeated sets UPDATE by design (the
+        last-value idiom) — no overwrite warning."""
+        with self._lock:
+            self._gauges[name] = lambda v=value: v
+
+    def render(self) -> str:
+        lines = []
+        with self._lock:
+            items = list(self._gauges.items())
+        for name, fn in items:
+            try:
+                val = float(fn())
+            except Exception as e:  # noqa: BLE001
+                # A broken gauge callback should not kill the scrape;
+                # one that fails PERSISTENTLY is promoted to a
+                # once-per-gauge warning.
+                with self._lock:
+                    streak = self._fail_streak.get(name, 0) + 1
+                    self._fail_streak[name] = streak
+                    promote = (
+                        streak >= self.FAIL_PROMOTE_AFTER
+                        and name not in self._fail_warned
+                    )
+                    if promote:
+                        self._fail_warned.add(name)
+                if promote:
+                    logger.warning(
+                        "metrics: gauge %s has failed %d consecutive "
+                        "scrapes (%s) — it is exporting NOTHING",
+                        name, streak, e,
+                    )
+                else:
+                    logger.debug("metrics: gauge %s failed: %s",
+                                 name, e)
+                continue
+            with self._lock:
+                if self._fail_streak.pop(name, None):
+                    # Recovered: a later relapse deserves a new warning.
+                    self._fail_warned.discard(name)
+            lines.append(f"# TYPE {PREFIX}_{name} gauge")
+            lines.append(f"{PREFIX}_{name} {val}")
+        return "\n".join(lines) + "\n"
+
+
+class MetricsServer:
+    def __init__(self, registry: MetricsRegistry, port: int = 0):
+        self.registry = registry
+        reg = registry
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                if self.path.rstrip("/") not in ("", "/metrics"):
+                    self.send_response(404)
+                    self.end_headers()
+                    return
+                body = reg.render().encode()
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type", "text/plain; version=0.0.4"
+                )
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):  # silence per-request logs
+                pass
+
+        self._httpd = ThreadingHTTPServer(("0.0.0.0", port), Handler)
+        self.port = self._httpd.server_port
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever,
+                name="metrics-http",
+                daemon=True,
+            )
+            self._thread.start()
+            logger.info("metrics endpoint on :%d/metrics", self.port)
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()

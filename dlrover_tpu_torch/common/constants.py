@@ -10,9 +10,9 @@ The table at the end, ``QUEUE_A_ITEMS``, names each ROADMAP.md Queue A
 item that the port does not have yet; every option that would reach one
 raises ``NotImplementedError`` naming it through the table (the names
 below it read it), so an item is named one way everywhere.  Items 3 (the
-elastic job, master HA included) and 4a (speculative decoding,
-``serve_journaled`` and the one-host serving fleet) are ported; item 4b is
-next.
+elastic job, master HA included) and 4 (serving: speculative decoding,
+``serve_journaled``, the one-host fleet, the sharded gateway tier and
+cross-cell spillover) are ported; item 5 is next.
 """
 
 from __future__ import annotations
@@ -89,15 +89,13 @@ class Defaults:
     HEARTBEAT_INTERVAL = 15
     HEARTBEAT_TIMEOUT = 300
     RDZV_TIMEOUT = 600
+    SCALE_INTERVAL = 30
 
 
 #: ROADMAP.md Queue A's items still to port, by key.
 QUEUE_A_ITEMS = {
     "1": "Queue A item 1 of the port (the checkpoint slice's leftovers: "
          "object stores)",
-    "4b": "Queue A item 4b of the port (the sharded serving tier: the "
-          "gateway registry and tier, cross-cell spillover and the "
-          "master-side serving autoscaler)",
     "5": "Queue A item 5 of the port (multi-card training)",
     "6": "Queue A item 6 of the port (model features: MoE, fp8, LoRA and "
          "the HF import)",
@@ -113,7 +111,6 @@ def item(key: str) -> str:
 
 
 OBJECT_STORE_ITEM = item("1")
-SERVING_TIER_ITEM = item("4b")
 MULTICARD_ITEM = item("5")
 MODEL_ITEM = item("6")
 HOST_LAYERS = item("rest")

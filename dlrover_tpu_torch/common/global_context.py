@@ -4,8 +4,9 @@
 
 Each knob has the reference's name, default and environment variable
 (``DLROVER_TPU_<UPPER_NAME>``).  Only the knobs that the port's master,
-agent, launcher and master HA (``master/state.py``, ``master/standby.py``;
-reference ``:92-107``) read are here; the checkpoint's and live
+agent, launcher, master HA (``master/state.py``, ``master/standby.py``;
+reference ``:92-107``) and the serving auto-scaler (``scale_interval``,
+``:36``) read are here; the checkpoint's and live
 resharding's come with the modules that read them.
 """
 
@@ -35,6 +36,9 @@ class Context:
         self.hang_timeout_s: float = 1800.0
         self.train_speed_record_num: int = 50
         self.auto_tune: bool = False
+        # The master-side auto-scalers' pass interval, seconds
+        # (``master/job_auto_scaler.py``).
+        self.scale_interval: float = Defaults.SCALE_INTERVAL
         # Master HA.  The standby declares the primary dead once the
         # journal and the lease file stop changing for ha_lease_s on the
         # standby's own clock (the two processes' clocks are never

@@ -1,7 +1,8 @@
-"""The one-host serving fleet: drain-aware replicas behind one gateway.
+"""The one-host serving fleet: drain-aware replicas behind one gateway or a
+sharded gateway tier.
 
-The port's counterpart of ``examples/llama_serve_fleet.py`` (single-gateway
-mode), with the same roles, flags and output lines.  One process (gateway,
+The port's counterpart of ``examples/llama_serve_fleet.py``, with the same
+roles, flags and output lines.  One process (gateway,
 replica threads sharing one copy of the weights, loopback driver)::
 
     python -m dlrover_tpu_torch.serve_fleet --replicas 2 --requests 12 \
@@ -28,9 +29,30 @@ the same ones.  The draft role's ``--draft_seed -1`` is the ceiling draft
 the card unless ``--device cpu`` is given; the gateway and the driver
 touch no device and import no torch in the gateway.
 
-``--registry`` (the sharded tier), ``--metrics_port >= 0`` and
-``DLROVER_TPU_FAULTS`` raise ``NotImplementedError`` naming the Queue A
-items that bring them.
+Sharded tier (``examples/llama_serve_fleet.py:349-372``, ``:487-515``):
+point every role at a shared registry (a ``serving.RegistryServer``, or a
+master's KV store) instead of one gateway::
+
+    python -m dlrover_tpu_torch.serve_fleet --role gateway \
+        --registry 127.0.0.1:8700 --gateway_id g0 --metrics_port 0
+    python -m dlrover_tpu_torch.serve_fleet --role replica \
+        --registry 127.0.0.1:8700 --replica_id r0 --journal_dir /tmp/j
+    python -m dlrover_tpu_torch.serve_fleet --role driver \
+        --registry 127.0.0.1:8700 --requests 12 --rps 20
+
+A tier gateway is a ``GatewayTierNode`` (leased in the registry under
+``--job``, ``--lease_timeout`` its lease), a replica polls every live
+gateway through a ``TierReplicaLink``, and the driver submits through a
+``TierClient`` and prints ``DRIVER_RESUBMITTED n`` (failover resubmits).
+``--metrics_port >= 0`` serves a tier gateway's Prometheus gauges
+(``serve_*`` and ``tier_*``) on ``/metrics``.  A
+replica's ``REPLICA_DONE`` line carries its RMSNorm kernel launches (the
+wrapper's count plus the decode graph's recorded launches times its
+replays) beside its eager forwards, ``graph_recorded`` and
+``graph_replays``, and the longest gap between two of its gateway polls
+(``max_poll_gap_s``, ending at the wall-clock ``max_poll_gap_at``).
+``DLROVER_TPU_FAULTS`` raises ``NotImplementedError`` naming the chaos
+layer's Queue A item.
 """
 
 from __future__ import annotations
@@ -57,15 +79,15 @@ def parse_args(argv=None):
     p.add_argument("--gateway", default="",
                    help="(replica/driver/draft) gateway host:port")
     p.add_argument("--registry", default="",
-                   help="shared registry host:port: the sharded tier "
-                        "(not ported)")
+                   help="shared registry host:port (a RegistryServer or "
+                        "a master): the sharded gateway tier")
     p.add_argument("--job", default="fleet",
                    help="(tier) registry namespace")
     p.add_argument("--gateway_id", default="g0",
                    help="(tier gateway) this gateway's id on the ring")
     p.add_argument("--metrics_port", type=int, default=-1,
-                   help="(tier gateway) /metrics port (-1 = off; not "
-                        "ported)")
+                   help="(tier gateway) /metrics port (-1 = off, 0 = "
+                        "ephemeral)")
     p.add_argument("--kv_relay", action="store_true",
                    help="(gateway) force the prefill->decode KV segment "
                         "through the gateway instead of peer-to-peer "
@@ -208,8 +230,10 @@ def build_replica(args, transport, draft_connect=None, model=None):
     )
     warm_p0 = getattr(args, "warm_prefix_len", 0)
     dummy = np.arange(1, 5, dtype=np.int32)
+    warm_forwards = 0
     if role != "prefill":
         srv.serve([dummy], max_new_tokens=2)
+        warm_forwards += eager_forwards(srv)
     if role in ("prefill", "decode"):
         srv.prefill_request("__warm", dummy, 2)
         payload, _ = srv.export_kv("__warm")
@@ -236,13 +260,74 @@ def build_replica(args, transport, draft_connect=None, model=None):
     if args.journal_dir:
         os.makedirs(args.journal_dir, exist_ok=True)
         journal = os.path.join(args.journal_dir, f"{args.replica_id}.jsonl")
-    return ReplicaRunner(
+    runner = ReplicaRunner(
         srv, transport, args.replica_id, journal_path=journal,
         poll_interval=args.poll_interval,
         round_floor_s=args.round_floor_ms / 1000.0,
         role=role,
         kv_p2p=not getattr(args, "no_kv_p2p", False),
         draft_connect=draft_connect,
+    )
+    #: Eager forwards of the unified warm-up serve (``replica_done``).
+    runner.warmup_forwards = warm_forwards
+    return runner
+
+
+class PollGaps:
+    """A replica transport that times the gaps between the starts of
+    consecutive ``ServeReplicaPoll`` calls (the runner polls once a
+    decode round; a call stalled on a dead gateway shows as a long gap)
+    and passes every call on."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.max_gap_s = 0.0
+        self.max_gap_at = 0.0  # wall-clock end of the longest gap
+        self._last = None
+
+    def call(self, msg, **kw):
+        from dlrover_tpu_torch.common.messages import ServeReplicaPoll
+
+        if isinstance(msg, ServeReplicaPoll):
+            now = time.monotonic()
+            if self._last is not None and now - self._last > self.max_gap_s:
+                self.max_gap_s = now - self._last
+                self.max_gap_at = time.time()
+            self._last = now
+        return self.inner.call(msg, **kw)
+
+
+def eager_forwards(srv) -> int:
+    """The forwards that one serve run of ``srv`` (its ``last_stats``)
+    made eagerly: prefills, template prefills and the decode graph's
+    warm-up; every other decode dispatch of K steps was one replay."""
+    st = srv.last_stats
+    return (st["forwards"] - srv.decode_chunk * st["graph_replays"]
+            + st["graph_warmup_forwards"] + st["template_forwards"])
+
+
+def replica_done(runner) -> str:
+    """The ``REPLICA_DONE`` line of a replica that has run: its RMSNorm
+    kernel launches (the wrapper's count of this process plus the decode
+    graph's recorded launches times its replays) beside the eager
+    forwards of its warm-up and its run, so that a caller can hold the
+    launches against (2L+1) a forward."""
+    from dlrover_tpu_torch.ops import rmsnorm as rms
+
+    graph = runner.server.decode_graph
+    recorded = graph.recorded.get("rmsnorm", 0)
+    eager = getattr(runner, "warmup_forwards", 0)
+    if runner.server.last_stats:
+        eager += eager_forwards(runner.server)
+    gaps = runner.transport
+    gap = (f" max_poll_gap_s={gaps.max_gap_s:.3f} max_poll_gap_at="
+           f"{gaps.max_gap_at:.3f}" if isinstance(gaps, PollGaps) else "")
+    return (
+        f"REPLICA_DONE id={runner.replica_id} served={runner.served} "
+        f"replayed={runner.replayed} "
+        f"rmsnorm_launches={rms.rmsnorm.launches + recorded * graph.replays}"
+        f" eager_forwards={eager} graph_recorded={recorded} "
+        f"graph_replays={graph.replays}{gap}"
     )
 
 
@@ -258,9 +343,10 @@ def driver_prompts(args):
     ]
 
 
-def drive(args, transport, core=None):
+def drive(args, transport, core=None, client=None):
     """Submit the seeded request stream at Poisson arrivals, poll every
-    result, print the summary line."""
+    result, print the summary line.  ``client`` overrides the
+    transport-bound ServeClient (the tier driver passes a TierClient)."""
     import numpy as np
 
     from dlrover_tpu_torch.serving import ServeClient
@@ -269,7 +355,8 @@ def drive(args, transport, core=None):
     arr_rng = np.random.RandomState(args.seed + 7)
     gaps = arr_rng.exponential(1.0 / max(args.rps, 1e-6),
                                size=args.requests)
-    client = ServeClient(transport)
+    if client is None:
+        client = ServeClient(transport)
     t0 = time.perf_counter()
     for i, prompt in enumerate(prompts):
         time.sleep(float(gaps[i]))
@@ -316,8 +403,21 @@ class _T:
         return self._c.call(msg, deadline=10.0, idempotent=True, **kw)
 
 
+def tier_registry(args):
+    """This process's own handle on the shared registry (the reader-side
+    lease is per handle)."""
+    from dlrover_tpu_torch.serving import RpcKv, ServeRegistry
+
+    return ServeRegistry(RpcKv(args.registry), job=args.job,
+                         lease_s=args.lease_timeout)
+
+
 def run_gateway(args) -> int:
-    from dlrover_tpu_torch.serving import Gateway, GatewayConfig
+    from dlrover_tpu_torch.serving import (
+        Gateway,
+        GatewayConfig,
+        GatewayTierNode,
+    )
 
     cfg = GatewayConfig(
         queue_cap=args.queue_cap,
@@ -325,9 +425,22 @@ def run_gateway(args) -> int:
         kv_p2p=not args.kv_relay,
         spec_decode_min_tokens=args.spec_min_tokens,
     )
-    gw = Gateway(port=args.port, config=cfg)
-    gw.start()
-    print(f"GATEWAY_READY port={gw.port}", flush=True)
+    if args.registry:
+        node = GatewayTierNode(
+            args.gateway_id, tier_registry(args), port=args.port,
+            config=cfg, metrics_port=(
+                args.metrics_port if args.metrics_port >= 0 else None))
+        node.start()
+        gw = node.gateway
+        ready = f"GATEWAY_READY port={gw.port} id={args.gateway_id}"
+        if node.metrics_port is not None:
+            ready += f" metrics={node.metrics_port}"
+    else:
+        node = None
+        gw = Gateway(port=args.port, config=cfg)
+        gw.start()
+        ready = f"GATEWAY_READY port={gw.port}"
+    print(ready, flush=True)
     stop = threading.Event()
     signal.signal(signal.SIGTERM, lambda *_: stop.set())
     signal.signal(signal.SIGINT, lambda *_: stop.set())
@@ -349,7 +462,10 @@ def run_gateway(args) -> int:
         "latency_p50_ms": gw.latency_ms.percentile(0.5),
         "torch_imported": "torch" in sys.modules,
     }), flush=True)
-    gw.stop()
+    if node is not None:
+        node.stop()
+    else:
+        gw.stop()
     return 0
 
 
@@ -433,17 +549,18 @@ def main(argv=None) -> int:
 
         raise NotImplementedError(
             f"fault injection (DLROVER_TPU_FAULTS) comes with {CHAOS_LAYER}")
-    if args.registry:
-        from dlrover_tpu_torch.common.constants import SERVING_TIER_ITEM
-
-        raise NotImplementedError(f"--registry comes with {SERVING_TIER_ITEM}")
-    if args.metrics_port >= 0:
-        from dlrover_tpu_torch.common.constants import HOST_LAYERS
-
-        raise NotImplementedError(f"--metrics_port comes with {HOST_LAYERS}")
+    if args.registry and args.role in ("draft", "all"):
+        raise ValueError(
+            f"--registry takes the gateway, replica and driver roles; "
+            f"--role {args.role} serves one gateway (as the reference's)")
+    if args.metrics_port >= 0 and not args.registry:
+        raise ValueError("--metrics_port serves a tier gateway's gauges: "
+                         "it needs --registry (as the reference's)")
     from dlrover_tpu_torch.common import log
 
-    log.set_role({"gateway": "gateway", "replica": f"rep-{args.replica_id}",
+    log.set_role({"gateway": (f"gw-{args.gateway_id}" if args.registry
+                              else "gateway"),
+                  "replica": f"rep-{args.replica_id}",
                   "draft": f"draft-{args.replica_id}",
                   "driver": "driver"}.get(args.role, "fleet"))
     if args.role == "gateway":
@@ -451,15 +568,26 @@ def main(argv=None) -> int:
     if args.role == "draft":
         return run_draft(args)
     if args.role == "replica":
-        runner = build_replica(args, _T(args.gateway))
+        if args.registry:
+            from dlrover_tpu_torch.serving import TierReplicaLink
+
+            transport = TierReplicaLink(tier_registry(args),
+                                        args.replica_id)
+        else:
+            transport = _T(args.gateway)
+        runner = build_replica(args, PollGaps(transport))
         print(f"REPLICA_READY id={args.replica_id}", flush=True)
         runner.run()
-        print(
-            f"REPLICA_DONE id={args.replica_id} served="
-            f"{runner.served} replayed={runner.replayed}", flush=True,
-        )
+        print(replica_done(runner), flush=True)
         return 0
     if args.role == "driver":
+        if args.registry:
+            from dlrover_tpu_torch.serving import TierClient
+
+            client = TierClient(tier_registry(args))
+            rc = drive(args, None, client=client)
+            print(f"DRIVER_RESUBMITTED {client.resubmitted}", flush=True)
+            return rc
         from dlrover_tpu_torch.common.rpc import RpcClient
 
         return drive(args, RpcClient(args.gateway, timeout=10.0))

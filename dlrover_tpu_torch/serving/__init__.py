@@ -1,11 +1,10 @@
-"""The one-host serving fleet of the port: the port's own copy of
-``dlrover_tpu/serving/`` without the sharded gateway tier and cross-cell
-spillover.
+"""The serving fleet of the port: the port's own copy of
+``dlrover_tpu/serving/``, exporting the reference's names.
 
 - :mod:`dlrover_tpu_torch.serving.gateway`: the typed-RPC front door
   (bounded admission with backpressure, prefix- and spec-aware
   least-loaded routing, the two-stage prefill/decode grants, deadlines,
-  request-id dedupe, leases, requeue, drain);
+  request-id dedupe, leases, requeue, drain, the ``serve_*`` gauges);
 - :mod:`dlrover_tpu_torch.serving.replica`: the worker loop that feeds
   grants into a continuous-batching ``DecodeServer``, streams tokens,
   journals completions and replays them after a restart;
@@ -14,17 +13,18 @@ spillover.
 - :mod:`dlrover_tpu_torch.serving.kvseg`: the peer-to-peer KV-segment
   plane (segment store and server, ticketed pulls);
 - :mod:`dlrover_tpu_torch.serving.draft`: draft replicas, speculative
-  proposals as a fleet service.
+  proposals as a fleet service;
+- :mod:`dlrover_tpu_torch.serving.tier`: the sharded gateway tier (a
+  leased registry, consistent-hash ownership, fan-out replica links,
+  failover resubmission, merged snapshots and tier-wide actuation);
+- :mod:`dlrover_tpu_torch.serving.spillover`: cross-cell spillover (the
+  spill policy and router, the global client, the global roll-up).
 
-No module here imports torch at module level: the gateway and the
-autoscaler are pure control plane, and only the replica's server and the
-draft worker touch the model.  The tier and spillover names
-(``TierClient``, ``TierReplicaLink``, ``ServeRegistry``, ``RpcKv``,
-``CellSpillRouter`` and the rest) raise ``NotImplementedError`` naming
-the Queue A item that brings them.
+No module here imports torch at module level: the gateway, the tier and
+the autoscaler are pure control plane, and only the replica's server and
+the draft worker touch the model.
 """
 
-from dlrover_tpu_torch.common.constants import SERVING_TIER_ITEM
 from dlrover_tpu_torch.serving.autoscale import (  # noqa: F401
     PoolAutoScaler,
     ScalePolicy,
@@ -59,21 +59,26 @@ from dlrover_tpu_torch.serving.replica import (  # noqa: F401
     prefix_fingerprint,
 )
 
-#: The reference's tier and spillover names, still to port.
-TIER_NAMES = frozenset({
-    "CellSpillRouter", "GlobalClient", "SpillDecision", "SpilloverConfig",
-    "SpilloverPolicy", "merge_global_snapshots", "GatewayTierNode",
-    "HashRing", "LocalKv", "MasterKv", "RegistryServer", "RpcKv",
-    "ServeRegistry", "TierActuator", "TierClient", "TierReplicaLink",
-    "TierStats", "merge_snapshots", "pick_drain_victim_merged",
-})
-
-
-def __getattr__(name: str):
-    if name in TIER_NAMES:
-        raise NotImplementedError(
-            f"dlrover_tpu_torch.serving.{name} comes with "
-            f"{SERVING_TIER_ITEM}"
-        )
-    raise AttributeError(
-        f"module 'dlrover_tpu_torch.serving' has no attribute {name!r}")
+from dlrover_tpu_torch.serving.spillover import (  # noqa: F401
+    CellSpillRouter,
+    GlobalClient,
+    SpillDecision,
+    SpilloverConfig,
+    SpilloverPolicy,
+    merge_global_snapshots,
+)
+from dlrover_tpu_torch.serving.tier import (  # noqa: F401
+    GatewayTierNode,
+    HashRing,
+    LocalKv,
+    MasterKv,
+    RegistryServer,
+    RpcKv,
+    ServeRegistry,
+    TierActuator,
+    TierClient,
+    TierReplicaLink,
+    TierStats,
+    merge_snapshots,
+    pick_drain_victim_merged,
+)

@@ -2,8 +2,12 @@
 ``dlrover_tpu/serving/gateway.py`` (``GatewayConfig``, ``GatewayCore``,
 ``Gateway``, ``LoopbackTransport``, ``ServeClient``), held against it.
 Trace contexts ride the wire as data (ids derived and drawn as the
-reference's ``obs/span.py`` does); no span is recorded, and the Prometheus
-gauges are not ported.
+reference's ``obs/span.py`` does); no span is recorded and the flight
+recorder's ``ObsScrapeRequest`` is not answered (``obs/`` is not ported).
+``Gateway.register_gauges`` exports the reference's ``serve_*`` gauges
+(``dlrover_tpu/serving/gateway.py:1387-1457``), and ``Gateway.spill_router``
+(a ``serving/spillover.py`` ``CellSpillRouter``) takes the submits and
+status polls when it is set (``:1372-1375``, ``:1459-1471``).
 
 One :class:`GatewayCore` holds the whole control-plane state machine —
 pure Python, injectable clock, no RPC, no torch — so every admission /
@@ -93,7 +97,6 @@ from dlrover_tpu_torch.common.messages import (
     ServeTokens,
 )
 from dlrover_tpu_torch.common.token_cache import BoundedTokenCache
-from dlrover_tpu_torch.common.constants import HOST_LAYERS
 
 
 def trace_id_for(req_id: str) -> str:
@@ -1336,6 +1339,10 @@ class Gateway:
             # over this is the per-message admission cost).
             "rpc_calls": self._server.calls,
         }
+        #: Optional :class:`serving.spillover.CellSpillRouter` — when
+        #: attached, ServeSubmit/ServeStatusRequest dispatch through it
+        #: so a saturated cell forwards admission to a sibling cell.
+        self.spill_router = None
         if metrics_registry is not None:
             self.register_gauges(metrics_registry)
         self._sweep_interval = sweep_interval
@@ -1348,19 +1355,85 @@ class Gateway:
         return self._server.port
 
     def register_gauges(self, registry) -> None:
-        """The Prometheus gauges of the reference's gateway: not ported."""
-        raise NotImplementedError(
-            f"Gateway.register_gauges comes with {HOST_LAYERS}"
-        )
+        """Gateway latency histograms + fleet gauges on an agent
+        metrics registry (``serve_*`` namespace)."""
+        self.latency_ms.register_gauges(registry, "serve_latency")
+        self.ttft_ms.register_gauges(registry, "serve_ttft")
+
+        # One snapshot per scrape, not one per gauge: every gauge taking
+        # the core mutex and copying all counters would contend with the
+        # submit/poll hot path.
+        cache = {"ts": 0.0, "snap": {}}
+
+        def _snap():
+            now = self._clock()
+            if now - cache["ts"] > 0.5:
+                cache["snap"] = self.core.stats_snapshot()
+                cache["ts"] = now
+            return cache["snap"]
+
+        def _snap_gauge(key):
+            def read():
+                return float(_snap().get(key, 0.0))
+            return read
+
+        for key in ("queue_depth", "in_flight", "replicas_alive",
+                    "occupancy", "queue_prefill", "queue_kv_ready"):
+            registry.gauge(f"serve_{key}", _snap_gauge(key))
+
+        def _counter_gauge(name):
+            def read():
+                return float(
+                    _snap().get("counters", {}).get(name, 0)
+                )
+            return read
+
+        # Every core counter is exported.
+        for name in ("submitted", "accepted", "rejected", "completed",
+                     "failed", "timeout", "dedupe_hits",
+                     "duplicate_completions", "late_completions",
+                     "redispatched", "replicas_lost",
+                     "streamed_tokens",
+                     "prefix_hits", "prefix_misses", "prefix_steals",
+                     "kv_handoffs", "kv_rejects", "kv_bytes",
+                     "kv_p2p_bytes", "kv_fp32_bytes",
+                     "kv_relay_fallbacks",
+                     "spec_rounds", "spec_accepted", "spec_fallbacks",
+                     "spec_grants", "spec_bypass",
+                     "trace_sampled", "trace_unsampled",
+                     "spill_forwarded", "spill_ingress",
+                     "spill_rebuffed", "spill_adopted"):
+            registry.gauge(f"serve_{name}", _counter_gauge(name))
+
+        def _pool_gauge(role, key):
+            def read():
+                return float(
+                    _snap().get("pools", {}).get(role, {}).get(key, 0)
+                )
+            return read
+
+        for role in ("unified", "prefill", "decode", "draft"):
+            for key in ("alive", "assigned", "queue_depth",
+                        "occupancy", "tokens_per_round"):
+                registry.gauge(f"serve_pool_{role}_{key}",
+                               _pool_gauge(role, key))
 
     def handle(self, msg: Message) -> Optional[Message]:
         core = self.core
         if isinstance(msg, ServeSubmit):
+            if self.spill_router is not None:
+                # Cross-cell spillover: the router decides local vs
+                # forward; a hop-marked submit (spill_hops>0) arriving
+                # FROM a sibling always lands locally — the router's
+                # depth bound keeps it from bouncing back.
+                return self.spill_router.submit(msg)
             return core.submit(msg.req_id, msg.prompt,
                                msg.max_new_tokens, msg.deadline_s,
                                msg.prefix_len, msg.prefix_fp,
                                msg.trace, spill_hops=msg.spill_hops)
         if isinstance(msg, ServeStatusRequest):
+            if self.spill_router is not None:
+                return self.spill_router.status(msg.req_id)
             return core.status(msg.req_id)
         if isinstance(msg, ServeReplicaRegister):
             core.register(msg.replica_id, msg.slots, msg.role,

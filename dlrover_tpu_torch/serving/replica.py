@@ -463,6 +463,13 @@ class ReplicaRunner:
             return {}
         return {"tid": tid}
 
+    def stop(self) -> None:
+        """End the serve loop at its next tick, without a drain: what a
+        replica whose host went away looks like to its gateways (the
+        in-flight work is finished, nothing new is taken).  The reference
+        reaches the same flag through its chaos site."""
+        self._stopped = True
+
     def _done_draining(self) -> bool:
         return self._draining and not self._owned_rids()
 

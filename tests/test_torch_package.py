@@ -119,6 +119,26 @@ def test_import_leaves_jax_and_reference_out():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_tier_modules_import_without_jax_or_torch():
+    """The tier, spillover, hash ring, auto-scaler and metrics modules
+    import neither JAX nor the JAX package, and the gateway side of the
+    tier (what a gateway process imports) no torch either."""
+    code = (
+        "import sys\n"
+        "import dlrover_tpu_torch.serving.tier, "
+        "dlrover_tpu_torch.serving.spillover, "
+        "dlrover_tpu_torch.common.hashring, dlrover_tpu_torch.agent.metrics\n"
+        "assert 'torch' not in sys.modules\n"
+        "import dlrover_tpu_torch.master.job_auto_scaler\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dlrover_tpu', 'torch')]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_default_device_raises_without_cuda(no_cuda):
     cfg = tllama.LlamaConfig.tiny()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -307,26 +327,50 @@ def test_fleet_config_names_are_serves():
 
 
 def test_fleet_refuses_the_tier_metrics_and_faults(monkeypatch):
-    """The sharded tier, the Prometheus gauges and fault injection come
-    with later items and are refused by name."""
+    """The sharded tier, its names and the gateway's Prometheus gauges are
+    ported and work; fault injection and the agent's own metrics endpoint
+    come with later items and are refused by name."""
+    import dlrover_tpu.serving as rserving
     import dlrover_tpu_torch.serving as tserving
     from dlrover_tpu_torch import serve_fleet
+    from dlrover_tpu_torch.agent import metrics as tmetrics
+    from dlrover_tpu_torch.agent import training
+    from dlrover_tpu_torch.common import constants
 
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        serve_fleet.main(["--registry", "127.0.0.1:1"])
-    with pytest.raises(NotImplementedError, match="host-only layers"):
-        serve_fleet.main(["--role", "gateway", "--metrics_port", "0"])
-    for name in ("TierClient", "TierReplicaLink", "CellSpillRouter"):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            getattr(tserving, name)
+    # The serving package exports the reference's names, the tier's too.
+    public = {n for n in vars(rserving) if not n.startswith("_")}
+    assert public <= set(vars(tserving))
+    for name in ("TierClient", "TierReplicaLink", "CellSpillRouter",
+                 "GatewayTierNode", "ServeRegistry", "merge_snapshots"):
+        assert getattr(tserving, name).__module__.startswith(
+            "dlrover_tpu_torch.serving.")
     with pytest.raises(AttributeError):
         tserving.NoSuchName  # noqa: B018
+    assert "4b" not in constants.QUEUE_A_ITEMS
+    assert not hasattr(constants, "SERVING_TIER_ITEM")
+    # --registry reaches the tier: a replica still needs the card.
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_fleet.main(["--role", "replica", "--registry",
+                              "127.0.0.1:1"])
+    with pytest.raises(ValueError, match="--registry"):
+        serve_fleet.main(["--role", "draft", "--registry", "127.0.0.1:1"])
+    with pytest.raises(ValueError, match="needs --registry"):
+        serve_fleet.main(["--role", "gateway", "--metrics_port", "0"])
+    # register_gauges exports the gateway's gauges.
     gw = tserving.Gateway(port=0)
     try:
-        with pytest.raises(NotImplementedError, match="host-only layers"):
-            gw.register_gauges(object())
+        reg = tmetrics.MetricsRegistry()
+        gw.register_gauges(reg)
+        assert "dlrover_tpu_serve_completed 0.0" in reg.render()
     finally:
         gw.stop()
+    # The agent's DLROVER_TPU_METRICS_PORT stays refused.
+    monkeypatch.setenv("DLROVER_TPU_METRICS_PORT", "9100")
+    with pytest.raises(NotImplementedError, match="METRICS_PORT"):
+        training.ElasticTrainingAgent(training.ElasticLaunchConfig(),
+                                      ["true"], "127.0.0.1:1")
+    monkeypatch.delenv("DLROVER_TPU_METRICS_PORT")
     monkeypatch.setenv("DLROVER_TPU_FAULTS", "plan.json")
     with pytest.raises(NotImplementedError, match="chaos"):
         serve_fleet.main(["--role", "gateway"])

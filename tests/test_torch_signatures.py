@@ -440,7 +440,9 @@ def test_control_plane_takes_every_reference_keyword(ref_mod, port_mod,
 # -- the serving fleet ---------------------------------------------------------
 
 SERVING_MODULES = ("serving.gateway", "serving.replica", "serving.draft",
-                   "serving.kvseg", "serving.autoscale", "agent.metrics")
+                   "serving.kvseg", "serving.autoscale", "agent.metrics",
+                   "serving.tier", "serving.spillover", "common.hashring",
+                   "master.job_auto_scaler")
 
 
 def _public_callables(mod_name):
@@ -489,6 +491,22 @@ def test_serving_covers_the_fleet():
                  "connect_remote_draft", "KvSegmentStore.put",
                  "pull_kv_segment", "Histogram.percentile",
                  "pack_proposals", "decide", "ServeClient.submit"):
+        assert want in names, want
+
+
+def test_serving_covers_the_tier():
+    names = {n for _, n in SERVING}
+    for want in ("ring_hash", "HashRing.owner", "ServeRegistry.__init__",
+                 "ServeRegistry.announce_replica", "RegistryServer.handle",
+                 "GatewayTierNode.__init__", "TierClient.submit",
+                 "TierClient.result", "TierReplicaLink.call",
+                 "merge_snapshots", "TierActuator.__init__",
+                 "pick_drain_victim_merged", "SpilloverPolicy.decide",
+                 "CellSpillRouter.__init__", "GlobalClient.submit",
+                 "merge_global_snapshots", "ServingFleetAutoScaler.__init__",
+                 "new_job_auto_scaler", "Histogram.register_gauges",
+                 "MetricsRegistry.render", "MetricsServer.__init__",
+                 "Gateway.register_gauges"):
         assert want in names, want
 
 
