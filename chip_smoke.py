@@ -185,15 +185,16 @@ together), then runs the phases below and exits non-zero if any fails:
    and four more inputs (a ragged tail, bf16, an all-zero block, .5
    ties): codes equal and scales bit-equal.
 8. 8-bit Adam training: ``accelerate(..., optimizer=adam8bit(3e-4))``
-   trains Llama-800M-h128 (12 heads of 128, full width and depth, per-
+   trains Llama-800M-h128 (12 heads of 128, full width at
+   ``ELASTIC_LAYERS`` (8) of its 24 blocks since phase 13 joined, per-
    block remat, bf16 compute, fp32 masters, int8 moments) at B 16 x S
    2048 for 4 steps on one seeded batch: the loss falls; step time,
    tokens/s, MFU, peak memory, the moments' bytes, each kernel's launches
    a step (the blockwise quantize: 0, the moments use the dynamic codes)
    and a profiled step with the optimizer's device time, whose kernels
-   must include 48 ``flash_fwd_wgmma``, 24 ``flash_dq_wgmma`` and 24
-   ``flash_dkv_wgmma`` launches and no bf16 instance of a CUDA-core flash
-   kernel.  Then its state goes through ``FlashCheckpointer`` (to memory,
+   must include 2L ``flash_fwd_wgmma``, L ``flash_dq_wgmma`` and L
+   ``flash_dkv_wgmma`` launches (L = 8) and no bf16 instance of a
+   CUDA-core flash kernel.  Then its state goes through ``FlashCheckpointer`` (to memory,
    then to storage), is restored into a freshly built state and held bit
    for bit (the fp32 masters, the int8 codes, their scales, the step count
    and the rounding generator), and one more step of each gives bit-equal
@@ -295,6 +296,30 @@ together), then runs the phases below and exits non-zero if any fails:
    batches, 8 blocks).  The verdict with the payloads' times and TFLOP/s, the
    recovery split as phase 11's, the master's RPC count and the heartbeat
    actions go on a line ``phase12 trainer_sdk {...}``.
+
+13. The mesh (run after phase 12), Llama-800M's width at
+   ``ELASTIC_LAYERS`` (8) of its 24 blocks with AdamW (``adamw(3e-4)``), B
+   4 x S 2048 globally on one repeated batch: the phase writes a user
+   script (``MESH_SCRIPT``) and runs it through ``python -m
+   dlrover_tpu_torch.run --standalone --nproc_per_node=2``: two worker
+   processes on the one card over ``gloo``.  Each builds an
+   ``sdk.Trainer`` with ``Strategy(mesh=MeshSpec(fsdp=-1))`` (normalized
+   to ``fsdp=2``: ZeRO-3, each rank 2 rows a step) for 2 steps, saved
+   sharded at the end, then a second ``Trainer`` with
+   ``Strategy(mesh=MeshSpec(tp=2))`` and ``TrainingArgs(layout_planner=
+   True)`` for 2 steps (both ranks on the same 4 rows).  Every step's loss
+   and gradient norm on both ranks within ``DP_LOSS_RTOL`` of phase 10a's;
+   each rank's parameter and moment boxes, and ``memory_allocated``
+   around ``create_state``, about half of the world-1 state; each rank
+   launched RMSNorm and the three flash kernels (its own counters: 17 and
+   8 of each a step); at least one leaf placed on ``tp``; each rank's
+   shard file holds about half the checkpoint's bytes; a cold restore in
+   this process at world 1 (``CheckpointEngine.load(target_mesh=)``)
+   equals, tensor by tensor by CRC-32, the state rank 0 reports gathered,
+   and one step from it gives phase 10a's step-3 loss within
+   ``DP_LOSS_RTOL``.  Step ms, the gathers' and reductions' ms and bytes
+   a step, peak memory a rank, the shard bytes and the restore go on a
+   line ``phase13 mesh {...}``.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -3253,7 +3278,8 @@ def phase_adam8bit(llama, counted) -> dict:
     from dlrover_tpu_torch.parallel.accelerate import Strategy, accelerate
 
     cfg = dataclasses.replace(llama.LlamaConfig.medium_800m(), n_head=12,
-                              n_kv_head=12, remat_block=True)
+                              n_kv_head=12, remat_block=True,
+                              n_layer=ELASTIC_LAYERS)
     tokens = np.random.RandomState(SEED).randint(
         0, cfg.vocab_size, size=(A8_BATCH, A8_SEQ + 1)).astype(np.int32)
     batch = {"tokens": tokens}
@@ -4782,6 +4808,405 @@ def phase_trainer_sdk(train, card: str) -> dict:
     return res
 
 
+MESH_TIMEOUT_S = 600  # phase 13: the launcher's limit
+MESH_STEPS = 2  # phase 13: the FSDP trainer's steps (checkpointed at the last)
+MESH_TP_STEPS = 2  # phase 13: the tp=2 trainer's steps
+
+# Phase 13's user script: two trainer SDK jobs on the mesh in each of the
+# launcher's two worker processes.  Each rank writes its records as single
+# ``MESH_REC {...}`` lines.
+MESH_SCRIPT = r'''
+"""Two trainer-SDK jobs over a mesh of the launcher's processes: Llama at
+random weights from a seed on one repeated batch with AdamW; first ZeRO-3
+over ``MeshSpec(fsdp=-1)`` (checkpointed sharded at its last step), then
+``MeshSpec(tp=2)`` with the layout planner."""
+import argparse
+import json
+import sys
+import time
+import zlib
+
+import torch
+
+import dlrover_tpu_torch.trainer as sdk
+from dlrover_tpu_torch import train as cli
+from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.optim import adamw
+from dlrover_tpu_torch.parallel.accelerate import Strategy, tree_leaves
+from dlrover_tpu_torch.parallel.mesh import MeshSpec
+from dlrover_tpu_torch.parallel.sharding import placement_of
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def memory_allocated():
+    return torch.cuda.memory_allocated() if torch.cuda.is_available() else 0
+
+
+def emit(**rec):
+    sys.stdout.write("MESH_REC " + json.dumps(rec) + "\n")
+    sys.stdout.flush()
+
+
+class Report(sdk.TrainerCallback):
+    def __init__(self, run, rank):
+        self.run, self.rank, self.t = run, rank, None
+
+    def on_train_begin(self, args, state, control):
+        sync()
+        self.t = time.perf_counter()
+
+    def on_step_end(self, args, state, control, metrics):
+        loss = float(metrics["loss"])
+        sync()
+        now = time.perf_counter()
+        emit(kind="step", run=self.run, rank=self.rank, step=state.step,
+             loss=loss, grad_norm=float(metrics["grad_norm"]),
+             step_ms=(now - self.t) * 1e3, comm=metrics.get("comm"))
+        self.t = now
+
+
+def launches():
+    return {n: fn.launches for n, fn in cli.KERNELS.items()}
+
+
+def crc(t):
+    return zlib.crc32(t.detach().cpu().contiguous().reshape(-1)
+                      .view(torch.uint8).numpy().tobytes())
+
+
+def trainer_for(run, cfg, ctx, args, strategy, **over):
+    kw = dict(global_batch_size=4, max_micro_batch_per_proc=2,
+              logging_steps=1, seed=17)
+    kw.update(over)
+
+    def fetch(indices):
+        return {"tokens": cli.synth_tokens(indices, args.seq_len,
+                                           cfg.vocab_size)}
+
+    trainer = sdk.Trainer(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        init_fn=lambda g: llama.init_params(cfg, g, args.device,
+                                            param_dtype=torch.float32),
+        args=sdk.TrainingArgs(**kw), fetch_batch=fetch, dataset_size=4,
+        optimizer_fn=lambda schedule: adamw(3e-4), strategy=strategy,
+        callbacks=[Report(run, ctx.process_id)],
+        master_client=ctx.client, step_reporter=ctx.report_step,
+        devices=[args.device], num_processes=ctx.num_processes,
+        process_id=ctx.process_id)
+    mem = {}
+    build_job = trainer.core._build_job
+
+    def measured_build(n, r):
+        build_job(n, r)
+        make = trainer.core.job.create_state
+
+        def create_state(gen):
+            sync()
+            m0 = memory_allocated()
+            st = make(gen)
+            sync()
+            mem["create_state_bytes"] = memory_allocated() - m0
+            return st
+
+        trainer.core.job.create_state = create_state
+
+    trainer.core._build_job = measured_build
+    return trainer, mem
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--model", default="800m")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--n_layer", type=int, default=8)
+    p.add_argument("--seq_len", type=int, default=2048)
+    p.add_argument("--ckpt_dir", required=True)
+    p.add_argument("--steps", type=int, default=2)
+    p.add_argument("--tp_steps", type=int, default=2)
+    args = p.parse_args()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = sdk.init(device=args.device)
+    peak = (torch.cuda.max_memory_allocated if args.device == "cuda"
+            else lambda: 0)
+    rank = ctx.process_id
+    cfg = cli.build_config(cli.parse_args(
+        ["--model", args.model, "--n_layer", str(args.n_layer),
+         "--seq_len", str(args.seq_len)]))
+
+    # (1) ZeRO-3 over fsdp=-1, checkpointed sharded at its last step.
+    if args.device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = launches()
+    trainer, mem = trainer_for(
+        "fsdp", cfg, ctx, args, Strategy(mesh=MeshSpec(fsdp=-1)),
+        max_steps=args.steps, ckpt_dir=args.ckpt_dir,
+        job_name=ctx.job_name)
+    trainer.train()
+    job, state = trainer.core.job, trainer.core.state
+    leaves = tree_leaves(state["params"])
+    opt = state["opt_state"]
+    moments = [t for p_ in leaves for k, t in opt.state[p_].items()
+               if k != "step"]
+    whole = job.gather_state(state)
+    rec = dict(kind="done", run="fsdp", rank=rank, mesh=job.mesh.describe(),
+               batch_rank=list(job.batch_rank),
+               launches={k: v - before[k] for k, v in launches().items()},
+               param_box_bytes=sum(t.numel() * 4 for t in leaves),
+               moment_box_bytes=sum(t.numel() * t.element_size()
+                                    for t in moments),
+               whole_param_bytes=sum(
+                   4 * int(torch.Size(placement_of(t).global_shape).numel())
+                   for t in leaves),
+               sharded_leaves=sum(placement_of(t).sharded for t in leaves),
+               peak_bytes=peak(), **mem)
+    if rank == 0:
+        rec["crcs"] = {k: crc(v) for k, v in whole.items()}
+    del whole
+    emit(**rec)
+    del trainer, job, state, leaves, opt, moments
+    if args.device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # (2) tp=2 with the layout planner, no checkpoint.
+    before = launches()
+    trainer, mem = trainer_for(
+        "tp", cfg, ctx, args, Strategy(mesh=MeshSpec(tp=2)),
+        max_steps=args.tp_steps, layout_planner=True,
+        max_micro_batch_per_proc=4)
+    trainer.train()
+    leaves = tree_leaves(trainer.core.state["params"])
+    emit(kind="done", run="tp", rank=rank,
+         mesh=trainer.core.job.mesh.describe(),
+         batch_rank=list(trainer.core.job.batch_rank),
+         launches={k: v - before[k] for k, v in launches().items()},
+         tp_leaves=sum("tp" in placement_of(t).axes for t in leaves),
+         sharded_leaves=sum(placement_of(t).sharded for t in leaves),
+         param_box_bytes=sum(t.numel() * 4 for t in leaves),
+         peak_bytes=peak(), **mem)
+
+
+if __name__ == "__main__":
+    main()
+'''
+
+
+def mesh_records(text: str) -> list:
+    return [json.loads(ln.split(" ", 1)[1]) for ln in text.splitlines()
+            if ln.startswith("MESH_REC ")]
+
+
+def phase_mesh(train, card: str, one_steps: dict) -> dict:
+    """Phase 13: the mesh (see the module docstring).  ``one_steps`` are
+    phase 10a's (loss, gradient norm) by step at world 1."""
+    import torch
+
+    from dlrover_tpu_torch.checkpoint import shard_file, tree_utils
+    from dlrover_tpu_torch.checkpoint.checkpointer import FlashCheckpointer
+    from dlrover_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from dlrover_tpu_torch.trainer.sampler import ElasticSampler
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    script = os.path.join(tmp, "mesh_job.py")
+    with open(script, "w") as f:
+        f.write(MESH_SCRIPT)
+    ckpt = os.path.join(tmp, "ckpt")
+    job_name, run_id = "chip-smoke-mesh", f"cm{os.getpid()}"
+    model = "800m" if DEV == "cuda" else "tiny"
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--standalone",
+           "--nproc_per_node=2", f"--job_name={job_name}", script, "--",
+           "--model", model, "--device", DEV,
+           "--n_layer", str(ELASTIC_LAYERS), "--seq_len", str(TRAIN_SEQ),
+           "--ckpt_dir", ckpt, "--steps", str(MESH_STEPS), "--tp_steps",
+           str(MESH_TP_STEPS)]
+    env = dict(os.environ, DLROVER_TPU_RUN_ID=run_id,
+               DLROVER_TPU_DIST_TIMEOUT_S=str(MESH_TIMEOUT_S))
+    if DEV == "cpu":
+        env["DLROVER_TPU_CHECK_DEVICE"] = "cpu"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=REPO_ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=MESH_TIMEOUT_S, start_new_session=True)
+        text, rc = proc.stdout, proc.returncode
+    except subprocess.TimeoutExpired as e:
+        text, rc = (e.stdout or b"").decode() if isinstance(
+            e.stdout, bytes) else (e.stdout or ""), "timeout"
+    launcher_s = time.perf_counter() - t0
+
+    def fail(why: str):
+        log("phase 13: launcher output tail:\n"
+            + "\n".join(text.splitlines()[-80:]))
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise SystemExit(f"phase 13: {why}")
+
+    if rc != 0:
+        fail(f"launcher rc {rc}")
+    recs = mesh_records(text)
+    steps = {(r["run"], r["rank"], r["step"]): r for r in recs
+             if r["kind"] == "step"}
+    done = {(r["run"], r["rank"]): r for r in recs if r["kind"] == "done"}
+    if sorted(done) != [("fsdp", 0), ("fsdp", 1), ("tp", 0), ("tp", 1)]:
+        fail(f"done records {sorted(done)}")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    # (a) every step's loss and gradient norm against phase 10a's.
+    worst = {}
+    for run, n in (("fsdp", MESH_STEPS), ("tp", MESH_TP_STEPS)):
+        for rank in (0, 1):
+            for i in range(1, n + 1):
+                r = steps.get((run, rank, i))
+                if r is None:
+                    fail(f"no step {i} of {run} on rank {rank}")
+                ref_loss, ref_gn = one_steps[i]
+                e = max(rel(r["loss"], ref_loss), rel(r["grad_norm"], ref_gn))
+                worst[run] = max(worst.get(run, 0.0), e)
+                if e > DP_LOSS_RTOL:
+                    fail(f"{run} rank {rank} step {i}: loss {r['loss']} "
+                         f"grad_norm {r['grad_norm']} against world 1's "
+                         f"{ref_loss} {ref_gn}")
+    # (b) each rank keeps about half of the state; (c) its own launches.
+    n = ELASTIC_LAYERS
+    per_step = {"flash_fwd": n, "flash_dq": n, "flash_dkv": n,
+                "rmsnorm": 2 * n + 1}
+    for (run, rank), d in done.items():
+        half = d["param_box_bytes"] / d["whole_param_bytes"] \
+            if "whole_param_bytes" in d else None
+        if run == "fsdp" and DEV == "cuda" and not (
+                0.45 <= half <= 0.55
+                and 0.45 <= d["moment_box_bytes"]
+                / (2 * d["whole_param_bytes"]) <= 0.55
+                and 0.45 <= d["create_state_bytes"]
+                / d["whole_param_bytes"] <= 0.6):
+            fail(f"fsdp rank {rank} keeps {d['param_box_bytes']} param, "
+                 f"{d['moment_box_bytes']} moment and "
+                 f"{d['create_state_bytes']} create_state bytes of a "
+                 f"{d['whole_param_bytes']}-byte state")
+        steps_run = MESH_STEPS if run == "fsdp" else MESH_TP_STEPS
+        want = {k: v * steps_run if DEV == "cuda" else 0
+                for k, v in per_step.items()}
+        got = {k: d["launches"][k] for k in want}
+        if got != want:
+            fail(f"{run} rank {rank} launches {got} != {want}")
+    if done[("tp", 0)]["tp_leaves"] < 1:
+        fail(f"no leaf placed on tp: {done[('tp', 0)]}")
+    # (d) the sharded checkpoint: each rank's file holds about half.
+    step = MESH_STEPS
+    files = {pid: os.path.getsize(shard_file.shard_path(ckpt, step, pid))
+             for pid in (0, 1)}
+    share = files[0] / (files[0] + files[1])
+    if not 0.4 <= share <= 0.6:
+        fail(f"shard bytes {files}: rank 0 holds {share:.3f}")
+    # (e) a cold restore at world 1 onto the one-rank mesh equals the
+    # gathered state, tensor by tensor by CRC-32; one step from it gives
+    # step 3's loss.
+    base = ["--model", model, "--n_layer", str(ELASTIC_LAYERS),
+            "--seq_len", str(TRAIN_SEQ), "--batch_per_proc",
+            str(TRAIN_BATCH), "--dataset_size", str(TRAIN_BATCH), "--device",
+            DEV]
+    args = train.parse_args(base)
+    cfg, job, state = train.build(args)
+    ckp = FlashCheckpointer(ckpt, job_name=f"{job_name}-cold")
+    t0 = time.perf_counter()
+    try:
+        got = ckp.engine.load(state, target_mesh=build_mesh(MeshSpec()))
+        restore_stats = ckp.engine.stats()
+    finally:
+        ckp.close()
+        from dlrover_tpu_torch.common.shm import unlink_arena
+        unlink_arena(ckp.engine.arena.name)
+    restore_s = time.perf_counter() - t0
+    if got is None or int(got[1]["step"]) != step:
+        fail(f"cold restore gave {None if got is None else got[1]}")
+    crcs = {k.rsplit("|", 1)[0]: v for k, v in state_crcs(
+        tree_utils.flatten_to_shards(state)[0]).items()}
+    gathered = done[("fsdp", 0)]["crcs"]
+    if crcs != gathered:
+        bad = sorted(k for k in set(crcs) | set(gathered)
+                     if crcs.get(k) != gathered.get(k))
+        fail(f"restored state differs from the gathered one at {bad[:5]}: "
+             f"{[(crcs.get(k), gathered.get(k)) for k in bad[:5]]}, "
+             f"restored step {state['step']}")
+    sampler = ElasticSampler(args.dataset_size,
+                             batch_size_per_process=args.batch_per_proc,
+                             seed=17)
+    sampler.load_state_dict(got[1]["sampler"])
+    indices = next(iter(sampler), None)
+    if indices is None:
+        indices = next(iter(sampler))
+    _, m = job.train_step(state, {"tokens": train.synth_tokens(
+        indices, args.seq_len, cfg.vocab_size)})
+    loss3 = float(m["loss"])
+    if rel(loss3, one_steps[step + 1][0]) > DP_LOSS_RTOL:
+        fail(f"step {step + 1} from the restore: {loss3} against world 1's "
+             f"{one_steps[step + 1][0]}")
+    del state, job
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    def per_step(run, key, field):
+        vals = [steps[(run, r, i)]["comm"][key][field]
+                for r in (0, 1) for i in range(2, (MESH_STEPS if run ==
+                                                   "fsdp" else MESH_TP_STEPS)
+                                                + 1)]
+        return statistics.median(vals) if vals else None
+
+    res = {"card": card, "model": f"{CKPT_MODEL}, AdamW via the trainer SDK",
+           "n_layer": ELASTIC_LAYERS, "global_batch": TRAIN_BATCH,
+           "seq_len": TRAIN_SEQ, "backend": "gloo (two ranks on one card)",
+           "runs": {}}
+    for run in ("fsdp", "tp"):
+        nsteps = MESH_STEPS if run == "fsdp" else MESH_TP_STEPS
+        d0 = done[(run, 0)]
+        res["runs"][run] = {
+            "mesh": d0["mesh"], "batch_rank": [done[(run, r)]["batch_rank"]
+                                               for r in (0, 1)],
+            "losses": {i: [steps[(run, r, i)]["loss"] for r in (0, 1)]
+                       for i in range(1, nsteps + 1)},
+            "grad_norms": {i: [steps[(run, r, i)]["grad_norm"]
+                               for r in (0, 1)]
+                           for i in range(1, nsteps + 1)},
+            "max_rel_err_vs_world1": worst[run],
+            "step_ms": {i: [steps[(run, r, i)]["step_ms"] for r in (0, 1)]
+                        for i in range(1, nsteps + 1)},
+            "gather_ms_per_step": per_step(run, "all_gather", "ms"),
+            "gather_bytes_per_step": per_step(run, "all_gather", "bytes"),
+            "reduce_ms_per_step": per_step(run, "all_reduce", "ms"),
+            "reduce_bytes_per_step": per_step(run, "all_reduce", "bytes"),
+            "reduce_scatter_ms_per_step": per_step(run, "reduce_scatter",
+                                                   "ms"),
+            "peak_gib": [done[(run, r)]["peak_bytes"] / 2 ** 30
+                         for r in (0, 1)],
+            "create_state_bytes": [done[(run, r)].get("create_state_bytes")
+                                   for r in (0, 1)],
+            "param_box_bytes": [done[(run, r)]["param_box_bytes"]
+                                for r in (0, 1)],
+            "launches": [done[(run, r)]["launches"] for r in (0, 1)],
+            "sharded_leaves": d0["sharded_leaves"],
+        }
+    res["runs"]["fsdp"]["moment_box_bytes"] = [
+        done[("fsdp", r)]["moment_box_bytes"] for r in (0, 1)]
+    res["runs"]["fsdp"]["whole_param_bytes"] = done[("fsdp", 0)][
+        "whole_param_bytes"]
+    res["runs"]["tp"]["tp_leaves"] = done[("tp", 0)]["tp_leaves"]
+    res.update(shard_file_bytes=files, cold_restore_s=restore_s,
+               cold_restore=restore_stats, step3_loss_from_restore=loss3,
+               step3_loss_world1=one_steps[step + 1][0],
+               restored_equals_gathered=True, launcher_s=launcher_s,
+               phase_s=time.perf_counter() - t_phase)
+    log("phase13 mesh " + json.dumps(res))
+    return res
+
+
 def kernel_record(name, source, replaces, launches, rec) -> dict:
     out = {"name": name, "route": "cuda", "source": source,
            "replaces": replaces, "launches": launches,
@@ -4861,6 +5286,8 @@ def main() -> int:
     mark("phase 11")
     sdk = phase_trainer_sdk(train, smi)
     mark("phase 12")
+    mesh = phase_mesh(train, smi, multi["a"]["loss_grad_norm_by_step"])
+    mark("phase 13")
 
     # Phase 3b runs last, on the same 7B weights made again from the seed:
     # a profile taken after its graph replays, in phase 5, once lost every
@@ -4887,6 +5314,11 @@ def main() -> int:
 
     fa_src = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
     fa_ref = "dlrover_tpu/ops/flash_attention.py"
+    # Phase 13's ranks count their own launches (both runs, both ranks).
+    mesh_launches = {k: sum(ln[k] for run in mesh["runs"].values()
+                            for ln in run["launches"])
+                     for k in ("rmsnorm", "flash_fwd", "flash_dq",
+                               "flash_dkv")}
     kernels = [
         kernel_record("rmsnorm", "dlrover_tpu_torch/ops/csrc/rmsnorm.cu",
                       "dlrover_tpu/ops/rmsnorm.py:25",
@@ -4894,14 +5326,18 @@ def main() -> int:
                           v["rmsnorm_launches"] for v in spec["variants"])
                       + fleet["rmsnorm_launches"]
                       + tier["rmsnorm_launches"]
-                      + spill["rmsnorm_launches"],
+                      + spill["rmsnorm_launches"]
+                      + mesh_launches["rmsnorm"],
                       rec),
         kernel_record("flash_fwd", fa_src, f"{fa_ref}:105",
-                      trained["launches"]["flash_fwd"], flash["fwd"]),
+                      trained["launches"]["flash_fwd"]
+                      + mesh_launches["flash_fwd"], flash["fwd"]),
         kernel_record("flash_dq", fa_src, f"{fa_ref}:296",
-                      trained["launches"]["flash_dq"], flash["dq"]),
+                      trained["launches"]["flash_dq"]
+                      + mesh_launches["flash_dq"], flash["dq"]),
         kernel_record("flash_dkv", fa_src, f"{fa_ref}:367",
-                      trained["launches"]["flash_dkv"], flash["dkv"]),
+                      trained["launches"]["flash_dkv"]
+                      + mesh_launches["flash_dkv"], flash["dkv"]),
         kernel_record("xent_fwd", "dlrover_tpu_torch/ops/csrc/"
                       "cross_entropy.cu", "dlrover_tpu/ops/cross_entropy.py"
                       ":25", trained["tiny"]["launches"]["xent_fwd"], xrec),
@@ -4920,6 +5356,7 @@ def main() -> int:
         raise SystemExit("a kernel of the path was never launched")
     log("phase11 elastic " + json.dumps(elastic))
     log("phase12 trainer_sdk " + json.dumps(sdk))
+    log("phase13 mesh " + json.dumps(mesh))
     log("phase3c prefix_handoff " + json.dumps(prefixed))
     log("phase3d spec " + json.dumps(spec))
     log("phase3e fleet " + json.dumps(fleet))

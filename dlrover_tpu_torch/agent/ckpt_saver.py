@@ -45,7 +45,7 @@ from dlrover_tpu_torch.checkpoint.engine import (
     ckpt_queue_name,
     ckpt_stat_name,
 )
-from dlrover_tpu_torch.common.constants import MULTICARD_ITEM
+from dlrover_tpu_torch.common.constants import REPLICA_ITEM
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import (
     SharedDict,
@@ -115,13 +115,13 @@ class AsyncCheckpointSaver:
 
     def _replica_loop(self) -> None:
         raise NotImplementedError(
-            f"cross-node checkpoint replicas come with {MULTICARD_ITEM}")
+            f"cross-node checkpoint replicas come with {REPLICA_ITEM}")
 
     def seed_from_replicas(self, process_ids: Dict[int, int],
                            num_processes: int) -> int:
         raise NotImplementedError(
             f"seeding arenas from cross-node replicas comes with "
-            f"{MULTICARD_ITEM}")
+            f"{REPLICA_ITEM}")
 
     def stop(self) -> None:
         self._stop.set()
@@ -237,7 +237,9 @@ class AsyncCheckpointSaver:
         plan = slicer.plan_persist(
             tensors, extra, process_id=pid, num_processes=world,
             sliced=sliced, tracker=tracker,
-            holder_exists=lambda s: self.storage.exists(
+            # A holder at this very step is the file being rewritten: a
+            # ref to it would point at itself.
+            holder_exists=lambda s: s != step and self.storage.exists(
                 shard_file.shard_path(ckpt_dir, s, pid)))
         stats = shard_file.write_shard_from_views(
             self.storage, ckpt_dir, step, pid, plan.tensors, plan.extra,

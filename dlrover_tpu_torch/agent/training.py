@@ -28,7 +28,7 @@ The agent owns the node's ``AsyncCheckpointSaver``, with the master client
 the metrics endpoint (``DLROVER_TPU_METRICS_PORT``), the chaos plan
 (``DLROVER_TPU_FAULTS``) and service roles (``node_role`` other than a
 worker's), each refused by name; the replica seeding of the saver comes
-with ``constants.MULTICARD_ITEM``.  The pre-flight node check
+with ``constants.REPLICA_ITEM``.  The pre-flight node check
 (``network_check``, ``comm_perf_test``) runs in the launcher before the
 agent (``agent/node_check.py``).  The agent acts on the heartbeat actions
 of the master's diagnosis manager (``RESTART_WORKER``,

@@ -13,6 +13,17 @@ restore across slices (``_manifest``, ``_needed_keys``, ``_select_pids``,
 another world size reads storage (the arena's layout is the old world's)
 and assembles each leaf from the slices of every rank.
 
+Sharded states (``parallel/accelerate.py`` over an FSDP or TP mesh) are
+saved as the reference saves them: each rank writes its own box of each
+sharded leaf, with the leaf's global shape, the box and the ranks that
+hold it in the shard's ``tensors_info``.  A restore reads the boxes the
+target needs (``_target_boxes``, reference ``engine.py:751``: each target
+leaf's box on its mesh) and assembles each from whatever boxes the
+checkpoint holds (``_finish_load``, ``:646``: the exact box, else the
+overlap copy), so a checkpoint saved on one mesh restores onto another.
+``load(target_mesh=)`` (``_retarget``, ``:725``) first moves each target
+leaf's spec onto that mesh.
+
 Two modes, found at construction, as in the reference:
 
 - **agent mode**, when the agent-side saver's queue socket exists
@@ -30,10 +41,7 @@ copy, never from a live tensor.  The stall, its parts, the staged and
 written bytes and the persist's time and MB/s stay as attributes
 (:meth:`stats`) and in the log.
 
-Not ported, each raising ``NotImplementedError`` naming Queue A item 5
-(multi-card training): ``load(target_mesh=)``, targets whose leaves are
-sharded (``_target_boxes``) and checkpoints of partial boxes (FSDP or TP
-layouts).  The reference's ``perf_stats``, ``journal``, master reports and
+The reference's ``perf_stats``, ``journal``, master reports and
 ``chaos.inject`` hooks have no counterpart.
 """
 
@@ -51,7 +59,6 @@ import torch
 from dlrover_tpu_torch.checkpoint import shard_file, slicer, tree_utils
 from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common import env as env_utils
-from dlrover_tpu_torch.common.constants import MULTICARD_ITEM
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import (
     SharedDict,
@@ -70,6 +77,16 @@ _PINNED_CHUNK = 1 << 30
 _ALIGN = 128
 #: Shards a restore reads at once.
 SHARD_IO_WORKERS = 4
+
+
+def _optimizers(node) -> list:
+    if isinstance(node, torch.optim.Optimizer):
+        return [node]
+    if isinstance(node, dict):
+        return [o for v in node.values() for o in _optimizers(v)]
+    if isinstance(node, (list, tuple)):
+        return [o for v in node for o in _optimizers(v)]
+    return []
 
 
 def ckpt_queue_name(job_name: str) -> str:
@@ -330,7 +347,9 @@ class CheckpointEngine:
         plan = slicer.plan_persist(
             tensors, extra, process_id=self.process_id,
             num_processes=self.num_processes, tracker=self._dirty,
-            holder_exists=lambda s: self.storage.exists(
+            # A holder at this very step is the file being rewritten: a
+            # ref to it would point at itself.
+            holder_exists=lambda s: s != step and self.storage.exists(
                 shard_file.shard_path(self.ckpt_dir, s, self.process_id)),
         )
         stats = shard_file.write_shard_from_views(
@@ -466,12 +485,15 @@ class CheckpointEngine:
         same world only) else storage (the committed step, then other
         steps newest first; a step whose shard is corrupt is skipped and
         quarantined).  With ``target``, copies into its live tensors and
-        returns ``(target, meta)``; without, ``({path: tensor}, meta)``.
-        ``None`` when nothing is restorable.  Every rank must call it (the
-        agreement is collective)."""
-        if target_mesh is not None:
-            raise NotImplementedError(
-                f"restore onto another mesh comes with {MULTICARD_ITEM}")
+        returns ``(target, meta)``; without, ``({path: tensor}, meta)``
+        (each leaf whole).  With ``target_mesh`` (a
+        :class:`~dlrover_tpu_torch.parallel.mesh.Mesh`), each target leaf
+        first keeps its spec on that mesh (:meth:`_retarget`), and the
+        returned tree is the re-homed one.  ``None`` when nothing is
+        restorable.  Every rank must call it (the agreement is
+        collective)."""
+        if target is not None and target_mesh is not None:
+            target = self._retarget(target, target_mesh)
         t0 = time.perf_counter()
         self._restore_boxes = (self._target_boxes(target)
                                if target is not None else None)
@@ -552,16 +574,45 @@ class CheckpointEngine:
         ``target`` (nothing is copied yet)."""
         meta = dict(extra.get("meta") or {})
         meta.setdefault("step", extra.get("step", 0))
-        for path, pieces in source.pieces.items():
-            whole = tuple((0, d) for d in source.shapes[path])
-            if any(idx != whole for idx, _ in pieces):
-                raise NotImplementedError(
-                    f"{path}: the checkpoint holds partial boxes (a sharded "
-                    f"layout); restoring them comes with {MULTICARD_ITEM}")
-        tensors = source.whole()
-        if target is not None:
-            tree_utils.check_target(tensors, target)
+        if target is None:
+            return source.whole(), meta
+        tensors = {}
+        leaves = tree_utils.state_leaves(target)
+        extra_paths = sorted(set(source.paths())
+                             - {leaf.path for leaf in leaves})
+        if extra_paths:
+            raise KeyError(f"checkpoint does not match the target: "
+                           f"{len(extra_paths)} extra {extra_paths[:3]}")
+        for leaf in leaves:
+            if leaf.path not in source.shapes:
+                continue  # check_target names the missing paths
+            box = self._leaf_box(leaf)
+            if tuple(source.shapes[leaf.path]) != self._global_shape(leaf):
+                raise ValueError(
+                    f"{leaf.path}: checkpoint has global shape "
+                    f"{tuple(source.shapes[leaf.path])}, target "
+                    f"{self._global_shape(leaf)}")
+            piece = source.assemble(leaf.path, box, dtype=leaf.tensor.dtype)
+            if piece is None:
+                raise KeyError(f"checkpoint missing data for {leaf.path} "
+                               f"box {box}")
+            tensors[leaf.path] = piece
+        tree_utils.check_target(tensors, target)
         return tensors, meta
+
+    @staticmethod
+    def _leaf_box(leaf) -> tuple:
+        pl = leaf.placement
+        if pl is not None and pl.sharded:
+            return pl.box()
+        return tuple((0, int(d)) for d in leaf.tensor.shape)
+
+    @staticmethod
+    def _global_shape(leaf) -> tuple:
+        pl = leaf.placement
+        if pl is not None and pl.sharded:
+            return tuple(pl.global_shape)
+        return tuple(int(d) for d in leaf.tensor.shape)
 
     def _load_from_shm(self, copy: bool):
         try:
@@ -590,17 +641,56 @@ class CheckpointEngine:
                     extra.get("step"))
         return source, extra
 
+    @classmethod
+    def _target_boxes(cls, target: Any) -> Dict[str, list]:
+        """``{path: [boxes]}`` of a target: this rank's box of each
+        sharded leaf, the whole tensor of each other leaf."""
+        return {leaf.path: [cls._leaf_box(leaf)]
+                for leaf in tree_utils.state_leaves(target)}
+
     @staticmethod
-    def _target_boxes(target: Any) -> Dict[str, list]:
-        """``{path: [boxes]}`` of a target: every leaf of a data-parallel
-        state is one whole box.  A sharded leaf (a ``DTensor``) raises."""
-        out: Dict[str, list] = {}
-        for leaf in tree_utils.state_leaves(target):
-            if hasattr(leaf.tensor, "placements"):
-                raise NotImplementedError(
-                    f"{leaf.path}: a sharded target leaf; restoring into "
-                    f"partial boxes comes with {MULTICARD_ITEM}")
-            out[leaf.path] = [tuple((0, int(d)) for d in leaf.tensor.shape)]
+    def _retarget(target: Any, target_mesh) -> Any:
+        """``target`` with each leaf's spec on ``target_mesh`` (a whole
+        leaf stays whole): a leaf whose box there has its tensor's shape is
+        retagged and restored in place; another gets a new tensor of its
+        new box in a new container (the returned tree holds it), which an
+        optimizer of the target must not hold (build the state on the new
+        mesh instead)."""
+        from dlrover_tpu_torch.parallel.sharding import placement_of, tag
+
+        replaced = set()
+
+        def rehome(node):
+            # A container none of whose leaves changes is kept itself, so
+            # a restore into it (its int leaves too) reaches the caller's.
+            if isinstance(node, dict):
+                new = {k: rehome(v) for k, v in node.items()}
+                return node if all(new[k] is v for k, v in node.items()) \
+                    else new
+            if isinstance(node, (list, tuple)):
+                new = [rehome(v) for v in node]
+                return node if all(a is b for a, b in zip(new, node)) \
+                    else type(node)(new)
+            pl = placement_of(node) if torch.is_tensor(node) else None
+            if pl is None:
+                return node
+            new = pl.on(target_mesh)
+            shape = tuple(e - s for s, e in new.box())
+            if shape == tuple(node.shape):
+                return tag(node, new)
+            replaced.add(id(node))
+            return tag(torch.empty(shape, dtype=node.dtype,
+                                   device=node.device), new)
+
+        out = rehome(target)
+        for opt in _optimizers(out):
+            if any(id(p) in replaced for g in opt.param_groups
+                   for p in g["params"]):
+                raise ValueError(
+                    "load(target_mesh=...): an optimizer of the target "
+                    "holds a leaf whose box changes on the new mesh; build "
+                    "the state on that mesh (accelerate(...).create_state) "
+                    "and restore into it")
         return out
 
     def _manifest(self, step: int, pid: int):

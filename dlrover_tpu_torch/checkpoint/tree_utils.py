@@ -7,11 +7,15 @@ dict/list of tensors, "opt_state": torch.optim.Optimizer, "step": int}``;
 any nested dict/list of tensors, ints and optimizers works.  Each leaf is
 named by its path in ``jax.tree_util.keystr`` form (``['params']['layers']
 [0]['wq']``, dict keys in sorted order as JAX flattens them), and its
-shard key is ``"<path>|0"``: in data parallelism every process holds every
-tensor whole, so each leaf is one box, and its placement records every
-rank of the world as an owner (``owners``), which is what lets the sliced
-persist split its bytes across them (``dlrover_tpu/checkpoint/
-tree_utils.py:55-112``).
+shard key is ``"<path>|0"``: each process holds one box of each leaf.
+A leaf that stays whole is one box held by every rank of the world
+(``owners``), which is what lets the sliced persist split its bytes across
+them (``dlrover_tpu/checkpoint/tree_utils.py:55-112``).  A box of a
+sharded leaf (tagged with its :class:`~dlrover_tpu_torch.parallel.
+sharding.Placement` by ``accelerate``) records the leaf's global shape,
+the box as ``index`` and the ranks that hold the same box as ``owners``,
+as the reference records a partial box.  An optimizer's moments take the
+placement of their parameter.
 
 An optimizer's state is named by the *parameter's* path, not by the
 optimizer's index: AdamW's ``exp_avg``, ``exp_avg_sq`` (and
@@ -45,8 +49,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from dlrover_tpu_torch.common.constants import QUANT_OFFLOAD_ITEM
 from dlrover_tpu_torch.common.tensor_bytes import torch_dtype
 from dlrover_tpu_torch.ops.quant import Adam8bit
+from dlrover_tpu_torch.parallel.sharding import Placement, placement_of
 
 Box = Tuple[Tuple[int, int], ...]
 
@@ -58,6 +64,7 @@ class _Leaf:
     path: str
     tensor: torch.Tensor  # the live tensor (a fresh one for an int leaf)
     assign: Callable[[torch.Tensor], None]
+    placement: Optional[Placement] = None  # None: a whole tensor
 
 
 def _key(k) -> str:
@@ -82,7 +89,7 @@ def _collect(node, path: str, parent, k, leaves: List[_Leaf],
         for i, v in enumerate(node):
             _collect(v, path + _key(i), node, i, leaves, opts)
     elif torch.is_tensor(node):
-        leaves.append(_Leaf(path, node, node.copy_))
+        leaves.append(_Leaf(path, node, node.copy_, placement_of(node)))
     elif isinstance(node, int) and not isinstance(node, bool):
         leaves.append(_Leaf(path, torch.tensor(node, dtype=torch.int64),
                             _set_item(parent, k)))
@@ -129,6 +136,10 @@ def _optimizer_leaves(opath: str, opt: torch.optim.Optimizer,
     params.sort(key=lambda p: rank[id(p)])  # the state tree's order
     out: List[_Leaf] = []
     if isinstance(opt, Adam8bit):
+        if any(_sharded(p) for p in params):
+            raise NotImplementedError(
+                f"{opath}: 8-bit Adam over a sharded leaf comes with "
+                f"{QUANT_OFFLOAD_ITEM}")
         out.append(_Leaf(
             opath + _key("count"), torch.tensor(opt.count, dtype=torch.int64),
             lambda src: setattr(opt, "count", int(src.item()))))
@@ -148,11 +159,17 @@ def _optimizer_leaves(opath: str, opt: torch.optim.Optimizer,
         for field in fields:
             for p in params:
                 t = opt.state[p][field]
+                pl = placement_of(p) if t.shape == p.shape else None
                 out.append(_Leaf(opath + _key(field) + names[id(p)], t,
-                                 t.copy_))
+                                 t.copy_, pl))
         return out
     raise NotImplementedError(
         f"checkpointing a {type(opt).__name__} comes with {LATER_OPTIMIZERS}")
+
+
+def _sharded(t: torch.Tensor) -> bool:
+    pl = placement_of(t)
+    return pl is not None and pl.sharded
 
 
 def state_leaves(state: Any) -> List[_Leaf]:
@@ -169,16 +186,24 @@ def state_leaves(state: Any) -> List[_Leaf]:
 def flatten_to_shards(state: Any, world: int = 1
                       ) -> Tuple[Dict[str, torch.Tensor], Dict[str, dict]]:
     """``(tensors, info)``: ``tensors["<path>|0"]`` is the live tensor of
-    leaf ``path`` (on its device), ``info["<path>|0"]`` its placement as
-    the reference records it: the global shape, the whole box as index,
-    and ``owners`` (every rank of a data-parallel ``world``: each holds
-    the box) for a card tensor or ``host`` for a CPU one."""
+    leaf ``path`` (on its device, this rank's box of a sharded leaf),
+    ``info["<path>|0"]`` its placement as the reference records it: the
+    global shape, the box as index, and ``owners`` (the ranks that hold
+    the box: every rank of the ``world`` for a whole card tensor) or
+    ``host`` for a whole CPU one."""
     tensors: Dict[str, torch.Tensor] = {}
     info: Dict[str, dict] = {}
     for leaf in state_leaves(state):
         key = f"{leaf.path}|0"
-        shape = list(leaf.tensor.shape)
         tensors[key] = leaf.tensor
+        pl = leaf.placement
+        if pl is not None and pl.sharded:
+            info[key] = {"path": leaf.path,
+                         "global_shape": list(pl.global_shape),
+                         "index": [list(b) for b in pl.box()],
+                         "owners": pl.owners()}
+            continue
+        shape = list(leaf.tensor.shape)
         info[key] = {"path": leaf.path, "global_shape": shape,
                      "index": [[0, d] for d in shape]}
         if leaf.tensor.device.type == "cpu":

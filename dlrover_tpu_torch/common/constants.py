@@ -12,7 +12,9 @@ raises ``NotImplementedError`` naming it through the table (the names
 below it read it), so an item is named one way everywhere.  Items 3 (the
 elastic job, master HA included) and 4 (serving: speculative decoding,
 ``serve_journaled``, the one-host fleet, the sharded gateway tier and
-cross-cell spillover) are ported; item 5 is next.
+cross-cell spillover) are ported.  Item 5 (multi-card training) is split:
+5a, the mesh (FSDP, DP x FSDP and planned placements, the sharded
+checkpoint restored onto another mesh), is ported; 5b-5e remain.
 """
 
 from __future__ import annotations
@@ -96,7 +98,16 @@ class Defaults:
 QUEUE_A_ITEMS = {
     "1": "Queue A item 1 of the port (the checkpoint slice's leftovers: "
          "object stores)",
-    "5": "Queue A item 5 of the port (multi-card training)",
+    "5b": "Queue A item 5b of the port (ring and Ulysses attention, the "
+          "strategy search with its cost model, the SDK's strategy='auto' "
+          "and strategy_cache)",
+    "5c": "Queue A item 5c of the port (quant_grads, offload_opt, the "
+          "offload remat and 8-bit Adam over shards)",
+    "5d": "Queue A item 5d of the port (tensor-parallel decode, Megatron "
+          "compute for tp-placed weights, activation layouts and several "
+          "cards a process)",
+    "5e": "Queue A item 5e of the port (cross-node checkpoint replicas and "
+          "the orbax layout)",
     "6": "Queue A item 6 of the port (model features: MoE, fp8, LoRA and "
          "the HF import)",
     "rest": "the host-only layers of the port (brain/, cells/, fleet/, "
@@ -111,7 +122,10 @@ def item(key: str) -> str:
 
 
 OBJECT_STORE_ITEM = item("1")
-MULTICARD_ITEM = item("5")
+SEARCH_ITEM = item("5b")
+QUANT_OFFLOAD_ITEM = item("5c")
+TP_COMPUTE_ITEM = item("5d")
+REPLICA_ITEM = item("5e")
 MODEL_ITEM = item("6")
 HOST_LAYERS = item("rest")
 CHAOS_LAYER = item("chaos")

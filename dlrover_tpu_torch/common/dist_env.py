@@ -23,6 +23,11 @@ else a second group over the same ranks.  A loopback coordinator
 (``127.x.x.x``, ``localhost``) means a world on one host: unless the caller
 set them, ``GLOO_SOCKET_IFNAME`` and ``NCCL_SOCKET_IFNAME`` are then
 ``lo``, so that neither backend looks for another interface.
+
+A mesh's process groups (``parallel/mesh.py``) are made when
+``accelerate`` first builds that mesh over the group, by every rank in
+one order, and kept for the group's life: :func:`generation` names the
+group they belong to.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ TIMEOUT_ENV = "DLROVER_TPU_DIST_TIMEOUT_S"
 DEFAULT_TIMEOUT_S = 600.0
 
 _host_group = None
+_generation = 0
 
 
 def timeout() -> datetime.timedelta:
@@ -96,15 +102,21 @@ def initialize_distributed_from_env(device: DeviceLike = None) -> bool:
         "the host's processes share one card")
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
                             world_size=nproc, rank=rank, timeout=timeout())
-    global _host_group
+    global _host_group, _generation
     _host_group = (dist.group.WORLD if backend == "gloo"
                    else dist.new_group(backend="gloo", timeout=timeout()))
+    _generation += 1
     return True
 
 
 def world_size() -> int:
     """Processes in the group; 1 without one."""
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def generation() -> int:
+    """Which process group this is: it grows by one at each bring-up."""
+    return _generation
 
 
 def host_group():
@@ -133,6 +145,7 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None
+_generation = 0
 
 
 def group_backend() -> Optional[str]:

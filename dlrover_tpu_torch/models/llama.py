@@ -4,7 +4,8 @@ Held against ``dlrover_tpu/models/llama.py``: :class:`LlamaConfig` and its
 presets (``llama2_7b``, ``tiny``, ``small_300m``, ``medium_800m``),
 :func:`init_params` (the same parameter tree, names, shapes and stds, with
 fp32 norm gains), :func:`_rope`, :func:`_swiglu`, :func:`block_apply`,
-:func:`_attention` (the flash and reference paths), :func:`segment_positions`,
+:func:`param_logical_axes`, :func:`_attention` (the flash and reference
+paths), :func:`segment_positions`,
 :func:`forward_hidden`, :func:`forward`, :func:`uses_fused_lm_head`,
 :func:`split_batch`, :func:`loss_fn`, :func:`num_params` and
 :func:`flops_per_token`.
@@ -35,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from dlrover_tpu_torch.common.constants import MODEL_ITEM, MULTICARD_ITEM
+from dlrover_tpu_torch.common.constants import MODEL_ITEM, SEARCH_ITEM
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.cross_entropy import (
     linear_softmax_cross_entropy,
@@ -149,6 +150,34 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     return params
 
 
+def param_logical_axes(cfg: LlamaConfig) -> Dict:
+    """Logical-axis names of each parameter, the input of
+    ``parallel.sharding.tree_logical_to_specs`` (the reference's
+    ``param_logical_axes``; dense layers only)."""
+
+    def layer_axes() -> Dict:
+        return {
+            "ln1": (None,),
+            "wq": ("embed", "heads"),
+            "wk": ("embed", "heads"),
+            "wv": ("embed", "heads"),
+            "wo": ("heads", "embed"),
+            "ln2": (None,),
+            "mlp": {
+                "w_gate": ("embed", "mlp"),
+                "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed"),
+            },
+        }
+
+    return {
+        "embed": ("vocab", "embed"),
+        "lm_head": ("embed", "vocab"),
+        "ln_f": (None,),
+        "layers": [layer_axes() for _ in range(cfg.n_layer)],
+    }
+
+
 def _rope(x: torch.Tensor, positions: torch.Tensor,
           theta: float) -> torch.Tensor:
     """x: [B, S, H, D]; rotate pairs (d, d + D/2) by fp32 angles of the
@@ -190,7 +219,7 @@ def _attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
     if attn_impl in ("ring", "ulysses"):
         raise NotImplementedError(
             f"attn_impl={attn_impl!r} (sequence-parallel attention over a "
-            f"mesh) comes with {MULTICARD_ITEM}"
+            f"mesh) comes with {SEARCH_ITEM}"
         )
     if attn_impl in ("auto", "pallas"):
         attend = flash_attention

@@ -53,7 +53,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from dlrover_tpu_torch.common.constants import MODEL_ITEM, MULTICARD_ITEM
+from dlrover_tpu_torch.common.constants import MODEL_ITEM, TP_COMPUTE_ITEM
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
 from dlrover_tpu_torch.models.llama_infer import (
@@ -135,7 +135,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="HF checkpoint dir (not ported)")
     args = ap.parse_args(argv)
     if args.tp > 0:
-        raise NotImplementedError(f"--tp comes with {MULTICARD_ITEM}")
+        raise NotImplementedError(f"--tp comes with {TP_COMPUTE_ITEM}")
     if args.hf_dir:
         raise NotImplementedError(f"--hf_dir comes with {MODEL_ITEM}")
     if args.stream and args.speculative:

@@ -70,8 +70,9 @@ import torch
 from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common.constants import (
     MODEL_ITEM,
-    MULTICARD_ITEM,
     OBJECT_STORE_ITEM,
+    QUANT_OFFLOAD_ITEM,
+    SEARCH_ITEM,
 )
 from dlrover_tpu_torch.common.device import process_device
 from dlrover_tpu_torch.common.env import NodeEnv
@@ -127,9 +128,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def refuse_later_options(args: argparse.Namespace) -> None:
     refused = [
         (args.strategy == "auto", "--strategy auto (the strategy search)",
-         MULTICARD_ITEM),
+         SEARCH_ITEM),
         (args.fp8, "--fp8", MODEL_ITEM),
-        (args.quant_grads, "--quant_grads", MULTICARD_ITEM),
+        (args.quant_grads, "--quant_grads", QUANT_OFFLOAD_ITEM),
         (args.lora_rank > 0, "--lora_rank > 0 (LoRA)", MODEL_ITEM),
         (bool(args.init_from), "--init_from (checkpoint import)",
          MODEL_ITEM),

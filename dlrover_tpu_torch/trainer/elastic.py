@@ -8,17 +8,24 @@ The user fixes the global batch once; when the world is formed with
 another number of processes, the trainer keeps it by changing the
 gradient accumulation, so the trajectory (effective batch, LR schedule)
 does not depend on the world.  The step is the port's
-``parallel.accelerate`` train step (one device a process, data parallel
-over the ``torch.distributed`` group), the data position an
-``ElasticSampler``.
+``parallel.accelerate`` train step over the strategy's mesh (one device a
+process; a mesh holding ``-1`` is normalized to each world), with
+``param_specs=`` passed through (``"planner"``, a tree or a callable).
+The data position is an ``ElasticSampler`` over the *batch group*: a
+rank's share of each global batch is its index over the mesh's batch axes
+(``dp``, ``fsdp``), not its global rank, so the ranks of one ``tp`` group
+read the same rows.  A rebuild for a new world carries the state over:
+each leaf is gathered on the old mesh and this rank's box of the new
+placement is kept (the reference's ``device_put`` onto the new sharding,
+``trainer/elastic.py:111-131``).
 
 Each process trains on its own card (``common/device.process_device``);
 ``devices=[...]`` may name that one device (``"cpu"`` runs the plain
 versions, as the tests ask).  Refused by name: ``strategy=None`` or
-``"auto"`` (the reference's default, the strategy search),
-``strategy_cache=``, ``param_specs=`` and more than one device a process
-(Queue A item 5), ``frozen=`` (item 6), and ``reshard_live`` (the live
-reshard coordinator, a host layer).
+``"auto"`` (the reference's default, the strategy search) and
+``strategy_cache=`` (Queue A item 5b), more than one device a process
+(5d), ``frozen=`` (item 6), and ``reshard_live`` (the live reshard
+coordinator, a host layer).
 """
 
 from __future__ import annotations
@@ -32,11 +39,13 @@ import torch
 from dlrover_tpu_torch.common.constants import (
     HOST_LAYERS,
     MODEL_ITEM,
-    MULTICARD_ITEM,
+    SEARCH_ITEM,
+    TP_COMPUTE_ITEM,
 )
 from dlrover_tpu_torch.common.device import process_device
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.parallel.accelerate import accelerate
+from dlrover_tpu_torch.parallel.accelerate import accelerate, resolve_mesh
+from dlrover_tpu_torch.parallel.mesh import batch_share
 from dlrover_tpu_torch.trainer.sampler import ElasticSampler
 
 
@@ -71,7 +80,7 @@ def trainer_device(devices) -> torch.device:
     if len(devices) != 1:
         raise NotImplementedError(
             f"devices={devices!r}: more than one device a process comes "
-            f"with {MULTICARD_ITEM}")
+            f"with {TP_COMPUTE_ITEM}")
     return process_device(devices[0])
 
 
@@ -88,11 +97,9 @@ class ElasticTrainer:
         refused = [
             (strategy is None or isinstance(strategy, str),
              f"strategy={strategy!r} (the strategy search; pass a "
-             f"Strategy)", MULTICARD_ITEM),
+             f"Strategy)", SEARCH_ITEM),
             (strategy_cache is not None, "strategy_cache= (the strategy "
-             "search's cache)", MULTICARD_ITEM),
-            (param_specs is not None, f"param_specs={param_specs!r} "
-             f"(sharded layouts)", MULTICARD_ITEM),
+             "search's cache)", SEARCH_ITEM),
             (frozen is not None, "frozen= (LoRA's frozen base)",
              MODEL_ITEM),
         ]
@@ -106,6 +113,7 @@ class ElasticTrainer:
         self.fetch_batch = fetch_batch
         self.dataset_size = dataset_size
         self.base_strategy = strategy
+        self.param_specs = param_specs
         self.sampler_seed = sampler_seed
         self.device = trainer_device(devices)
         self.job = None  # AcceleratedJob
@@ -115,49 +123,60 @@ class ElasticTrainer:
         self.process_id = 0
         self.grad_accum = 1
         self.micro_batch = 0
+        self.share, self.shares = 0, 1  # this rank's share of a batch
         self._rng_seed = 0
 
     # -- world (re)formation --------------------------------------------------
     def build(self, num_processes: int, process_id: int) -> None:
         """Build the step for the current world; the state (on this
-        process's device) and the sampler's position carry over."""
+        process's device, placed on the new mesh) and the sampler's
+        position carry over."""
+        old_state, old_job = self.state, self.job
         self._build_job(num_processes, process_id)
-        if self.state is None:
-            gen = torch.Generator(device=self.device).manual_seed(
-                self._rng_seed)
+        gen = torch.Generator(device=self.device).manual_seed(
+            self._rng_seed)
+        if old_state is None:
             self.state = self.job.create_state(gen)
+        else:
+            whole = old_job.gather_state(old_state)
+            del old_state
+            self.state = self.job.create_state(gen)
+            self.job.load_state(self.state, whole)
         self._finish_world(num_processes, process_id)
 
     def _build_job(self, num_processes: int, process_id: int) -> None:
+        spec = resolve_mesh(self.base_strategy.mesh, num_processes)
+        self.share, self.shares = batch_share(spec, process_id)
         self.micro_batch, self.grad_accum = resolve_grad_accum(
-            self.cfg.global_batch_size, num_processes,
+            self.cfg.global_batch_size, self.shares,
             self.cfg.max_micro_batch_per_proc)
-        logger.info("elastic trainer build: %d procs, micro=%d accum=%d "
-                    "(global batch %d preserved)", num_processes,
-                    self.micro_batch, self.grad_accum,
-                    self.cfg.global_batch_size)
+        logger.info("elastic trainer build: %d procs on mesh %s (batch "
+                    "share %d of %d), micro=%d accum=%d (global batch %d "
+                    "preserved)", num_processes, spec.describe(),
+                    self.share, self.shares, self.micro_batch,
+                    self.grad_accum, self.cfg.global_batch_size)
         per_proc = self.micro_batch * self.grad_accum
         sample_local = self.fetch_batch(np.arange(per_proc, dtype=np.int64))
         # accelerate() takes the batch with the global leading dim.
         sample_global = {
-            k: np.repeat(np.asarray(v), num_processes,
-                         axis=0)[: per_proc * num_processes]
+            k: np.repeat(np.asarray(v), self.shares,
+                         axis=0)[: per_proc * self.shares]
             for k, v in sample_local.items()}
         self.job = accelerate(
             loss_fn=self.loss_fn, init_fn=self.init_fn,
             optimizer=self.optimizer, sample_batch=sample_global,
             strategy=self.base_strategy, grad_accum=self.grad_accum,
-            device=self.device)
+            param_specs=self.param_specs, device=self.device)
 
     def _finish_world(self, num_processes: int, process_id: int) -> None:
         if self.sampler is None:
             self.sampler = ElasticSampler(
                 self.dataset_size,
                 batch_size_per_process=self.micro_batch * self.grad_accum,
-                num_processes=num_processes, process_id=process_id,
+                num_processes=self.shares, process_id=self.share,
                 seed=self.sampler_seed)
         else:
-            self.sampler = self.sampler.reshard(num_processes, process_id)
+            self.sampler = self.sampler.reshard(self.shares, self.share)
         self.num_processes = num_processes
         self.process_id = process_id
 

@@ -19,11 +19,19 @@ count, which the checkpoint carries, so a restore resumes the schedule
 exactly.  ``max_grad_norm > 0`` clips as ``optax.clip_by_global_norm``
 does: gradients whose global norm is below the bound are left alone,
 others become ``g / norm * max_norm``; the ``grad_norm`` reported is the
-norm before clipping.
+norm before clipping.  Over a sharded state the norm is the global one
+(``accelerate`` hands it to the optimizer's ``grad_norm_fn``).
+
+``TrainingArgs(layout_planner=True)`` places the parameters with the
+layout planner (``param_specs="planner"``), as the reference does; the
+strategy's mesh may hold one ``-1``, filled at each world's build.  Eval
+runs each rank's share of the eval batch by its place in the batch group
+(the ranks of one ``tp`` group read the same rows) on the gathered
+parameters.
 
 Refused by name: ``op_metrics_every > 0`` (``utils/op_metrics``, a host
-layer), ``layout_planner`` (Queue A item 5), ``frozen=`` (item 6), and
-what :class:`ElasticTrainer` refuses (``strategy=None``/``"auto"``).
+layer), ``frozen=`` (item 6), and what :class:`ElasticTrainer` refuses
+(``strategy=None``/``"auto"``, item 5b).
 """
 
 from __future__ import annotations
@@ -39,11 +47,7 @@ import torch
 import torch.distributed as dist
 
 from dlrover_tpu_torch.common import dist_env
-from dlrover_tpu_torch.common.constants import (
-    HOST_LAYERS,
-    MODEL_ITEM,
-    MULTICARD_ITEM,
-)
+from dlrover_tpu_torch.common.constants import HOST_LAYERS, MODEL_ITEM
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer, TrainerConfig
 
@@ -200,7 +204,9 @@ class ScheduledAdamW(torch.optim.AdamW):
     """``optax.chain(clip_by_global_norm(max_grad_norm), adamw(schedule,
     weight_decay))``: each ``step()`` clips the gradients and sets the LR
     to ``schedule(count)``, ``count`` being the updates made so far (the
-    AdamW step count, which the checkpoint carries)."""
+    AdamW step count, which the checkpoint carries).  ``grad_norm_fn(grads)``
+    (set by ``accelerate`` over a sharded state) gives the global norm the
+    clipping uses; without it the norm is taken over ``grads``."""
 
     def __init__(self, params, schedule: Callable[[int], float], *,
                  weight_decay: float = 0.0, max_grad_norm: float = 0.0):
@@ -208,6 +214,7 @@ class ScheduledAdamW(torch.optim.AdamW):
                          eps=1e-8, weight_decay=weight_decay)
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
+        self.grad_norm_fn: Optional[Callable] = None
 
     def count(self) -> int:
         p = self.param_groups[0]["params"][0]
@@ -219,8 +226,9 @@ class ScheduledAdamW(torch.optim.AdamW):
         grads = [p.grad for g in self.param_groups for p in g["params"]
                  if p.grad is not None]
         if self.max_grad_norm > 0 and grads:
-            norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
-                                  for g in grads))
+            norm = (self.grad_norm_fn(grads) if self.grad_norm_fn
+                    else torch.sqrt(sum(torch.sum(g.float() * g.float())
+                                        for g in grads)))
             keep = norm < self.max_grad_norm
             for g in grads:
                 g.copy_(torch.where(
@@ -269,8 +277,6 @@ class Trainer:
         refused = [
             (args.op_metrics_every > 0, "TrainingArgs(op_metrics_every>0) "
              "(per-op metrics, utils/op_metrics)", HOST_LAYERS),
-            (args.layout_planner, "TrainingArgs(layout_planner=True)",
-             MULTICARD_ITEM),
             (frozen is not None, "frozen= (LoRA's frozen base)",
              MODEL_ITEM),
         ]
@@ -303,7 +309,8 @@ class Trainer:
                 max_micro_batch_per_proc=args.max_micro_batch_per_proc),
             loss_fn=loss_fn, init_fn=init_fn, optimizer=tx,
             fetch_batch=fetch_batch, dataset_size=dataset_size,
-            strategy=strategy, sampler_seed=args.seed, devices=devices)
+            strategy=strategy, sampler_seed=args.seed, devices=devices,
+            param_specs="planner" if args.layout_planner else None)
         self._num_processes = num_processes
         self._process_id = process_id
         self._ckpt = None
@@ -363,7 +370,8 @@ class Trainer:
 
     # -- eval -----------------------------------------------------------------
     def _global_mean(self, value: float) -> float:
-        """The mean of ``value`` over the data-parallel group."""
+        """The mean of ``value`` over the world (ranks that share their rows
+        report equal values, so this is the batch group's mean)."""
         if not dist.is_initialized() or dist.get_world_size() == 1:
             return value
         t = torch.tensor([value], dtype=torch.float64)
@@ -376,14 +384,15 @@ class Trainer:
             return {}
         per_proc = (self.args.eval_batch_per_proc
                     or self.core.micro_batch * self.core.grad_accum)
-        global_bs = per_proc * max(1, self._num_processes)
+        share, shares = self.core.share, self.core.shares
+        global_bs = per_proc * shares
         n_batches = max(1, self.eval_dataset_size // global_bs)
-        params = self.core.state["params"]
+        params = self.core.job.params_view(self.core.state["params"])
         dev = self.core.device
         losses = []
         with torch.no_grad():
             for b in range(n_batches):
-                lo = b * global_bs + self._process_id * per_proc
+                lo = b * global_bs + share * per_proc
                 indices = np.arange(lo, lo + per_proc, dtype=np.int64)
                 indices %= self.eval_dataset_size
                 batch = {k: torch.as_tensor(np.asarray(v)).to(dev)

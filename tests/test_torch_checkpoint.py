@@ -548,36 +548,44 @@ def test_load_falls_back_past_a_corrupt_step_and_quarantines_it(engine_env):
 
 def test_engine_refuses_what_later_slices_bring(engine_env, monkeypatch,
                                                 tmp_path):
-    """Object stores, ``target_mesh`` and sharded (partial-box) layouts
-    are still refused, naming their items; several processes and agent
-    mode, refused before, now construct (their behaviour is held in
-    ``tests/test_torch_dist.py`` and ``tests/test_torch_agent_saver.py``)."""
+    """Object stores are still refused, naming their item.  ``target_mesh``
+    and sharded (partial-box) layouts came with the mesh slice (item 5a):
+    a checkpoint of partial boxes restores whole and into a sharded target
+    leaf's box; several processes and agent mode, refused before, now
+    construct (their behaviour is held in ``tests/test_torch_dist.py`` and
+    ``tests/test_torch_agent_saver.py``; the mesh's in
+    ``tests/test_torch_ckpt_mesh.py``)."""
+    from dlrover_tpu_torch.parallel.mesh import Mesh, MeshSpec
+    from dlrover_tpu_torch.parallel.sharding import P as TP
+    from dlrover_tpu_torch.parallel.sharding import Placement, tag
+
     with pytest.raises(NotImplementedError, match="object-store"):
         storage_for("gs://bucket/ckpt")
     eng = engine_env("later")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.load({}, target_mesh=object())
-
-    class Sharded(torch.Tensor):
-        placements = ()
-
-    with pytest.raises(NotImplementedError, match="item 5"):
-        eng.load({"w": torch.zeros(2).as_subclass(Sharded)})
+    one = Mesh(MeshSpec(), np.arange(1), 0)
+    assert eng.load({}, target_mesh=one) is None
     # A checkpoint of partial boxes (an FSDP layout of the reference).
-    info = {f"w|{i}": {"path": "w", "global_shape": [4],
+    info = {f"w|{i}": {"path": "['w']", "global_shape": [4],
                        "index": [[2 * i, 2 * i + 2]], "owners": [i]}
             for i in range(2)}
     d = str(tmp_path / "partial")
     for pid in range(2):
         P.write_shard(PosixDiskStorage(), d, 1, pid,
-                      {f"w|{pid}": torch.ones(2)},
+                      {f"w|{pid}": torch.arange(2.0 * pid, 2.0 * pid + 2)},
                       {"step": 1, "tensors_info": {f"w|{pid}":
                                                    info[f"w|{pid}"]},
                        "process_id": pid, "num_processes": 2})
     P.commit(PosixDiskStorage(), d, 1)
     part = CheckpointEngine(d, job_name=f"partial-{os.getpid()}")
-    with pytest.raises(NotImplementedError, match="partial boxes.*item 5"):
-        part.load({"w": torch.zeros(4)})
+    got, meta = part.load({"w": torch.zeros(4)})
+    assert meta["step"] == 1 and torch.equal(got["w"], torch.arange(4.0))
+    two = Mesh(MeshSpec(fsdp=2), np.arange(2), 1)
+    box = tag(torch.zeros(2), Placement(two, TP("fsdp"), (4,)))
+    got, _ = part.load({"w": box})
+    assert got["w"] is box and torch.equal(box, torch.tensor([2.0, 3.0]))
+    # target_mesh: the same spec on a one-rank mesh is the whole leaf.
+    got, _ = part.load({"w": box}, target_mesh=one)
+    assert torch.equal(got["w"], torch.arange(4.0))
     part.close()
     plan = pslicer.plan_persist({"w|0": torch.zeros(40000)},
                                 {"tensors_info": {"w|0": {"host": True}}},

@@ -876,3 +876,101 @@ def test_xent_cluster_route_takes_an_unaligned_row(card):
     torch.cuda.synchronize()
     assert xent.xent_fwd.route_launches["cluster"] == before + 1
     assert float((out - xent._reference(logits, labels)).abs().max()) <= 1e-4
+
+
+# -- the mesh on four cards ---------------------------------------------------
+
+MESH_RTOL = 1e-3  # chip_smoke's DP_LOSS_RTOL: bf16 activations, other sums
+
+
+def test_mesh_on_four_cards_matches_one_card(card, tmp_path):
+    """Four ``nccl`` processes, one card each, train Llama-800M (full width
+    and depth, AdamW, B 16 x S 2048 globally, 4 rows a card) for five
+    steps on ``MeshSpec(fsdp=4)`` and on ``MeshSpec(dp=2, fsdp=2)``; every
+    rank's loss and gradient norm of each step within ``MESH_RTOL`` of one
+    card's run over the same 16 rows as 4 micro batches of 4.  Step ms,
+    the collectives' ms on the card (CUDA events) and the host's, bytes
+    and peak memory a card are printed, and written as JSON where
+    ``DLROVER_TPU_MESH_RECORD`` names a file.
+
+        python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -k mesh
+    """
+    import gc
+    import json
+    import os
+    import statistics
+    import subprocess
+    import sys
+    import time
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_child as child
+
+    from dlrover_tpu_torch.optim import adamw
+    from dlrover_tpu_torch.parallel import accelerate as acc
+
+    cfg = llama.LlamaConfig.medium_800m()
+    steps, B, S = 5, 16, 2048
+    tokens = np.stack([train.synth_tokens(range(B * i, B * (i + 1)), S,
+                                          cfg.vocab_size)
+                       for i in range(steps)])
+    np.savez(tmp_path / "batches.npz", tokens=tokens)
+    job = acc.accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        init_fn=lambda g: llama.init_params(cfg, g, card,
+                                            param_dtype=torch.float32),
+        optimizer=adamw(3e-4), sample_batch={"tokens": tokens[0]},
+        strategy=acc.Strategy(grad_accum=4), device=card)
+    state = job.create_state(torch.Generator(device=card).manual_seed(0))
+    one, one_ms = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = job.train_step(state, {"tokens": tokens[i]})
+        one.append((float(m["loss"]), float(m["grad_norm"])))
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    del state, job
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = {"device": "cuda", "model": "800m", "params": None,
+            "batches": str(tmp_path / "batches.npz"), "time_device": True,
+            "jobs": [{"name": "fsdp4", "mesh": {"fsdp": 4},
+                      "meshspec": True, "steps": steps},
+                     {"name": "dp2xfsdp2", "mesh": {"dp": 2, "fsdp": 2},
+                      "meshspec": True, "steps": steps}]}
+    recs = child.spawn_world(4, plan, tmp_path / "world", timeout=900)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    out = {"cards": smi.strip().splitlines(), "model": "medium_800m",
+           "global_batch": B, "seq_len": S, "steps": steps,
+           "one_card": {"losses": one, "step_ms": one_ms}}
+    for name, rs in recs.items():
+        for r in rs:
+            assert r["backend"] == "nccl"
+            for (loss, gn), got_l, got_g in zip(one, r["losses"],
+                                                r["grad_norms"]):
+                assert abs(got_l - loss) <= MESH_RTOL * abs(loss), (name, r)
+                assert abs(got_g - gn) <= MESH_RTOL * abs(gn), (name, r)
+        out[name] = {
+            "losses": [r["losses"] for r in rs],
+            "grad_norms": [r["grad_norms"] for r in rs],
+            "step_ms_median_2_on": [statistics.median(r["step_ms"][1:])
+                                    for r in rs],
+            "device_comm_ms_per_step": [
+                {k: statistics.median(d[k] for d in r["device_comm_ms"][1:])
+                 for k in r["device_comm_ms"][0]} for r in rs],
+            "host_comm_ms_per_step": [
+                {k: statistics.median(c[k]["ms"] for c in r["comm"][1:])
+                 for k in r["comm"][0]} for r in rs],
+            "comm_bytes_per_step": rs[0]["comm"][-1],
+            "peak_gib": [r["peak_bytes"] / 2 ** 30 for r in rs],
+            "param_box_bytes": [r["param_box_bytes"] for r in rs],
+        }
+    line = json.dumps(out)
+    print("MESH4 " + line)
+    if os.environ.get("DLROVER_TPU_MESH_RECORD"):
+        with open(os.environ["DLROVER_TPU_MESH_RECORD"], "w") as f:
+            f.write(line + "\n")

@@ -100,7 +100,10 @@ def test_import_leaves_jax_and_reference_out():
         "dlrover_tpu_torch.serving.replica, dlrover_tpu_torch.serving.draft, "
         "dlrover_tpu_torch.serving.kvseg, dlrover_tpu_torch.serving.autoscale, "
         "dlrover_tpu_torch.agent.metrics, dlrover_tpu_torch.serve_fleet, "
-        "dlrover_tpu_torch.serve_elastic\n"
+        "dlrover_tpu_torch.serve_elastic, dlrover_tpu_torch.parallel.mesh, "
+        "dlrover_tpu_torch.parallel.sharding, "
+        "dlrover_tpu_torch.parallel.layout_planner, "
+        "dlrover_tpu_torch.parallel.collectives\n"
         "import dlrover_tpu_torch.trainer as sdk\n"
         "assert sdk.Trainer and sdk.init and sdk.ElasticDataLoader\n"
         "from dlrover_tpu_torch.models.llama_infer import ("
@@ -109,6 +112,9 @@ def test_import_leaves_jax_and_reference_out():
         "seg, _ = pack_kv_segment([], 1, 0, False)\n"
         "assert unpack_kv_segment(seg)['n'] == 1\n"
         "assert len(prefix_fingerprint([1, 2])) == 16\n"
+        "from dlrover_tpu_torch.parallel.mesh import MeshSpec\n"
+        "from dlrover_tpu_torch.parallel.layout_planner import plan_layout\n"
+        "assert MeshSpec(fsdp=-1).normalized(4).fsdp == 4\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dlrover_tpu', 'msgpack', 'ml_dtypes', "
         "'grpc')]\n"

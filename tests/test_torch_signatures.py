@@ -45,7 +45,14 @@ from dlrover_tpu_torch.ops import cross_entropy as txent
 from dlrover_tpu_torch.ops import flash_attention as tfa
 from dlrover_tpu_torch.ops import quant as tquant
 from dlrover_tpu_torch.ops import rmsnorm as trms
+from dlrover_tpu_torch.checkpoint import engine as tengine
+from dlrover_tpu_torch.common import constants as tconst
 from dlrover_tpu_torch.parallel import accelerate as tacc
+from dlrover_tpu_torch.parallel import layout_planner as tplanner
+from dlrover_tpu_torch.parallel import mesh as tmesh
+from dlrover_tpu_torch.parallel import sharding as tsharding
+from dlrover_tpu_torch.trainer import elastic as telastic
+from dlrover_tpu_torch.trainer import trainer as ttrainer
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -67,6 +74,23 @@ COUNTERPARTS = {
     ("dlrover_tpu.ops.quant", "quantize_dynamic"): tquant,
     ("dlrover_tpu.ops.quant", "dequantize_dynamic"): tquant,
     ("dlrover_tpu.parallel.accelerate", "accelerate"): tacc,
+    ("dlrover_tpu.parallel.accelerate", "infer_param_specs"): tacc,
+    ("dlrover_tpu.parallel.mesh", "MeshSpec.normalized"): tmesh,
+    ("dlrover_tpu.parallel.mesh", "build_mesh"): tmesh,
+    ("dlrover_tpu.parallel.mesh", "build_hybrid_mesh"): tmesh,
+    ("dlrover_tpu.parallel.mesh", "candidate_specs"): tmesh,
+    ("dlrover_tpu.parallel.sharding", "logical_to_spec"): tsharding,
+    ("dlrover_tpu.parallel.sharding", "tree_logical_to_specs"): tsharding,
+    ("dlrover_tpu.parallel.sharding", "shard_tree"): tsharding,
+    ("dlrover_tpu.parallel.sharding", "named_sharding_tree"): tsharding,
+    ("dlrover_tpu.parallel.sharding", "constraint"): tsharding,
+    ("dlrover_tpu.parallel.layout_planner", "plan_layout"): tplanner,
+    ("dlrover_tpu.parallel.layout_planner", "plan_report"): tplanner,
+    ("dlrover_tpu.parallel.layout_planner", "validate_layout"): tplanner,
+    ("dlrover_tpu.models.llama", "param_logical_axes"): tllama,
+    ("dlrover_tpu.checkpoint.engine", "CheckpointEngine.load"): tengine,
+    ("dlrover_tpu.trainer.elastic", "ElasticTrainer.__init__"): telastic,
+    ("dlrover_tpu.trainer.trainer", "Trainer.__init__"): ttrainer,
     ("dlrover_tpu.checkpoint.shard_file", "shard_version"): tshard,
     ("dlrover_tpu.models.llama_infer", "prefix_fingerprint"): tinfer,
     ("dlrover_tpu.models.llama_infer", "pack_kv_segment"): tinfer,
@@ -246,9 +270,10 @@ def _job(**kw):
         return ((batch["x"] @ params["w"]) ** 2).mean()
 
     sample = kw.pop("sample", {"x": np.ones((4, 4), np.float32)})
+    kw.setdefault("strategy", tacc.Strategy())
     return tacc.accelerate(loss_fn=loss_fn, init_fn=init_fn,
                            optimizer=toptim.adamw(1e-3), sample_batch=sample,
-                           strategy=tacc.Strategy(), device="cpu", **kw)
+                           device="cpu", **kw)
 
 
 def test_accelerate_grad_accum_forces_the_strategy():
@@ -264,18 +289,132 @@ def test_accelerate_grad_accum_forces_the_strategy():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"devices": ["cpu"]}, "item 5"),
-    ({"batch_axes": ("dp",)}, "item 5"),
-    ({"profile_steps": 2}, "item 5"),
-    ({"search_evals": 4}, "item 5"),
-    ({"cache": "/nonexistent"}, "item 5"),
+    ({"devices": ["cpu"]}, None),
+    ({"batch_axes": ("dp",)}, None),
+    ({"profile_steps": 2}, "item 5b"),
+    ({"search_evals": 4}, "item 5b"),
+    ({"cache": "/nonexistent"}, "item 5b"),
     ({"fp8_init": dict}, "item 6"),
 ], ids=["devices", "batch_axes", "profile_steps", "search_evals", "cache",
         "fp8_init"])
 def test_accelerate_refuses_later_slice_keywords(kw, match):
+    """The search keywords and fp8 raise naming their items; ``devices``
+    (this process's one device) and ``batch_axes`` came with the mesh slice
+    (item 5a) and build, and several devices a process names item 5d."""
     name = next(iter(kw))
+    if match is None:
+        job = _job(**kw)
+        assert job.batch_axes == ("dp",) if name == "batch_axes" else \
+            job.device == torch.device("cpu")
+        with pytest.raises(NotImplementedError, match="item 5d"):
+            _job(devices=["cpu", "cpu"])
+        return
     with pytest.raises(NotImplementedError, match=f"{name}=.*{match}"):
         _job(**kw)
+
+
+def _sharded_adam8bit():
+    """An 8-bit Adam over a leaf tagged as this rank's box of an fsdp=2
+    placement (a mesh seen from rank 0, no group needed)."""
+    from dlrover_tpu_torch.checkpoint import tree_utils
+
+    mesh = tmesh.Mesh(tmesh.MeshSpec(fsdp=2), np.arange(2), 0)
+    w = tsharding.tag(torch.zeros(128, 2), tsharding.Placement(
+        mesh, tsharding.PartitionSpec("fsdp"), (256, 2)))
+    state = {"params": {"w": w}, "opt_state": tquant.adam8bit(1e-3)([w])}
+    tree_utils.state_leaves(state)
+
+
+def _ring_attention():
+    cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
+    params = tllama.init_params(cfg, torch.Generator(), "cpu")
+    tllama.loss_fn(params, {"tokens": torch.zeros(1, 5, dtype=torch.long)},
+                   cfg, attn_impl="ring")
+
+
+def _saver_replicas():
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+
+    AsyncCheckpointSaver.seed_from_replicas(None, {}, 1)
+
+
+#: Every option of Queue A item 5 that stays refused, and the sub-item
+#: whose text (``constants.QUEUE_A_ITEMS``) its refusal carries.
+ITEM5_REFUSALS = {
+    "accelerate_strategy_auto": (lambda: _job(strategy="auto"), "5b"),
+    "accelerate_profile_steps": (lambda: _job(profile_steps=2), "5b"),
+    "accelerate_search_evals": (lambda: _job(search_evals=3), "5b"),
+    "accelerate_cache": (lambda: _job(cache="x"), "5b"),
+    "accelerate_devices": (lambda: _job(devices=["cpu", "cpu"]), "5d"),
+    "accelerate_sequence_batch_axes": (lambda: _job(
+        batch_axes=tsharding.PartitionSpec("dp", "tp")), "5b"),
+    "remat_offload": (lambda: _job(strategy=tacc.Strategy(
+        remat="offload")), "5c"),
+    "offload_opt": (lambda: _job(strategy=tacc.Strategy(
+        offload_opt=True)), "5c"),
+    "quant_grads": (lambda: _job(strategy=tacc.Strategy(
+        quant_grads=True)), "5c"),
+    "adam8bit_over_shards": (_sharded_adam8bit, "5c"),
+    "mesh_two_devices": (lambda: tmesh.build_mesh(
+        tmesh.MeshSpec(), devices=["cpu", "cpu"]), "5d"),
+    "constraint": (lambda: tsharding.constraint(torch.zeros(1), ("batch",)),
+                   "5d"),
+    "ring_attention": (_ring_attention, "5b"),
+    "elastic_strategy_auto": (lambda: telastic.ElasticTrainer(
+        telastic.TrainerConfig(4, 2), loss_fn=None, init_fn=None,
+        optimizer=None, fetch_batch=None, dataset_size=4, strategy="auto",
+        devices=["cpu"]), "5b"),
+    "elastic_strategy_cache": (lambda: telastic.ElasticTrainer(
+        telastic.TrainerConfig(4, 2), loss_fn=None, init_fn=None,
+        optimizer=None, fetch_batch=None, dataset_size=4,
+        strategy=tacc.Strategy(), strategy_cache=object(),
+        devices=["cpu"]), "5b"),
+    "saver_replicas": (_saver_replicas, "5e"),
+}
+
+
+@pytest.mark.parametrize("case", list(ITEM5_REFUSALS))
+def test_item5_refusals_name_their_sub_item(case):
+    """Item 5 is split into 5a (the mesh, ported) and 5b-5e; no refusal
+    names the whole item any more."""
+    make, key = ITEM5_REFUSALS[case]
+    assert "5" not in tconst.QUEUE_A_ITEMS and "5a" not in \
+        tconst.QUEUE_A_ITEMS
+    with pytest.raises(NotImplementedError) as e:
+        make()
+    assert tconst.QUEUE_A_ITEMS[key] in str(e.value)
+
+
+def test_accelerate_and_the_sdk_take_the_mesh_keywords():
+    """``param_specs`` (a tree, a callable of the normalized strategy,
+    ``"planner"``), ``batch_axes`` and ``devices`` build; the spec tree is
+    reported after ``create_state``; the SDK passes ``param_specs`` and
+    ``layout_planner`` to the core and normalizes a ``-1`` mesh."""
+    seen = []
+
+    def specs_of(strategy):
+        seen.append(strategy.mesh)
+        return {"w": tsharding.PartitionSpec("fsdp")}
+
+    job = _job(param_specs=specs_of,
+               strategy=tacc.Strategy(mesh=tmesh.MeshSpec(fsdp=-1)))
+    assert seen == [] and job.mesh.describe() == "single"
+    state = job.create_state(torch.Generator().manual_seed(0))
+    assert seen == [tmesh.MeshSpec()]
+    assert tuple(job.state_sharding["params"]["w"].spec) == ("fsdp",)
+    assert _job(param_specs="planner").dp == 1
+    job = _job(batch_axes={"x": tsharding.PartitionSpec(("dp", "fsdp"))},
+               devices=["cpu"])
+    assert job.batch_axes == ("dp", "fsdp") and job.batch_rank == (0, 1)
+    del state
+    core = telastic.ElasticTrainer(
+        telastic.TrainerConfig(4, 4), loss_fn=None, init_fn=None,
+        optimizer=None, fetch_batch=None, dataset_size=4,
+        strategy=tacc.Strategy(mesh=tmesh.MeshSpec(fsdp=-1)),
+        param_specs="planner", devices=["cpu"])
+    assert core.param_specs == "planner"
+    assert tacc.resolve_mesh(core.base_strategy.mesh, 4) == \
+        tmesh.MeshSpec(fsdp=4)
 
 
 # -- the int8 KV cache's drift at depth ---------------------------------------
