@@ -186,21 +186,21 @@ together), then runs the phases below and exits non-zero if any fails:
    ties): codes equal and scales bit-equal.
 8. 8-bit Adam training: ``accelerate(..., optimizer=adam8bit(3e-4))``
    trains Llama-800M-h128 (12 heads of 128, full width at
-   ``ELASTIC_LAYERS`` (8) of its 24 blocks since phase 13 joined, per-
+   ``ELASTIC_LAYERS`` (4) of its 24 blocks, per-
    block remat, bf16 compute, fp32 masters, int8 moments) at B 16 x S
    2048 for 4 steps on one seeded batch: the loss falls; step time,
    tokens/s, MFU, peak memory, the moments' bytes, each kernel's launches
    a step (the blockwise quantize: 0, the moments use the dynamic codes)
    and a profiled step with the optimizer's device time, whose kernels
    must include 2L ``flash_fwd_wgmma``, L ``flash_dq_wgmma`` and L
-   ``flash_dkv_wgmma`` launches (L = 8) and no bf16 instance of a
+   ``flash_dkv_wgmma`` launches (L = 4) and no bf16 instance of a
    CUDA-core flash kernel.  Then its state goes through ``FlashCheckpointer`` (to memory,
    then to storage), is restored into a freshly built state and held bit
    for bit (the fp32 masters, the int8 codes, their scales, the step count
    and the rounding generator), and one more step of each gives bit-equal
    losses and states.
 9. Flash checkpoint: Llama-800M with AdamW (full width at
-   ``ELASTIC_LAYERS`` (8) of its 24 blocks, B 4 x S
+   ``ELASTIC_LAYERS`` (4) of its 24 blocks, B 4 x S
    2048) through ``train.main --ckpt_dir``: two uninterrupted runs of 3
    steps agree bit for bit (else the op that is not deterministic is
    named); a run stops after step 2 and its save; a child process
@@ -215,7 +215,7 @@ together), then runs the phases below and exits non-zero if any fails:
    power limit on a line ``phase9 checkpoint {...}``.
 
 10. Several processes on one host (run after phase 9), Llama-800M's
-   width at ``ELASTIC_LAYERS`` (8) of its 24 blocks with AdamW, B 4 x S
+   width at ``ELASTIC_LAYERS`` (4) of its 24 blocks with AdamW, B 4 x S
    2048 globally, each trainer ``python -m dlrover_tpu_torch.train``
    started with the agent's env contract: (a) one process with
    ``DLROVER_TPU_COORDINATOR`` set (the group comes up on ``nccl``) gives
@@ -239,7 +239,7 @@ together), then runs the phases below and exits non-zero if any fails:
    counters); the step times, the gloo reduction's time, each rank's
    persist bytes and time and the restores on a line ``phase10
    multiprocess {...}``.
-11. The elastic loop with master HA (run after phase 10), the same 8-block
+11. The elastic loop with master HA (run after phase 10), the same 4-block
    cut of Llama-800M with AdamW at B 4 x S 2048 through the launcher:
    ``python -m dlrover_tpu_torch.run --standalone --standby
    --master_state_dir H --nproc_per_node=1 dlrover_tpu_torch/train.py --
@@ -255,8 +255,8 @@ together), then runs the phases below and exits non-zero if any fails:
    second rendezvous round, served by the promoted master; the new worker
    must warm-restore the step staged before the kill from shm, and every
    loss and gradient
-   norm after it, to step 6, must equal phase 10a's bit for bit, with 17
-   RMSNorm and 8 launches of each flash kernel for every step it ran; the
+   norm after it, to step 6, must equal phase 10a's bit for bit, with 9
+   RMSNorm and 4 launches of each flash kernel for every step it ran; the
    launcher exits 0 with ``TRAIN_DONE`` and leaves no arena of the run in
    ``/dev/shm``.  The time from the SIGKILL to the first step after the
    restore (host clock, at the arrival of each line of the launcher's
@@ -272,7 +272,7 @@ together), then runs the phases below and exits non-zero if any fails:
    ``python -m dlrover_tpu_torch.master.statecheck H`` must then find the
    journal clean, with one takeover and one clean shutdown.
 12. The trainer SDK behind the pre-flight node check (run after phase
-   11), Llama-800M's width at ``ELASTIC_LAYERS`` (8) of its 24 blocks
+   11), Llama-800M's width at ``ELASTIC_LAYERS`` (4) of its 24 blocks
    with AdamW: the phase writes a
    user script (``SDK_SCRIPT``: ``sdk.init()``, ``sdk.Trainer`` over
    ``llama.loss_fn`` with a one-card ``Strategy``, global batch 4 of
@@ -291,14 +291,14 @@ together), then runs the phases below and exits non-zero if any fails:
    pass, trains steps 4-6, evaluates at 6 and saves.  Every step's loss,
    gradient norm and LR and the eval losses at 3 and 6 equal the
    uninterrupted run's bit for bit, the LRs equal ``build_lr_schedule``'s,
-   and the new worker's own counters show 136 RMSNorm, 64 flash forward,
-   48 dq and 48 dk/dv launches (3 steps of 2 micro batches and 2 eval
-   batches, 8 blocks).  The verdict with the payloads' times and TFLOP/s, the
+   and the new worker's own counters show 72 RMSNorm, 32 flash forward,
+   24 dq and 24 dk/dv launches (3 steps of 2 micro batches and 2 eval
+   batches, 4 blocks).  The verdict with the payloads' times and TFLOP/s, the
    recovery split as phase 11's, the master's RPC count and the heartbeat
    actions go on a line ``phase12 trainer_sdk {...}``.
 
 13. The mesh (run after phase 12), Llama-800M's width at
-   ``ELASTIC_LAYERS`` (8) of its 24 blocks with AdamW (``adamw(3e-4)``), B
+   ``ELASTIC_LAYERS`` (4) of its 24 blocks with AdamW (``adamw(3e-4)``), B
    4 x S 2048 globally on one repeated batch: the phase writes a user
    script (``MESH_SCRIPT``) and runs it through ``python -m
    dlrover_tpu_torch.run --standalone --nproc_per_node=2``: two worker
@@ -311,15 +311,35 @@ together), then runs the phases below and exits non-zero if any fails:
    and gradient norm on both ranks within ``DP_LOSS_RTOL`` of phase 10a's;
    each rank's parameter and moment boxes, and ``memory_allocated``
    around ``create_state``, about half of the world-1 state; each rank
-   launched RMSNorm and the three flash kernels (its own counters: 17 and
-   8 of each a step); at least one leaf placed on ``tp``; each rank's
+   launched RMSNorm and the three flash kernels (its own counters: 9 and
+   4 of each a step); at least one leaf placed on ``tp``; each rank's
    shard file holds about half the checkpoint's bytes; a cold restore in
    this process at world 1 (``CheckpointEngine.load(target_mesh=)``)
    equals, tensor by tensor by CRC-32, the state rank 0 reports gathered,
    and one step from it gives phase 10a's step-3 loss within
    ``DP_LOSS_RTOL``.  Step ms, the gathers' and reductions' ms and bytes
    a step, peak memory a rank, the shard bytes and the restore go on a
-   line ``phase13 mesh {...}``.
+   line ``phase13 mesh {...}``.  In the same two ranks, after those:
+   (c) ring: a ``Trainer`` with ``Strategy(mesh=MeshSpec(tp=2), rules=
+   {"seq": "tp"})`` and ``loss_fn(attn_impl="ring", mesh=...)`` for 2
+   steps, each rank running its 1024 positions of the 4 rows; (d) the same
+   with ``attn_impl="ulysses"``.  Every step's loss and gradient norm
+   within ``DP_LOSS_RTOL`` of phase 10a's; each rank launched 9 RMSNorm
+   kernels a step and no flash kernel; the ring hops' (the all-to-alls')
+   bytes and ms a step and each rank's peak memory beside the ``tp2``
+   run's.  (e) The search: a ``Trainer`` with no strategy (``"auto"``)
+   under the launcher's master for 1 step: every mesh of
+   ``candidate_specs(2)`` built on both ranks and given the same score on
+   both (the leader's); the winner is in the master's KV under
+   ``strategy-cache/<fingerprint>``; a second such ``Trainer`` hits it and
+   builds one job (``accelerate.COUNTS``).  Then ``accelerate(strategy=
+   "bo", profile_steps=1, search_evals=3, grad_accum=1)`` at
+   ``SEARCH_LAYERS`` (2) of the blocks, widths kept: the same evaluated
+   points and leader's times on both ranks, the offload point scored
+   ``inf`` (item 5c).  Each mesh's ``estimate_step_hbm_bytes`` (the
+   reference's TPU-fitted calibration) goes beside its peak memory.  (f)
+   In this process, ``train.py --strategy auto`` at world 1 trains on the
+   search's one candidate and its first loss is phase 10a's.
 
 The lines before the last give the kernels' record as JSON and the card's
 name and power limit; the last line is the device record the driver reads.
@@ -370,9 +390,9 @@ DP_WORLD = 2  # phase 10b: processes on the one card
 DP_LOSS_RTOL = 1e-3  # phase 10b: each step's loss and gradient norm
 # against one process at B 4 (phase 10a)
 DP_TIMEOUT_S = 900  # phase 10: a trainer process's limit
-# Phases 10-11 run Llama-800M's width at this depth (of its 24 blocks):
-# phase 12 carries the full-depth kill and restore.
-ELASTIC_LAYERS = 8
+# Phases 8-13 run Llama-800M's width at this depth (of its 24 blocks),
+# cut from 8 to keep the whole script inside its time limit on a slow host.
+ELASTIC_LAYERS = 4
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 QUANT_OPS_PER_ELEMENT = 6  # |x|, max, divide, round, clip (2)
 
@@ -4811,16 +4831,21 @@ def phase_trainer_sdk(train, card: str) -> dict:
 MESH_TIMEOUT_S = 600  # phase 13: the launcher's limit
 MESH_STEPS = 2  # phase 13: the FSDP trainer's steps (checkpointed at the last)
 MESH_TP_STEPS = 2  # phase 13: the tp=2 trainer's steps
+MESH_SEQ_STEPS = 2  # phase 13: the ring and Ulysses trainers' steps
+SEARCH_LAYERS = 2  # phase 13 (e): the blocks of strategy="bo"'s model
+SEQ_RUNS = ("ring", "ulysses")
 
 # Phase 13's user script: two trainer SDK jobs on the mesh in each of the
 # launcher's two worker processes.  Each rank writes its records as single
 # ``MESH_REC {...}`` lines.
 MESH_SCRIPT = r'''
-"""Two trainer-SDK jobs over a mesh of the launcher's processes: Llama at
+"""Trainer-SDK jobs over a mesh of the launcher's processes: Llama at
 random weights from a seed on one repeated batch with AdamW; first ZeRO-3
 over ``MeshSpec(fsdp=-1)`` (checkpointed sharded at its last step), then
-``MeshSpec(tp=2)`` with the layout planner."""
+``MeshSpec(tp=2)`` with the layout planner, then ring and Ulysses attention
+over ``tp`` (sequence-parallel), then the strategy search."""
 import argparse
+import gc
 import json
 import sys
 import time
@@ -4832,9 +4857,12 @@ import dlrover_tpu_torch.trainer as sdk
 from dlrover_tpu_torch import train as cli
 from dlrover_tpu_torch.models import llama
 from dlrover_tpu_torch.optim import adamw
+from dlrover_tpu_torch.parallel import accelerate as acc
 from dlrover_tpu_torch.parallel.accelerate import Strategy, tree_leaves
 from dlrover_tpu_torch.parallel.mesh import MeshSpec
 from dlrover_tpu_torch.parallel.sharding import placement_of
+from dlrover_tpu_torch.parallel.strategy_search import \
+    estimate_step_hbm_bytes
 
 
 def sync():
@@ -4878,7 +4906,22 @@ def crc(t):
                       .view(torch.uint8).numpy().tobytes())
 
 
-def trainer_for(run, cfg, ctx, args, strategy, **over):
+def init_for(cfg, args):
+    return lambda g: llama.init_params(cfg, g, args.device,
+                                       param_dtype=torch.float32)
+
+
+def hbm_estimate(cfg, args, strategy):
+    """The reference's memory model for ``strategy`` on this run's model
+    and global batch (its calibration was fitted on TPU)."""
+    shapes = acc._Abstract(init_for(cfg, args), adamw(3e-4),
+                           torch.device(args.device)).params
+    sample = {"tokens": cli.synth_tokens(range(4), args.seq_len,
+                                         cfg.vocab_size)}
+    return estimate_step_hbm_bytes(shapes, sample, strategy)
+
+
+def trainer_for(run, cfg, ctx, args, strategy, loss=None, **over):
     kw = dict(global_batch_size=4, max_micro_batch_per_proc=2,
               logging_steps=1, seed=17)
     kw.update(over)
@@ -4888,9 +4931,8 @@ def trainer_for(run, cfg, ctx, args, strategy, **over):
                                            cfg.vocab_size)}
 
     trainer = sdk.Trainer(
-        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
-        init_fn=lambda g: llama.init_params(cfg, g, args.device,
-                                            param_dtype=torch.float32),
+        loss_fn=loss or (lambda p, b: llama.loss_fn(p, b, cfg)),
+        init_fn=init_for(cfg, args),
         args=sdk.TrainingArgs(**kw), fetch_batch=fetch, dataset_size=4,
         optimizer_fn=lambda schedule: adamw(3e-4), strategy=strategy,
         callbacks=[Report(run, ctx.process_id)],
@@ -4927,6 +4969,8 @@ def main():
     p.add_argument("--ckpt_dir", required=True)
     p.add_argument("--steps", type=int, default=2)
     p.add_argument("--tp_steps", type=int, default=2)
+    p.add_argument("--seq_steps", type=int, default=2)
+    p.add_argument("--search_layers", type=int, default=2)
     args = p.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
     ctx = sdk.init(device=args.device)
@@ -4962,7 +5006,8 @@ def main():
                    4 * int(torch.Size(placement_of(t).global_shape).numel())
                    for t in leaves),
                sharded_leaves=sum(placement_of(t).sharded for t in leaves),
-               peak_bytes=peak(), **mem)
+               peak_bytes=peak(), hbm_estimate_bytes=hbm_estimate(
+                   cfg, args, Strategy(mesh=MeshSpec(fsdp=2))), **mem)
     if rank == 0:
         rec["crcs"] = {k: crc(v) for k, v in whole.items()}
     del whole
@@ -4987,7 +5032,84 @@ def main():
          tp_leaves=sum("tp" in placement_of(t).axes for t in leaves),
          sharded_leaves=sum(placement_of(t).sharded for t in leaves),
          param_box_bytes=sum(t.numel() * 4 for t in leaves),
-         peak_bytes=peak(), **mem)
+         peak_bytes=peak(), hbm_estimate_bytes=hbm_estimate(
+             cfg, args, Strategy(mesh=MeshSpec(tp=2))), **mem)
+    del trainer, leaves
+
+    def fresh():
+        # The last run's trainer is garbage (reference cycles): free it
+        # before the next run's peak is taken.
+        gc.collect()
+        if args.device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    # (3), (4) ring and Ulysses attention over tp: sequence-parallel.
+    # The job's own mesh: tp is its sequence axis (the loss may cut there).
+    seq_mesh = acc.mesh_for(MeshSpec(tp=2), seq_axis="tp")
+    for impl in ("ring", "ulysses"):
+        fresh()
+        before = launches()
+        strategy = Strategy(mesh=MeshSpec(tp=2), rules={"seq": "tp"})
+        trainer, mem = trainer_for(
+            impl, cfg, ctx, args, strategy,
+            loss=lambda p, b, i=impl: llama.loss_fn(p, b, cfg, attn_impl=i,
+                                                    mesh=seq_mesh),
+            max_steps=args.seq_steps, max_micro_batch_per_proc=4)
+        trainer.train()
+        job = trainer.core.job
+        emit(kind="done", run=impl, rank=rank, mesh=job.mesh.describe(),
+             seq_axis=job.seq_axis, batch_rank=list(job.batch_rank),
+             launches={k: v - before[k] for k, v in launches().items()},
+             peak_bytes=peak(),
+             hbm_estimate_bytes=hbm_estimate(cfg, args, strategy), **mem)
+        del trainer, job
+
+    # (5) the search: strategy=None ("auto") under the master, then a
+    # second trainer that hits the master's cache.
+    for run in ("search", "search_hit"):
+        fresh()
+        before, builds = launches(), acc.COUNTS["builds"]
+        trainer, mem = trainer_for(run, cfg, ctx, args, None, max_steps=1,
+                                   max_micro_batch_per_proc=4)
+        trainer.train()
+        job = trainer.core.job
+        rec = dict(kind="done", run=run, rank=rank, mesh=job.mesh.describe(),
+                   batch_rank=list(job.batch_rank), search=job.search,
+                   builds=acc.COUNTS["builds"] - builds,
+                   launches={k: v - before[k] for k, v in launches().items()},
+                   peak_bytes=peak(), **mem)
+        if run == "search":
+            entry = ctx.client.kv_store_get(
+                "strategy-cache/" + job.search["fingerprint"])
+            rec["cached_entry"] = json.loads(entry) if entry else None
+            rec["hbm_estimates"] = {
+                s.describe(): hbm_estimate(cfg, args, Strategy(mesh=s))
+                for s in acc.candidate_specs(ctx.num_processes)}
+        emit(**rec)
+        del trainer, job
+
+    # (6) strategy="bo" at SEARCH_LAYERS blocks, timed (2 steps a point).
+    fresh()
+    small = cli.build_config(cli.parse_args(
+        ["--model", args.model, "--n_layer", str(args.search_layers),
+         "--seq_len", str(args.seq_len)]))
+    before, builds = launches(), acc.COUNTS["builds"]
+    t0 = time.perf_counter()
+    job = acc.accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, small),
+        init_fn=init_for(small, args), optimizer=adamw(3e-4),
+        sample_batch={"tokens": cli.synth_tokens(range(4), args.seq_len,
+                                                 small.vocab_size)},
+        strategy="bo", profile_steps=1, search_evals=3, grad_accum=1,
+        device=args.device)
+    sync()
+    emit(kind="done", run="bo", rank=rank, mesh=job.mesh.describe(),
+         winner=job.strategy.describe(), search=job.search,
+         builds=acc.COUNTS["builds"] - builds,
+         search_s=time.perf_counter() - t0,
+         launches={k: v - before[k] for k, v in launches().items()},
+         peak_bytes=peak())
 
 
 if __name__ == "__main__":
@@ -5023,7 +5145,8 @@ def phase_mesh(train, card: str, one_steps: dict) -> dict:
            "--model", model, "--device", DEV,
            "--n_layer", str(ELASTIC_LAYERS), "--seq_len", str(TRAIN_SEQ),
            "--ckpt_dir", ckpt, "--steps", str(MESH_STEPS), "--tp_steps",
-           str(MESH_TP_STEPS)]
+           str(MESH_TP_STEPS), "--seq_steps", str(MESH_SEQ_STEPS),
+           "--search_layers", str(SEARCH_LAYERS)]
     env = dict(os.environ, DLROVER_TPU_RUN_ID=run_id,
                DLROVER_TPU_DIST_TIMEOUT_S=str(MESH_TIMEOUT_S))
     if DEV == "cpu":
@@ -5053,7 +5176,8 @@ def phase_mesh(train, card: str, one_steps: dict) -> dict:
     steps = {(r["run"], r["rank"], r["step"]): r for r in recs
              if r["kind"] == "step"}
     done = {(r["run"], r["rank"]): r for r in recs if r["kind"] == "done"}
-    if sorted(done) != [("fsdp", 0), ("fsdp", 1), ("tp", 0), ("tp", 1)]:
+    runs = ("fsdp", "tp") + SEQ_RUNS + ("search", "search_hit", "bo")
+    if sorted(done) != sorted((r, k) for r in runs for k in (0, 1)):
         fail(f"done records {sorted(done)}")
 
     def rel(a, b):
@@ -5061,7 +5185,8 @@ def phase_mesh(train, card: str, one_steps: dict) -> dict:
 
     # (a) every step's loss and gradient norm against phase 10a's.
     worst = {}
-    for run, n in (("fsdp", MESH_STEPS), ("tp", MESH_TP_STEPS)):
+    for run, n in (("fsdp", MESH_STEPS), ("tp", MESH_TP_STEPS)) + tuple(
+            (r, MESH_SEQ_STEPS) for r in SEQ_RUNS):
         for rank in (0, 1):
             for i in range(1, n + 1):
                 r = steps.get((run, rank, i))
@@ -5079,6 +5204,8 @@ def phase_mesh(train, card: str, one_steps: dict) -> dict:
     per_step = {"flash_fwd": n, "flash_dq": n, "flash_dkv": n,
                 "rmsnorm": 2 * n + 1}
     for (run, rank), d in done.items():
+        if run not in ("fsdp", "tp"):
+            continue
         half = d["param_box_bytes"] / d["whole_param_bytes"] \
             if "whole_param_bytes" in d else None
         if run == "fsdp" and DEV == "cuda" and not (
@@ -5099,6 +5226,45 @@ def phase_mesh(train, card: str, one_steps: dict) -> dict:
             fail(f"{run} rank {rank} launches {got} != {want}")
     if done[("tp", 0)]["tp_leaves"] < 1:
         fail(f"no leaf placed on tp: {done[('tp', 0)]}")
+    # (c), (d) ring and Ulysses: each rank its own RMSNorm launches (no
+    # flash kernel: the attention is the reference's plain blocks), the
+    # sequence axis, and its exchange in every step.
+    for run in SEQ_RUNS:
+        want = {k: (per_step["rmsnorm"] * MESH_SEQ_STEPS if k == "rmsnorm"
+                    else 0) if DEV == "cuda" else 0 for k in per_step}
+        kind = "ring_hop" if run == "ring" else "all_to_all"
+        for rank in (0, 1):
+            d = done[(run, rank)]
+            got = {k: d["launches"][k] for k in want}
+            if got != want or d["seq_axis"] != "tp":
+                fail(f"{run} rank {rank}: launches {got} != {want}, "
+                     f"seq_axis {d['seq_axis']}")
+            for i in range(1, MESH_SEQ_STEPS + 1):
+                if steps[(run, rank, i)]["comm"][kind]["calls"] <= 0:
+                    fail(f"{run} rank {rank} step {i}: no {kind}")
+    # (e) the search: every candidate built and scored alike on both ranks,
+    # the winner in the master's KV, and a hit that builds one job.
+    s0, s1 = (done[("search", r)]["search"] for r in (0, 1))
+    if s0["scores"] != s1["scores"] or len(s0["scores"]) != 3 \
+            or s0["winner"] != s1["winner"] or s0["cache_hit"]:
+        fail(f"search records {s0} / {s1}")
+    entry = done[("search", 0)]["cached_entry"]
+    if entry is None or "x".join(
+            f"{a}{v}" for a, v in entry["mesh"].items() if v > 1) \
+            != done[("search", 0)]["mesh"]:
+        fail(f"master's entry {entry} for {done[('search', 0)]['mesh']}")
+    for rank in (0, 1):
+        h = done[("search_hit", rank)]
+        if h["builds"] != 1 or not h["search"]["cache_hit"] \
+                or h["mesh"] != done[("search", 0)]["mesh"]:
+            fail(f"cache hit on rank {rank}: {h}")
+    b0, b1 = (done[("bo", r)] for r in (0, 1))
+    ev = b0["search"]["evaluated"]
+    if ev != b1["search"]["evaluated"] or len(ev) != 3 \
+            or b0["winner"] != b1["winner"] \
+            or not any(math.isinf(c) for _, c in ev) \
+            or not any(math.isfinite(c) for _, c in ev):
+        fail(f"bo records {b0['search']} / {b1['search']}")
     # (d) the sharded checkpoint: each rank's file holds about half.
     step = MESH_STEPS
     files = {pid: os.path.getsize(shard_file.shard_path(ckpt, step, pid))
@@ -5151,14 +5317,46 @@ def phase_mesh(train, card: str, one_steps: dict) -> dict:
              f"{one_steps[step + 1][0]}")
     del state, job
     torch.cuda.empty_cache()
+    # (f) the CLI's --strategy auto in this process (world 1: the search's
+    # one candidate); its first step is phase 10a's.
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(base + ["--steps", "1", "--strategy", "auto",
+                                "--log_every", "1"])
+    auto = parse_train_output(buf.getvalue())
+    if rc != 0 or auto.get("mesh") != "single" \
+            or rel(float(auto["loss"]), one_steps[1][0]) > DP_LOSS_RTOL:
+        fail(f"train.py --strategy auto: rc {rc}, {auto}")
+    torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
 
     def per_step(run, key, field):
+        n = {"fsdp": MESH_STEPS, "tp": MESH_TP_STEPS}.get(run,
+                                                          MESH_SEQ_STEPS)
         vals = [steps[(run, r, i)]["comm"][key][field]
-                for r in (0, 1) for i in range(2, (MESH_STEPS if run ==
-                                                   "fsdp" else MESH_TP_STEPS)
-                                                + 1)]
+                for r in (0, 1) for i in range(2, n + 1)]
         return statistics.median(vals) if vals else None
+
+    def seq_record(run):
+        kind = "ring_hop" if run == "ring" else "all_to_all"
+        return {
+            "losses": {i: [steps[(run, r, i)]["loss"] for r in (0, 1)]
+                       for i in range(1, MESH_SEQ_STEPS + 1)},
+            "grad_norms": {i: [steps[(run, r, i)]["grad_norm"]
+                               for r in (0, 1)]
+                           for i in range(1, MESH_SEQ_STEPS + 1)},
+            "max_rel_err_vs_world1": worst[run],
+            "step_ms": {i: [steps[(run, r, i)]["step_ms"] for r in (0, 1)]
+                        for i in range(1, MESH_SEQ_STEPS + 1)},
+            f"{kind}_bytes_per_step": per_step(run, kind, "bytes"),
+            f"{kind}_ms_per_step": per_step(run, kind, "ms"),
+            "reduce_ms_per_step": per_step(run, "all_reduce", "ms"),
+            "reduce_bytes_per_step": per_step(run, "all_reduce", "bytes"),
+            "peak_gib": [done[(run, r)]["peak_bytes"] / 2 ** 30
+                         for r in (0, 1)],
+            "hbm_estimate_gib": done[(run, 0)]["hbm_estimate_bytes"] / 2 ** 30,
+            "launches": [done[(run, r)]["launches"] for r in (0, 1)],
+        }
 
     res = {"card": card, "model": f"{CKPT_MODEL}, AdamW via the trainer SDK",
            "n_layer": ELASTIC_LAYERS, "global_batch": TRAIN_BATCH,
@@ -5198,6 +5396,30 @@ def phase_mesh(train, card: str, one_steps: dict) -> dict:
     res["runs"]["fsdp"]["whole_param_bytes"] = done[("fsdp", 0)][
         "whole_param_bytes"]
     res["runs"]["tp"]["tp_leaves"] = done[("tp", 0)]["tp_leaves"]
+    for run in ("fsdp", "tp"):
+        res["runs"][run]["hbm_estimate_gib"] = \
+            done[(run, 0)]["hbm_estimate_bytes"] / 2 ** 30
+    for run in SEQ_RUNS:
+        res["runs"][run] = seq_record(run)
+    for run in ("search", "search_hit", "bo"):
+        res["runs"][run] = {
+            "mesh": done[(run, 0)]["mesh"],
+            "search": [done[(run, r)]["search"] for r in (0, 1)],
+            "builds": [done[(run, r)]["builds"] for r in (0, 1)],
+            "peak_gib": [done[(run, r)]["peak_bytes"] / 2 ** 30
+                         for r in (0, 1)],
+            "launches": [done[(run, r)]["launches"] for r in (0, 1)],
+        }
+    res["runs"]["search"]["cached_entry"] = done[("search", 0)][
+        "cached_entry"]
+    res["runs"]["search"]["hbm_estimate_gib"] = {
+        k: v / 2 ** 30
+        for k, v in done[("search", 0)]["hbm_estimates"].items()}
+    res["runs"]["bo"]["search_s"] = [done[("bo", r)]["search_s"]
+                                     for r in (0, 1)]
+    res["runs"]["bo"]["n_layer"] = SEARCH_LAYERS
+    res["train_cli_auto"] = {k: auto[k] for k in ("mesh", "loss",
+                                                 "step_ms")}
     res.update(shard_file_bytes=files, cold_restore_s=restore_s,
                cold_restore=restore_stats, step3_loss_from_restore=loss3,
                step3_loss_world1=one_steps[step + 1][0],

@@ -14,7 +14,9 @@ elastic job, master HA included) and 4 (serving: speculative decoding,
 ``serve_journaled``, the one-host fleet, the sharded gateway tier and
 cross-cell spillover) are ported.  Item 5 (multi-card training) is split:
 5a, the mesh (FSDP, DP x FSDP and planned placements, the sharded
-checkpoint restored onto another mesh), is ported; 5b-5e remain.
+checkpoint restored onto another mesh), and 5b, sequence parallelism
+(ring and Ulysses attention) and the strategy search with its cache, are
+ported; 5c-5e remain.
 """
 
 from __future__ import annotations
@@ -98,9 +100,6 @@ class Defaults:
 QUEUE_A_ITEMS = {
     "1": "Queue A item 1 of the port (the checkpoint slice's leftovers: "
          "object stores)",
-    "5b": "Queue A item 5b of the port (ring and Ulysses attention, the "
-          "strategy search with its cost model, the SDK's strategy='auto' "
-          "and strategy_cache)",
     "5c": "Queue A item 5c of the port (quant_grads, offload_opt, the "
           "offload remat and 8-bit Adam over shards)",
     "5d": "Queue A item 5d of the port (tensor-parallel decode, Megatron "
@@ -122,7 +121,6 @@ def item(key: str) -> str:
 
 
 OBJECT_STORE_ITEM = item("1")
-SEARCH_ITEM = item("5b")
 QUANT_OFFLOAD_ITEM = item("5c")
 TP_COMPUTE_ITEM = item("5d")
 REPLICA_ITEM = item("5e")

@@ -4,8 +4,8 @@ Held against ``dlrover_tpu/models/llama.py``: :class:`LlamaConfig` and its
 presets (``llama2_7b``, ``tiny``, ``small_300m``, ``medium_800m``),
 :func:`init_params` (the same parameter tree, names, shapes and stds, with
 fp32 norm gains), :func:`_rope`, :func:`_swiglu`, :func:`block_apply`,
-:func:`param_logical_axes`, :func:`_attention` (the flash and reference
-paths), :func:`segment_positions`,
+:func:`param_logical_axes`, :func:`_attention` (the flash, reference,
+ring and Ulysses paths, ``:244-283``), :func:`segment_positions`,
 :func:`forward_hidden`, :func:`forward`, :func:`uses_fused_lm_head`,
 :func:`split_batch`, :func:`loss_fn`, :func:`num_params` and
 :func:`flops_per_token`.
@@ -21,8 +21,33 @@ fp32.
 
 ``cfg.remat_block`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), the reference's per-block
-``jax.checkpoint``.  Not ported yet, and refused with an error: MoE layers,
-fp8 projections and the ring/Ulysses attention backends.
+``jax.checkpoint``.  Not ported yet, and refused with an error: MoE layers
+and fp8 projections.
+
+**Sequence parallelism.**  ``attn_impl="ring"`` or ``"ulysses"`` with a
+``mesh=`` (the port's :class:`~dlrover_tpu_torch.parallel.mesh.Mesh` of
+this rank) runs the attention over the mesh's ``tp`` axis
+(``parallel/ring_attention.py``, ``parallel/sequence.py``).  The reference
+cuts q/k/v at the attention's boundary and lets XLA place the rest; the
+port computes sequence-parallel: each rank of the ``tp`` axis runs its
+block of ``S/n`` positions through the whole model.  :func:`loss_fn`
+takes this rank's batch share with the whole sequence, splits it into
+tokens and targets first (so a block keeps its targets, the boundary
+token included) and then keeps its block; rope takes the global
+positions (``rank * S/n + arange(S/n)``); the loss is this rank's token
+mean, so that the mean over the ``tp`` group and the batch group (which
+``parallel/accelerate.py`` reduces over) is the global token mean: each
+rank holds the same number of tokens, since packed sequences are refused
+on these paths.  :func:`forward_hidden` and :func:`forward` with such a
+mesh take this rank's block of tokens.  K/V heads are repeated
+(``repeat_interleave``, the reference's ``jnp.repeat``) when ``n_kv_head
+!= n_head``.  With no mesh the flash path runs, as in the reference; with
+a mesh whose ``tp`` is 1, ring and Ulysses take their own one-block
+paths.  Because the cut needs those reductions, a mesh whose ``tp`` is
+above 1 must be a sequence-parallel job's (``accelerate.mesh_for(spec,
+seq_axis="tp")``, or ``job.mesh``), and inside a step the job's own: any
+other raises (:func:`seq_parallel`), where the reference's partitioner
+would have placed the rest.
 """
 
 from __future__ import annotations
@@ -36,7 +61,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from dlrover_tpu_torch.common.constants import MODEL_ITEM, SEARCH_ITEM
+from dlrover_tpu_torch.common.constants import MODEL_ITEM
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.cross_entropy import (
     linear_softmax_cross_entropy,
@@ -206,29 +231,25 @@ AttnFn = Callable[[torch.Tensor, Dict, LlamaConfig, torch.Tensor],
                   torch.Tensor]
 
 
+SEQ_IMPLS = ("ring", "ulysses")
+
+
 def _attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
                positions: torch.Tensor, attn_impl: str = "auto",
-               segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+               segment_ids: Optional[torch.Tensor] = None,
+               mesh=None) -> torch.Tensor:
     """Training attention: q/k/v projections, rope, attention (causal, GQA,
     the config's sliding window, ``segment_ids`` for packed sequences),
     ``wo``.  ``attn_impl`` takes the reference's ``backend`` values:
     ``"auto"`` and ``"pallas"`` run :func:`flash_attention` (the kernels on
     the card, their plain versions on the CPU); ``"reference"`` runs
     :func:`reference_attention`, the plain softmax differentiated by
-    autograd."""
-    if attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} (sequence-parallel attention over a "
-            f"mesh) comes with {SEARCH_ITEM}"
-        )
-    if attn_impl in ("auto", "pallas"):
-        attend = flash_attention
-    elif attn_impl == "reference":
-        attend = reference_attention
-    else:
+    autograd; ``"ring"`` and ``"ulysses"`` with a ``mesh`` run this rank's
+    block over the mesh's ``tp`` axis (without one, the flash path)."""
+    if attn_impl not in ("auto", "pallas", "reference") + SEQ_IMPLS:
         raise ValueError(
-            f"attn_impl must be 'auto', 'pallas' or 'reference', got "
-            f"{attn_impl!r}"
+            f"attn_impl must be 'auto', 'pallas', 'reference', 'ring' or "
+            f"'ulysses', got {attn_impl!r}"
         )
     B, S, _ = x.shape
     H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.head_dim
@@ -238,6 +259,36 @@ def _attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
     v = (x @ layer["wv"].to(dt)).reshape(B, S, KV, D)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
+    seq = attn_impl in SEQ_IMPLS and mesh is not None
+    if KV != H and seq:
+        # Ring/Ulysses shard over heads and need the full head count; the
+        # flash path handles GQA in-kernel.
+        rep = H // KV
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    if cfg.sliding_window > 0 and attn_impl in SEQ_IMPLS:
+        raise NotImplementedError(
+            "sliding_window requires the flash attention path"
+        )
+    if seq:
+        if segment_ids is not None:
+            raise NotImplementedError(
+                "packed sequences (segment_ids) require the flash "
+                f"attention path, not {attn_impl}"
+            )
+        if attn_impl == "ring":
+            from dlrover_tpu_torch.parallel.ring_attention import \
+                ring_attention
+
+            out = ring_attention(q, k, v, mesh, causal=True)
+        else:
+            from dlrover_tpu_torch.parallel.sequence import \
+                ulysses_attention
+
+            out = ulysses_attention(q, k, v, mesh, causal=True)
+        return out.reshape(B, S, H * D) @ layer["wo"].to(dt)
+    attend = reference_attention if attn_impl == "reference" \
+        else flash_attention
     o = attend(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                causal=True, segment_ids=segment_ids,
                window=cfg.sliding_window)
@@ -245,10 +296,37 @@ def _attention(x: torch.Tensor, layer: Dict, cfg: LlamaConfig,
     return out @ layer["wo"].to(dt)
 
 
+def seq_parallel(attn_impl: str, mesh) -> bool:
+    """True when the model runs this rank's block of the sequence: a
+    sequence-parallel attention over a mesh whose ``tp`` axis is above 1.
+    That mesh must be a sequence-parallel job's (``tp`` its sequence axis)
+    and, inside a job's step, the job's own; otherwise this raises
+    (:func:`~dlrover_tpu_torch.parallel.mesh.claim_sequence`)."""
+    if attn_impl not in SEQ_IMPLS or mesh is None \
+            or mesh.axis_size("tp") == 1:
+        return False
+    from dlrover_tpu_torch.parallel.mesh import claim_sequence
+
+    claim_sequence(mesh, f"attn_impl={attn_impl!r}")
+    return True
+
+
+def seq_block(t: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of the sequence dimension (dim 1) of ``t``."""
+    n, i = mesh.axis_size("tp"), mesh.coords["tp"]
+    S = t.shape[1]
+    if S % n:
+        raise ValueError(f"sequence length {S} is not divisible by the "
+                         f"sequence axis tp={n}")
+    Sb = S // n
+    return t[:, i * Sb:(i + 1) * Sb]
+
+
 def block_apply(layer: Dict, x: torch.Tensor, cfg: LlamaConfig,
                 positions: torch.Tensor, *,
                 attn_fn: Optional[AttnFn] = None, attn_impl: str = "auto",
-                segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                segment_ids: Optional[torch.Tensor] = None,
+                mesh=None) -> torch.Tensor:
     """One dense transformer block: ``x + attn(norm1(x))``, then
     ``+ swiglu(norm2(.))``.  ``attn_fn(h, layer, cfg, positions)`` swaps
     the attention (the KV-cache decoder plugs in here); without it the
@@ -262,7 +340,8 @@ def block_apply(layer: Dict, x: torch.Tensor, cfg: LlamaConfig,
     if attn_fn is not None:
         attn = attn_fn(h, layer, cfg, positions)
     else:
-        attn = _attention(h, layer, cfg, positions, attn_impl, segment_ids)
+        attn = _attention(h, layer, cfg, positions, attn_impl, segment_ids,
+                          mesh)
     x = x + attn
     h = rmsnorm(x, layer["ln2"], eps=cfg.rms_eps)
     return x + _swiglu(h, layer["mlp"], cfg.dtype)
@@ -281,14 +360,15 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
 
 
 def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
-                   attn_impl: str = "auto",
+                   attn_impl: str = "auto", mesh=None,
                    segment_ids: Optional[torch.Tensor] = None,
                    fp8_states=None):
     """tokens [B, S] -> (final-norm hidden [B, S, D], aux dict).
 
     ``segment_ids`` [B, S] enables packed-sequence training: attention is
     restricted to same-segment pairs and rope positions reset at each
-    segment boundary."""
+    segment boundary.  Under sequence parallelism (:func:`seq_parallel`)
+    ``tokens`` is this rank's block and the positions are global."""
     if fp8_states is not None:
         raise NotImplementedError(
             f"fp8 projections (fp8_states) come with {MODEL_ITEM}"
@@ -298,9 +378,12 @@ def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
     if segment_ids is not None:
         positions = segment_positions(segment_ids)
     else:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
+        start = mesh.coords["tp"] * S if seq_parallel(attn_impl, mesh) \
+            else 0
+        positions = torch.arange(start, start + S,
+                                 device=tokens.device).expand(B, S)
     apply = functools.partial(block_apply, attn_impl=attn_impl,
-                              segment_ids=segment_ids)
+                              segment_ids=segment_ids, mesh=mesh)
     for layer in params["layers"]:
         if cfg.remat_block:
             x = checkpoint(apply, layer, x, cfg, positions,
@@ -313,11 +396,12 @@ def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
 
 
 def forward(params: Dict, tokens: torch.Tensor, cfg: LlamaConfig, *,
-            attn_impl: str = "auto",
+            attn_impl: str = "auto", mesh=None,
             segment_ids: Optional[torch.Tensor] = None, fp8_states=None):
     """tokens [B, S] -> (logits [B, S, vocab] fp32, aux dict)."""
     x, aux = forward_hidden(params, tokens, cfg, attn_impl=attn_impl,
-                            segment_ids=segment_ids, fp8_states=fp8_states)
+                            mesh=mesh, segment_ids=segment_ids,
+                            fp8_states=fp8_states)
     return (x @ params["lm_head"].to(cfg.dtype)).float(), aux
 
 
@@ -335,7 +419,7 @@ def split_batch(batch: Dict) -> tuple:
 
 
 def loss_fn(params: Dict, batch: Dict, cfg: LlamaConfig, *,
-            attn_impl: str = "auto", moe_aux_weight: float = 1e-2,
+            attn_impl: str = "auto", mesh=None, moe_aux_weight: float = 1e-2,
             fused_lm_head: Optional[bool] = None,
             fp8_states=None) -> torch.Tensor:
     """Next-token loss (fp32 scalar).  ``fused_lm_head`` (default: on for
@@ -345,8 +429,14 @@ def loss_fn(params: Dict, batch: Dict, cfg: LlamaConfig, *,
     ([B, S+1] or [B, S]) enables packed-sequence training with the
     reference's ``valid`` masks: pairs that cross a segment boundary, and
     padding (segment < 0), carry no loss; the [B, S] form also masks the
-    last position, whose target segment it cannot see."""
+    last position, whose target segment it cannot see.  Under sequence
+    parallelism (``attn_impl="ring" | "ulysses"`` with a ``mesh`` whose
+    ``tp`` is above 1) ``batch`` is this rank's batch share, the whole
+    sequence, and the loss is the token mean of this rank's block (see the
+    module docstring)."""
     tokens, targets = split_batch(batch)
+    if seq_parallel(attn_impl, mesh):
+        tokens, targets = seq_block(tokens, mesh), seq_block(targets, mesh)
     seg_full = batch.get("segment_ids")
     seg = valid = None
     if seg_full is not None:
@@ -366,12 +456,14 @@ def loss_fn(params: Dict, batch: Dict, cfg: LlamaConfig, *,
         fused_lm_head = uses_fused_lm_head(cfg)
     if fused_lm_head:
         x, aux = forward_hidden(params, tokens, cfg, attn_impl=attn_impl,
-                                segment_ids=seg, fp8_states=fp8_states)
+                                mesh=mesh, segment_ids=seg,
+                                fp8_states=fp8_states)
         per_tok = linear_softmax_cross_entropy(
             x, params["lm_head"].to(cfg.dtype), targets)
     else:
         logits, aux = forward(params, tokens, cfg, attn_impl=attn_impl,
-                              segment_ids=seg, fp8_states=fp8_states)
+                              mesh=mesh, segment_ids=seg,
+                              fp8_states=fp8_states)
         per_tok = softmax_cross_entropy(logits, targets)
     if valid is not None:
         ce = torch.sum(per_tok * valid) / torch.clamp_min(torch.sum(valid),

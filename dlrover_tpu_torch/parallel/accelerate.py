@@ -1,7 +1,10 @@
 """``accelerate()`` — the port's counterpart of
 ``dlrover_tpu/parallel/accelerate.py`` (``Strategy``, ``infer_param_specs``
-``:176``, ``AcceleratedJob``, ``accelerate``, ``_build_train_step``,
-``_compile_candidate``, ``REMAT_POLICIES`` ``:43``).
+``:176``, ``AcceleratedJob``, ``accelerate`` ``:440-680``,
+``_build_train_step``, ``_compile_candidate``, ``REMAT_POLICIES`` ``:43``,
+``_bcast_blob`` ``:65``, ``_bcast_strategy`` ``:91``, ``aot_analyze``
+``:682``, ``search`` ``:972``, ``_device_hbm_bytes`` ``:1151`` and
+``_score`` ``:1174``).
 
 Given a loss function, a parameter initialiser, an optimizer factory and a
 sample batch, it returns ``train_step(state, batch) -> (state, {"loss",
@@ -53,6 +56,23 @@ axes the batch is sharded over: each process is given its
 axes (``tp``) compute on the same rows.  A ``tp``-placed weight is
 gathered; tensor-parallel (Megatron) compute is a later item.
 
+**Sequence parallelism.**  A ``batch_axes`` spec whose second entry is
+``"tp"`` (``P(("dp", "fsdp"), "tp")``) makes ``tp`` the sequence axis
+(:attr:`AcceleratedJob.seq_axis`): the ranks of a ``tp`` group are given
+the same rows, whole, and the loss (``models.llama.loss_fn(attn_impl=
+"ring" | "ulysses", mesh=job.mesh)``) runs each rank's block of
+positions.  The ranks of the group then compute different tokens, so
+``tp`` joins the batch axes in every reduction: the loss and each
+gradient are averaged over ``batch axes x tp``.  The job alone makes that
+choice: it runs on ``mesh_for(spec, seq_axis="tp")`` (``job.mesh``), the
+mesh the loss must be given, and its step raises when the two disagree:
+a loss that cuts the sequence over any other mesh (a ``Strategy(mesh=
+MeshSpec(tp=2))`` without the sequence axis, or a searched candidate on
+another mesh), or a sequence-parallel job whose loss ran the whole
+sequence (``parallel.mesh.stepping``/``claim_sequence``).  Under
+``strategy="auto"``/``"bo"`` a sequence-parallel loss therefore needs
+``loss_fn_builder`` to give each candidate's loss its own mesh.
+
 Remat: ``"block"`` is the model's per-block remat, set by
 ``loss_fn_builder`` (e.g. ``cfg.remat_block=True``); ``"full"``
 checkpoints the whole loss (``torch.utils.checkpoint``, non-reentrant);
@@ -60,12 +80,33 @@ checkpoints the whole loss (``torch.utils.checkpoint``, non-reentrant);
 outputs (``aten.mm``/``addmm``, and for ``"dots"`` the batched
 ``bmm``/``baddbmm`` too).
 
-A sequence of ``Strategy`` candidates is swept as the reference sweeps
-them: a candidate stands only when it builds on every process
-(``_all_ok``); the first that stands wins (no cost model yet).  Refused by
-name: ``pp`` and ``ep`` axes, several devices a process, the ``offload``
-remat, optimizer offload, quantised gradients and 8-bit Adam over a
-sharded leaf, fp8, frozen (LoRA) parameters and the strategy search.
+**The strategy search.**  ``strategy="auto"`` sweeps one candidate per
+mesh of :func:`~.mesh.candidate_specs` (a sequence of ``Strategy`` is
+swept the same way): a candidate stands only when it builds on every
+process (``_all_ok``); each is scored, the leader's score broadcast to
+every process, and the lowest wins.  ``profile_steps > 0`` scores a
+candidate by timed steps (one warm-up step, then the mean of
+``profile_steps`` steps on a zeros batch, the card synchronised before the
+clock is read); ``profile_steps=0`` by the port's cost model
+(:func:`step_cost`): the reference's blend ``flops / 1e12 + bytes / 1e11``
+(``:1201-1205``) of what the port's step does on a rank, counted from the
+placements ``_build_job`` makes, since the port has no compiler to ask.
+With ``cache=`` (a :class:`~.strategy_search.StrategyCache`, its path, or
+a :class:`~.strategy_search.MasterStrategyCache`) the leader reads the
+entry of the run's :func:`~.strategy_search.fingerprint` and broadcasts
+its hit or miss; a hit goes first and, when it builds everywhere, is taken
+without scoring the rest; the winner is written back (a forced
+``grad_accum`` never is).  ``strategy="bo"`` runs :func:`search`:
+:class:`~.strategy_search.BayesStrategySearch` over
+:func:`~.strategy_search.default_space`, every process running the same
+loop with the leader's measurement broadcast after each evaluation.
+:data:`COUNTS` counts the jobs built, and each returned job carries its
+search's record (``job.search``).
+
+Refused by name: ``pp`` and ``ep`` axes, several devices a process, the
+``offload`` remat, optimizer offload, quantised gradients and 8-bit Adam
+over a sharded leaf (item 5c; in a search they score ``inf``), fp8 and
+frozen (LoRA) parameters.
 """
 
 from __future__ import annotations
@@ -86,7 +127,6 @@ from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common.constants import (
     MODEL_ITEM,
     QUANT_OFFLOAD_ITEM,
-    SEARCH_ITEM,
     TP_COMPUTE_ITEM,
 )
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
@@ -98,11 +138,15 @@ from dlrover_tpu_torch.parallel.mesh import (
     Mesh,
     MeshSpec,
     build_mesh,
+    candidate_specs,
     check_axes,
+    stepping,
 )
 from dlrover_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
     NamedSharding,
     PartitionSpec,
+    Placement,
     Rules,
     box_slices,
     named_sharding_tree,
@@ -112,6 +156,10 @@ from dlrover_tpu_torch.parallel.sharding import (
 )
 
 REMAT_POLICIES = ("none", "block", "full", "dots", "dots_no_batch")
+#: Jobs built by ``_build_job`` (candidates included), for counting what a
+#: search or a cache hit built.
+COUNTS = {"builds": 0}
+_BCAST_BYTES = 1024  # fixed blob size for the leader->all broadcast
 
 
 @dataclasses.dataclass
@@ -386,10 +434,25 @@ class AcceleratedJob:
     dp: int = 1  # the batch group's size: processes the batch is split over
     mesh: Optional[Mesh] = None
     batch_axes: Tuple[str, ...] = BATCH_AXES
+    seq_axis: Optional[str] = None  # "tp" under sequence parallelism
     state_sharding: Any = None
     batch_sharding: Any = None
+    cost: Optional[Dict[str, Any]] = None  # step_cost(), once scored
+    memory: Optional[Dict[str, Any]] = None  # aot_analyze's estimate
+    search: Optional[Dict[str, Any]] = None  # the search that chose it
+    sample_batch: Any = dataclasses.field(default=None, repr=False)
+    specs_of: Optional[Callable] = dataclasses.field(default=None,
+                                                     repr=False)
     _comms: Dict[int, collectives.LeafComm] = dataclasses.field(
         default_factory=dict, repr=False)
+
+    @property
+    def reduce_axes(self) -> Tuple[str, ...]:
+        """The axes the loss and the gradients are averaged over: the batch
+        axes and, under sequence parallelism, the sequence axis."""
+        extra = (self.seq_axis,) if self.seq_axis else ()
+        return tuple(a for a in AXIS_ORDER
+                     if a in self.batch_axes or a in extra)
 
     @property
     def batch_rank(self) -> Tuple[int, int]:
@@ -439,45 +502,75 @@ class AcceleratedJob:
         return tree_utils.restore_to_target(src, state)
 
 
-def _batch_axes(batch_axes: Any, sample_batch: Dict) -> Tuple[str, ...]:
-    """The mesh axes each process's batch share is cut over."""
+def _batch_axes(batch_axes: Any, sample_batch: Dict
+                ) -> Tuple[Tuple[str, ...], Optional[str]]:
+    """``(axes, seq_axis)``: the mesh axes each process's batch share is
+    cut over, and the sequence axis (a spec's second entry, ``"tp"``) or
+    ``None``."""
     if batch_axes is None:
-        return BATCH_AXES
+        return BATCH_AXES, None
     if isinstance(batch_axes, dict):
         specs = {k: _as_spec(batch_axes[k]) for k in sample_batch}
     else:
         specs = dict.fromkeys(sample_batch, _as_spec(batch_axes))
-    found = set()
+    found, seqs = set(), set()
     for k, arr in sample_batch.items():
         s = specs[k]
         if np.ndim(arr) == 0:
             continue
-        if any(part is not None for part in s[1:]):
-            raise NotImplementedError(
-                f"batch_axes[{k!r}] = {s!r}: sharding a batch leaf past its "
-                f"first dimension (sequence parallelism) comes with "
-                f"{SEARCH_ITEM}")
+        if any(part is not None for part in s[2:]):
+            raise ValueError(
+                f"batch_axes[{k!r}] = {s!r}: a batch leaf is cut over its "
+                f"batch and sequence dimensions only")
+        second = s[1] if len(s) > 1 else None
+        if second is not None:
+            if second != "tp":
+                raise ValueError(
+                    f"batch_axes[{k!r}] = {s!r}: the sequence axis must be "
+                    f"'tp' (ring and Ulysses attention run over it)")
+            if np.ndim(arr) < 2:
+                raise ValueError(f"batch_axes[{k!r}] = {s!r}: a "
+                                 f"{np.ndim(arr)}-d leaf has no sequence "
+                                 f"dimension")
+        seqs.add(second)
         first = s[0] if len(s) else None
         found.add(() if first is None else (
             tuple(first) if isinstance(first, tuple) else (first,)))
     if len(found) > 1:
         raise ValueError(f"batch_axes: every batch leaf must be cut over "
                          f"the same axes, got {sorted(found)}")
-    return found.pop() if found else ()
+    if len(seqs) > 1:
+        raise ValueError("batch_axes: every batch leaf must be cut over the "
+                         "same sequence axis")
+    axes = found.pop() if found else ()
+    seq = seqs.pop() if seqs else None
+    if seq is not None and seq in axes:
+        raise ValueError(f"batch_axes: {seq!r} cuts both the batch and the "
+                         f"sequence")
+    return axes, seq
 
 
 _MESHES: Dict[tuple, Mesh] = {}
 
 
-def _mesh_for(spec: MeshSpec) -> Mesh:
-    """One mesh (and its process groups) per spec and process group: the
-    groups are made once, on every rank alike."""
-    key = (spec.sizes, dist_env.generation() if dist.is_initialized()
-           else None)
-    mesh = _MESHES.get(key)
-    if mesh is None:
-        mesh = _MESHES[key] = build_mesh(spec)
-    return mesh
+def mesh_for(spec: Union[MeshSpec, Dict[str, int]],
+             seq_axis: Optional[str] = None) -> Mesh:
+    """The mesh ``accelerate`` builds for ``spec`` over this process group
+    (one mesh, and one set of process groups, per spec and group: the
+    groups are made once, on every rank alike), with ``seq_axis`` as its
+    sequence axis.  A sequence-parallel job runs on
+    ``mesh_for(spec, seq_axis="tp")``, and its loss
+    (``llama.loss_fn(attn_impl="ring", mesh=...)``) takes that mesh from
+    here; a loss that cuts the sequence over any other mesh raises."""
+    if not isinstance(spec, MeshSpec) or -1 in spec.sizes:
+        spec = resolve_mesh(spec, dist_env.world_size())
+    gen = dist_env.generation() if dist.is_initialized() else None
+    base, key = (spec.sizes, gen, None), (spec.sizes, gen, seq_axis)
+    if base not in _MESHES:
+        _MESHES[base] = build_mesh(spec)
+    if key not in _MESHES:
+        _MESHES[key] = _MESHES[base].sequence(seq_axis)
+    return _MESHES[key]
 
 
 def _build_train_step(loss_fn: Callable, strategy: Strategy,
@@ -486,12 +579,14 @@ def _build_train_step(loss_fn: Callable, strategy: Strategy,
     device = job.device
     lfn = _with_remat(loss_fn, strategy.remat)
     mesh = job.mesh
-    batch = [a for a in AXIS_ORDER if a in job.batch_axes]
+    batch = list(job.reduce_axes)
     bgroup = mesh.group(batch) if mesh is not None else None
     reducer = (_GradReducer(device, bgroup, mesh.axes_size(batch))
                if bgroup is not None else None)
     world_group = (mesh.group(AXIS_ORDER)
                    if mesh is not None and mesh.size > 1 else None)
+    seq_cut = mesh.axis_size(job.seq_axis) \
+        if mesh is not None and job.seq_axis else 1
 
     def grad_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
         if not job.sharded:
@@ -518,10 +613,18 @@ def _build_train_step(loss_fn: Callable, strategy: Strategy,
         else:
             micro = [batch]
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
-        for mb in micro:
-            loss = lfn(view, mb)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach().float()
+        with stepping(mesh) as step:
+            for mb in micro:
+                loss = lfn(view, mb)
+                loss.backward()
+                loss_sum = loss_sum + loss.detach().float()
+        if seq_cut > 1 and not step["cut"]:
+            raise ValueError(
+                f"the job cuts the sequence over tp={seq_cut} (batch_axes "
+                f"or Strategy.rules['seq']), but its loss ran the whole "
+                f"sequence on every rank: give the loss attn_impl='ring' or "
+                f"'ulysses' and the job's mesh (mesh_for(spec, "
+                f"seq_axis='tp'))")
         for p in leaves:
             # A parameter the loss does not reach has a zero gradient, as
             # in JAX, so the optimizer still updates it (torch's AdamW
@@ -561,6 +664,109 @@ def _all_ok(ok: bool) -> bool:
     return all(dist_env.allgather_ints(1 if ok else 0))
 
 
+def _bcast_blob(payload: Optional[bytes]) -> bytes:
+    """The leader's small blob on every process: one fixed-size
+    zero-padded buffer broadcast over the host group, so the collective's
+    shape is the same everywhere.  An oversize payload goes out as a miss
+    (empty): raising on the leader alone would leave the others blocked."""
+    buf = torch.zeros(_BCAST_BYTES, dtype=torch.uint8)
+    if payload:
+        if len(payload) > _BCAST_BYTES:
+            logger.warning("strategy blob %dB exceeds the %dB broadcast "
+                           "buffer; treating as a cache miss", len(payload),
+                           _BCAST_BYTES)
+        else:
+            buf[:len(payload)] = torch.frombuffer(bytearray(payload),
+                                                  dtype=torch.uint8)
+    dist.broadcast(buf, src=0, group=dist_env.host_group())
+    return bytes(buf.numpy().tobytes()).rstrip(b"\x00")
+
+
+def _bcast_strategy(hit) -> Optional[Strategy]:
+    """The leader's cache hit (or miss) on every process."""
+    import json
+
+    from dlrover_tpu_torch.parallel.strategy_search import (
+        strategy_from_dict,
+        strategy_to_dict,
+    )
+
+    raw = _bcast_blob(json.dumps(strategy_to_dict(hit)).encode()
+                      if hit else b"")
+    return strategy_from_dict(json.loads(raw.decode())) if raw else None
+
+
+def _leader_score(t: float) -> float:
+    """The leader's score on every process."""
+    if dist_env.world_size() <= 1:
+        return t
+    buf = torch.tensor([t], dtype=torch.float64)
+    dist.broadcast(buf, src=0, group=dist_env.host_group())
+    return float(buf.item())
+
+
+def _is_leader() -> bool:
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+class _Abstract:
+    """The shapes and types of the parameters (``init_fn`` run on fake
+    tensors: no memory, no draw from a real generator) and the optimizer's
+    class, made once a call, for the fingerprint, the memory model and the
+    cost model."""
+
+    def __init__(self, init_fn: Callable, optimizer: Callable,
+                 device: torch.device):
+        self.init_fn, self.optimizer, self.device = init_fn, optimizer, device
+        self._made = None
+
+    def get(self) -> Tuple[Any, str]:
+        if self._made is None:
+            from torch._subclasses.fake_tensor import FakeTensorMode
+
+            gen = torch.Generator(device=self.device)
+            with FakeTensorMode():
+                params = self.init_fn(gen)
+                opt = self.optimizer(tree_leaves(params))
+            self._made = (params, type(opt).__name__)
+        return self._made
+
+    @property
+    def params(self) -> Any:
+        return self.get()[0]
+
+    def fingerprint(self, sample_batch: Any, n: int) -> str:
+        from dlrover_tpu_torch.parallel.strategy_search import fingerprint
+
+        params, opt = self.get()
+        return fingerprint(params, sample_batch, n, [f"optimizer:{opt}"])
+
+
+def _refuse_later(devices, device, fp8_init, frozen, caller: str):
+    """``device``, or the one device ``devices`` names; raise for several
+    devices a process (item 5d), fp8 and frozen parameters (item 6)."""
+    if fp8_init is not None:
+        raise NotImplementedError(
+            f"{caller}(fp8_init=...): fp8 comes with {MODEL_ITEM}")
+    if frozen is not None:
+        raise NotImplementedError(
+            f"frozen parameters (LoRA) come with {MODEL_ITEM}")
+    if devices is None:
+        return device
+    devices = list(devices)
+    if len(devices) != 1:
+        raise NotImplementedError(
+            f"{caller}(devices=...) with {len(devices)} devices: more than "
+            f"one device a process comes with {TP_COMPUTE_ITEM}")
+    return devices[0] if device is None else device
+
+
+def _cache_of(cache: Any):
+    from dlrover_tpu_torch.parallel.strategy_search import StrategyCache
+
+    return StrategyCache(cache) if isinstance(cache, str) else cache
+
+
 def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
                sample_batch: Any,
                strategy: Union[str, Strategy, Sequence[Strategy]] = "auto",
@@ -581,45 +787,18 @@ def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
     (fp32 masters, whole); ``optimizer`` a factory from
     ``dlrover_tpu_torch.optim`` (``adamw(lr)``, ``adam8bit(lr)``);
     ``sample_batch`` a dict of arrays with the global batch dim.
-    ``strategy`` is a ``Strategy`` or a sequence of them (the candidates).
+    ``strategy``: a ``Strategy`` (built as given), a sequence of them (the
+    candidates, scored), ``"auto"`` (one candidate per mesh of
+    ``candidate_specs``) or ``"bo"`` (:func:`search`).  ``profile_steps``,
+    ``cache`` and ``search_evals``: see the module docstring.
     ``param_specs``: ``None`` (:func:`infer_param_specs`), ``"planner"``,
     a tree of PartitionSpecs (or tuples of axes) or a callable of the
     normalized strategy.  ``batch_axes``: a PartitionSpec, or a dict of
-    them per batch leaf, whose first entry names the batch axes.
-    ``devices`` may name this process's one device.  ``grad_accum``
-    forces ``Strategy.grad_accum``, as in the reference.  The reference's
-    ``profile_steps``, ``search_evals`` and ``cache`` (the strategy
-    search) and ``fp8_init`` raise at any value but their defaults."""
-    for name, asked in (("profile_steps", profile_steps != 0),
-                        ("search_evals", search_evals != 10),
-                        ("cache", cache is not None)):
-        if asked:
-            raise NotImplementedError(
-                f"accelerate({name}=...): the strategy search comes with "
-                f"{SEARCH_ITEM}"
-            )
-    if devices is not None:
-        devices = list(devices)
-        if len(devices) != 1:
-            raise NotImplementedError(
-                f"accelerate(devices=...) with {len(devices)} devices: more "
-                f"than one device a process comes with "
-                f"{TP_COMPUTE_ITEM}")
-        if device is None:
-            device = devices[0]
-    if fp8_init is not None:
-        raise NotImplementedError(
-            f"accelerate(fp8_init=...): fp8 comes with {MODEL_ITEM}"
-        )
-    if isinstance(strategy, str):
-        raise NotImplementedError(
-            f"strategy={strategy!r}: the strategy search comes with "
-            f"{SEARCH_ITEM}; pass a Strategy"
-        )
-    if frozen is not None:
-        raise NotImplementedError(
-            f"frozen parameters (LoRA) come with {MODEL_ITEM}"
-        )
+    them per batch leaf, whose first entry names the batch axes and whose
+    second, ``"tp"``, the sequence axis.  ``devices`` may name this
+    process's one device.  ``grad_accum`` forces ``Strategy.grad_accum``,
+    as in the reference.  ``fp8_init`` and ``frozen`` raise (item 6)."""
+    device = _refuse_later(devices, device, fp8_init, frozen, "accelerate")
     build = functools.partial(
         _build_job, loss_fn=loss_fn, init_fn=init_fn, optimizer=optimizer,
         sample_batch=sample_batch, grad_accum=grad_accum,
@@ -627,8 +806,65 @@ def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
         param_specs=param_specs, batch_axes=batch_axes)
     if isinstance(strategy, Strategy):
         return build(strategy)
+    dev = resolve_device(device)
+    abstract = _Abstract(init_fn, optimizer, dev)
+    n = dist_env.world_size()
+    record: Dict[str, Any] = {"kind": "candidates", "scores": [],
+                              "cache_hit": False}
+    if isinstance(strategy, str):
+        if strategy == "auto":
+            candidates = [Strategy(mesh=s) for s in candidate_specs(n)]
+            record["kind"] = "auto"
+        elif strategy == "bo":
+            job_out: dict = {}
+            best = search(
+                loss_fn=loss_fn, init_fn=init_fn, optimizer=optimizer,
+                sample_batch=sample_batch, param_specs=param_specs,
+                batch_axes=batch_axes, device=dev,
+                profile_steps=max(2, profile_steps), max_evals=search_evals,
+                grad_accum=grad_accum, cache=cache, job_out=job_out,
+                loss_fn_builder=loss_fn_builder, _abstract=abstract)
+            if job_out.get("job") is not None:
+                logger.info("accelerate: selected %s (from search)",
+                            best.describe())
+                return job_out["job"]
+            candidates = [best]
+            record = dict(job_out.get("record", {}), kind="bo")
+        else:
+            raise ValueError(f"strategy must be a Strategy, a sequence of "
+                             f"them, 'auto' or 'bo', got {strategy!r}")
+    else:
+        candidates = list(strategy)
+    if loss_fn_builder is None and any(c.remat == "block"
+                                       for c in candidates):
+        raise ValueError(
+            "Strategy.remat='block' requires accelerate(loss_fn_builder=...)"
+            " to set the model's per-block remat (e.g. cfg.remat_block=True)"
+        )
+
+    # A hit goes first and short-circuits the sweep, with every candidate
+    # behind it as fallback; the leader reads the cache and broadcasts its
+    # hit or miss, so the processes never diverge on a flaky cache read.
+    cache_obj = fp = None
+    cache_hit = False
+    if cache is not None and strategy == "auto":
+        cache_obj = _cache_of(cache)
+        fp = abstract.fingerprint(sample_batch, n)
+        hit = cache_obj.get(fp) if _is_leader() else None
+        if n > 1:
+            hit = _bcast_strategy(hit)
+        record["fingerprint"] = fp
+        if hit is not None:
+            if grad_accum is not None:
+                hit = dataclasses.replace(hit, grad_accum=grad_accum)
+            logger.info("accelerate: strategy cache hit %s", hit.describe())
+            candidates = [hit] + candidates
+            cache_hit = True
+
+    best: Optional[AcceleratedJob] = None
+    best_score = float("inf")
     rejections: List[str] = []
-    for cand in strategy:
+    for i, cand in enumerate(candidates):
         try:
             job = build(cand)
         except (NotImplementedError, ValueError) as e:
@@ -640,11 +876,294 @@ def accelerate(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
                 rejections.append(f"{cand.describe()}: rejected on another "
                                   "process (see its logs)")
             continue
-        logger.info("accelerate: selected %s", job.strategy.describe())
-        return job
-    raise RuntimeError(
-        f"no viable strategy found — {len(strategy)} candidate(s) "
-        f"rejected: {'; '.join(rejections) or 'none given'}")
+        if cache_hit and i == 0:
+            best = job
+            record["cache_hit"] = True
+            break
+        if len(candidates) == 1:
+            best = job
+            break
+        score = _leader_score(_score(job, profile_steps, abstract))
+        record["scores"].append([job.strategy.describe(), score])
+        logger.info("strategy %s scored %.4g", cand.describe(), score)
+        if score < best_score:
+            best, best_score = job, score
+    if best is None:
+        raise RuntimeError(
+            f"no viable strategy found — {len(candidates)} candidate(s) "
+            f"rejected: {'; '.join(rejections) or 'none given'}")
+    logger.info("accelerate: selected %s", best.strategy.describe())
+    if _is_leader() and cache_obj is not None and fp is not None:
+        # A forced grad_accum is this run's configuration, not the
+        # strategy's: it is never persisted.
+        to_cache = best.strategy
+        if grad_accum is not None:
+            to_cache = dataclasses.replace(to_cache, grad_accum=1)
+        cache_obj.put(fp, to_cache)
+    record.update(winner=best.strategy.describe(), rejections=rejections)
+    best.search = record
+    return best
+
+
+def aot_analyze(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
+                sample_batch: Any, strategy: Strategy,
+                param_specs: Any = None, batch_axes: Any = None,
+                devices: Any = None, fp8_init: Optional[Callable] = None,
+                loss_fn_builder: Optional[Callable] = None,
+                frozen: Any = None,
+                device: DeviceLike = None) -> AcceleratedJob:
+    """Build one explicit strategy and return its job with the cost model's
+    counts (``job.cost``, :func:`step_cost`) and the memory model's
+    estimate (``job.memory["estimate_bytes"]``, the reference's
+    ``estimate_step_hbm_bytes`` with its TPU-fitted calibration) attached;
+    no state is created and no step is run.  The reference reads XLA's
+    buffer assignment here; the port has none to read."""
+    from dlrover_tpu_torch.parallel.strategy_search import \
+        estimate_step_hbm_bytes
+
+    job = accelerate(loss_fn=loss_fn, init_fn=init_fn, optimizer=optimizer,
+                     sample_batch=sample_batch, strategy=strategy,
+                     param_specs=param_specs, batch_axes=batch_axes,
+                     devices=devices, fp8_init=fp8_init,
+                     loss_fn_builder=loss_fn_builder, frozen=frozen,
+                     device=device)
+    abstract = _Abstract(init_fn, optimizer, job.device)
+    job.cost = step_cost(job, abstract.params)
+    job.memory = {"estimate_bytes": estimate_step_hbm_bytes(
+        abstract.params, sample_batch,
+        dataclasses.replace(job.strategy, mesh=job.mesh.spec))}
+    return job
+
+
+def search(*, loss_fn: Callable, init_fn: Callable, optimizer: Callable,
+           sample_batch: Any, param_specs: Any = None,
+           batch_axes: Any = None, devices: Any = None,
+           profile_steps: int = 3, max_evals: int = 10,
+           grad_accum: Optional[int] = None,
+           warm_start: Sequence[Strategy] = (), cache: Any = None,
+           job_out: Optional[dict] = None,
+           fp8_init: Optional[Callable] = None,
+           loss_fn_builder: Optional[Callable] = None, frozen: Any = None,
+           device: DeviceLike = None, _abstract: Optional[_Abstract] = None
+           ) -> Strategy:
+    """Bayesian strategy search with a timed objective and a persistent
+    cache (the reference's ``search``).
+
+    Every process runs the same loop: the leader's cache hit or miss is
+    broadcast before anyone searches; a candidate stands only if it builds
+    on every process; after each evaluation the leader's measured time is
+    broadcast, so every process feeds the GP the same observations and
+    picks the same next point and winner.  ``profile_steps > 0`` times
+    that many steps after a warm-up step; ``0`` scores by the cost model.
+    ``job_out`` receives ``"record"`` (the evaluated points and the
+    leader's scores) and, in a one-process run, the winner's job under
+    ``"job"``."""
+    from dlrover_tpu_torch.parallel.strategy_search import (
+        REMAT_CHOICES,
+        BayesStrategySearch,
+        default_space,
+        prune_space_by_memory,
+    )
+
+    dev = resolve_device(_refuse_later(devices, device, fp8_init, frozen,
+                                       "search"))
+    n = dist_env.world_size()
+    multiproc = n > 1
+    abstract = _abstract or _Abstract(init_fn, optimizer, dev)
+    cache_obj = _cache_of(cache) if cache is not None else None
+    fp = abstract.fingerprint(sample_batch, n)
+    record: Dict[str, Any] = {"fingerprint": fp, "evaluated": [],
+                              "cache_hit": False}
+    if job_out is not None:
+        job_out["record"] = record
+
+    def forced(s: Strategy) -> Strategy:
+        if grad_accum is not None and s.grad_accum != grad_accum:
+            return dataclasses.replace(s, grad_accum=grad_accum)
+        return s
+
+    hit: Optional[Strategy] = None
+    if _is_leader() and cache_obj is not None:
+        hit = cache_obj.get(fp)
+    if multiproc:
+        hit = _bcast_strategy(hit)
+    if hit is not None:
+        hit = forced(hit)
+        record["cache_hit"] = True
+        logger.info("strategy search: cache hit %s -> %s", fp,
+                    hit.describe())
+        return hit
+
+    build = functools.partial(
+        _build_job, loss_fn=loss_fn, init_fn=init_fn, optimizer=optimizer,
+        sample_batch=sample_batch, grad_accum=grad_accum,
+        loss_fn_builder=loss_fn_builder, device=dev,
+        param_specs=param_specs, batch_axes=batch_axes)
+    best_job: dict = {}
+
+    def objective(s: Strategy) -> float:
+        s = forced(s)
+        job, err = None, None
+        try:
+            job = build(s)
+        except Exception as e:  # noqa: BLE001 - the point is infeasible
+            err = e
+        # A build that failed on some process is agreed on before anyone
+        # runs the timed steps (collectives).
+        if not _all_ok(job is not None):
+            raise err or RuntimeError(
+                f"{s.describe()} infeasible on a peer process")
+        t = _leader_score(_score(job, profile_steps, abstract))
+        if t < best_job.get("cost", float("inf")):
+            best_job.update(job=job, cost=t, key=s.describe())
+        return t
+
+    space_kw: dict = {}
+    if grad_accum is not None:
+        space_kw["accum"] = (grad_accum,)
+    if loss_fn_builder is None:
+        # Without a model-rewriting builder remat="block" is "none" and a
+        # pp mesh is pure replication: both are dropped, as the reference
+        # drops them.
+        space_kw["remat"] = tuple(r for r in REMAT_CHOICES if r != "block")
+        space_kw["allow_pp"] = False
+    space = default_space(n, **space_kw)
+    hbm = _device_hbm_bytes(dev)
+    if hbm is not None:
+        space = prune_space_by_memory(space, abstract.params, sample_batch,
+                                      hbm)
+    result = BayesStrategySearch(objective, space, max_evals=max_evals,
+                                 warm_start=list(warm_start)).run()
+    record["evaluated"] = [[s.describe(), c] for s, c in result.evaluated]
+    best = forced(result.best)
+    record["winner"] = best.describe()
+    if _is_leader() and cache_obj is not None:
+        cache_obj.put(fp, best)
+    # The built-winner shortcut is one-process only: processes must take
+    # the same path.
+    if not multiproc and job_out is not None \
+            and best_job.get("key") == best.describe():
+        best_job["job"].search = dict(record, kind="bo")
+        job_out["job"] = best_job["job"]
+    return best
+
+
+def _device_hbm_bytes(device: DeviceLike = None) -> Optional[float]:
+    """The memory budget for static pruning: ``DLROVER_TPU_HBM_BYTES``,
+    else the card's ``total_memory``, else ``None`` (the CPU: no pruning,
+    the run is the arbiter)."""
+    import os
+
+    env = os.environ.get("DLROVER_TPU_HBM_BYTES")
+    if env:
+        return float(env)
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return float(torch.cuda.get_device_properties(dev).total_memory)
+    return None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _score(job: AcceleratedJob, profile_steps: int,
+           abstract: _Abstract) -> float:
+    """Lower is better.  ``profile_steps > 0``: the mean seconds of that
+    many steps (after one warm-up) from a fresh state on a zeros batch;
+    else the cost model's ``flops / 1e12 + bytes / 1e11``."""
+    if profile_steps > 0:
+        state = job.create_state(
+            torch.Generator(device=job.device).manual_seed(0))
+        share = {k: np.zeros((np.shape(v)[0] // job.dp,)
+                             + tuple(np.shape(v)[1:]), np.asarray(v).dtype)
+                 for k, v in job.sample_batch.items()}
+        state, _ = job.train_step(state, share)
+        _sync(job.device)
+        t0 = time.perf_counter()
+        for _ in range(profile_steps):
+            state, _ = job.train_step(state, share)
+        _sync(job.device)
+        t = (time.perf_counter() - t0) / profile_steps
+        del state
+        if job.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return t
+    job.cost = step_cost(job, abstract.params)
+    return job.cost["flops"] / 1e12 + job.cost["bytes accessed"] / 1e11 \
+        + 1e-9
+
+
+def step_cost(job: AcceleratedJob, params: Any) -> Dict[str, Any]:
+    """What one train step of ``job`` does on this rank, counted from the
+    placements of ``params`` (shapes and types; fp32 masters):
+
+    - ``flops``: ``(6 + 2 x recompute) x parameters x local tokens``, the
+      local tokens being the largest batch leaf's elements over the batch
+      shares and the sequence axis (``tp`` compute is replicated: a ``tp``
+      axis that is not a sequence axis does not divide them), with
+      ``recompute`` 1 under a remat policy;
+    - ``comm``: the bytes the step's ``all_gather``, ``reduce_scatter``
+      and ``all_reduce`` calls record in ``collectives.STATS`` (this
+      rank's output): each sharded leaf gathered at every read (a forward
+      a micro batch, twice under a remat policy) and its gradient reduced
+      once a micro batch (the ``gloo`` all-reduce of the whole leaf, or
+      the ``nccl`` reduce-scatter and all-reduce of its box), the whole
+      leaves' gradients and the loss in one all-reduce, and the gradient
+      norm's scalar.  A ``"block"`` remat re-gathers only the blocks'
+      leaves: this count takes every leaf twice.  The ring hops and the
+      all-to-alls of sequence parallelism depend on the model and are not
+      counted;
+    - ``update_bytes``: the parameters, gradients and two moments of this
+      rank's boxes, read by the update;
+    - ``bytes accessed``: ``comm`` plus ``update_bytes``."""
+    strategy, mesh = job.strategy, job.mesh
+    A = strategy.grad_accum
+    reads = A * (1 if strategy.remat == "none" else 2)
+    red = [a for a in job.reduce_axes if mesh.axis_size(a) > 1]
+    bgroup = mesh.group(red)
+    gloo = bgroup is not None and dist.get_backend(bgroup) == "gloo"
+    comm = dict.fromkeys(("all_gather", "reduce_scatter", "all_reduce"), 0)
+    totals = {"params": 0, "box_bytes": 0, "whole_bytes": 0,
+              "sharded": 0}
+    specs = job.specs_of(params)
+
+    def leaf(x, spec):
+        shape = tuple(int(d) for d in x.shape)
+        numel = math.prod(shape)
+        esz = 4  # fp32 masters
+        pl = Placement(mesh, spec, shape)
+        box = math.prod(e - s for s, e in pl.box())
+        totals["params"] += numel
+        totals["box_bytes"] += box * esz
+        if not pl.sharded:
+            totals["whole_bytes"] += numel * esz
+            return
+        totals["sharded"] += 1
+        comm["all_gather"] += reads * mesh.axes_size(pl.axes) * box * esz
+        if gloo:
+            comm["all_reduce"] += A * numel * esz
+            return
+        if mesh.axes_size([a for a in red if a in pl.axes]) > 1:
+            comm["reduce_scatter"] += A * box * esz
+        if mesh.axes_size([a for a in red if a not in pl.axes]) > 1:
+            comm["all_reduce"] += A * box * esz
+
+    tree_map(leaf, params, specs)
+    if bgroup is not None:
+        comm["all_reduce"] += totals["whole_bytes"] + 4  # + the loss
+    if totals["sharded"] and mesh.size > 1:
+        comm["all_reduce"] += 4  # the gradient norm
+    tokens = max((math.prod(np.shape(v)) for v in job.sample_batch.values()
+                  if np.ndim(v) >= 2), default=0)
+    local = tokens / job.dp / (mesh.axis_size(job.seq_axis)
+                               if job.seq_axis else 1)
+    flops = (6.0 + (0.0 if strategy.remat == "none" else 2.0)) \
+        * totals["params"] * local
+    update = 4 * totals["box_bytes"]
+    return {"flops": flops, "comm": comm, "update_bytes": update,
+            "bytes accessed": float(sum(comm.values()) + update)}
 
 
 def _param_specs(param_specs: Any, strategy: Strategy, spec: MeshSpec,
@@ -668,6 +1187,7 @@ def _param_specs(param_specs: Any, strategy: Strategy, spec: MeshSpec,
 def _build_job(strategy: Strategy, *, loss_fn, init_fn, optimizer,
                sample_batch, grad_accum, loss_fn_builder, device,
                param_specs, batch_axes) -> AcceleratedJob:
+    COUNTS["builds"] += 1
     world = dist_env.world_size()
     if grad_accum is not None:
         strategy = dataclasses.replace(strategy, grad_accum=grad_accum)
@@ -682,7 +1202,10 @@ def _build_job(strategy: Strategy, *, loss_fn, init_fn, optimizer,
             "Strategy.remat='block' requires accelerate(loss_fn_builder=...)"
             " to set the model's per-block remat (e.g. cfg.remat_block=True)"
         )
-    axes = _batch_axes(batch_axes, sample_batch)
+    if batch_axes is None and (strategy.rules or {}).get("seq"):
+        rules = {**DEFAULT_RULES, **strategy.rules}
+        batch_axes = PartitionSpec(rules["batch"], rules["seq"])
+    axes, seq = _batch_axes(batch_axes, sample_batch)
     n_batch = math.prod(getattr(spec, a) for a in axes)
     for name, arr in sample_batch.items():
         if np.ndim(arr) and np.shape(arr)[0] % (strategy.grad_accum
@@ -693,17 +1216,23 @@ def _build_job(strategy: Strategy, *, loss_fn, init_fn, optimizer,
                 f"{n_batch} batch share(s) ({'x'.join(axes) or 'none'})"
             )
     dev = resolve_device(device)
-    mesh = _mesh_for(spec)
+    mesh = mesh_for(spec, seq_axis=seq)
     lfn = loss_fn_builder(strategy) if loss_fn_builder else loss_fn
     job = AcceleratedJob(strategy=strategy, train_step=None,
                          create_state=None, device=dev, dp=n_batch,
-                         mesh=mesh, batch_axes=axes)
-    job.batch_sharding = {k: NamedSharding(mesh, PartitionSpec(axes or None))
+                         mesh=mesh, batch_axes=axes, seq_axis=seq,
+                         sample_batch=sample_batch)
+    job.specs_of = lambda params: _param_specs(param_specs, strategy, spec,
+                                               params)
+    batch_spec = PartitionSpec(axes or None, seq) if seq else \
+        PartitionSpec(axes or None)
+    job.batch_sharding = {k: NamedSharding(mesh, batch_spec)
                           for k in sample_batch}
+    reduce_axes = job.reduce_axes
 
     def create_state(generator: torch.Generator) -> Dict:
         params = init_fn(generator)
-        specs = _param_specs(param_specs, strategy, spec, params)
+        specs = job.specs_of(params)
         leaves = []
 
         def place(x, s):
@@ -719,7 +1248,8 @@ def _build_job(strategy: Strategy, *, loss_fn, init_fn, optimizer,
         boxes = tree_map(place, params, specs)
         del params
         opt = optimizer(tree_leaves(boxes))
-        job._comms = {id(x): collectives.LeafComm(placement_of(x), axes)
+        job._comms = {id(x): collectives.LeafComm(placement_of(x),
+                                                  reduce_axes)
                       for x in leaves if placement_of(x).sharded}
         if job._comms:
             from dlrover_tpu_torch.ops.quant import Adam8bit

@@ -1,7 +1,13 @@
 """The collectives of a sharded step: all-gather of a leaf's boxes,
 reduce-scatter of its gradient back to the boxes, and all-reduce over the
-batch group.  The reference gets these from XLA (GSPMD inserts them); the
-port calls them explicitly.
+batch group; and the two of sequence-parallel attention: the ring hop
+(:func:`ring_hop`, the reference's ``jax.lax.ppermute`` to the next rank
+of the axis, ``dlrover_tpu/parallel/ring_attention.py:102``) and the tiled
+all-to-all (:func:`all_to_all`, ``jax.lax.all_to_all(..., tiled=True)``,
+``dlrover_tpu/parallel/sequence.py:66``).  The reference gets these from
+XLA (GSPMD inserts them, and JAX differentiates the last two itself); the
+port calls them explicitly, the last two as autograd functions whose
+backward is the inverse collective.
 
 The path is chosen from the group's backend and the tensor's device, never
 by catching a failure:
@@ -17,7 +23,8 @@ by catching a failure:
 - ``gloo`` with CPU tensors: the same collectives on the tensors.
 
 Every call adds to :data:`STATS` (calls, bytes of this rank's output,
-host milliseconds) under its kind; :func:`snapshot` reads them and
+host milliseconds) under its kind (a ring hop counts the bytes it
+receives, an all-to-all the bytes of its output); :func:`snapshot` reads them and
 :func:`stats_delta` gives what changed since a snapshot.  An ``nccl`` call returns once it
 is queued, so its host time is not its time: with :data:`TIME_DEVICE` set,
 each call on a card tensor also records CUDA events around it on the
@@ -29,9 +36,11 @@ the group's ranks, its reduction groups) and :func:`gather` the autograd
 function: forward gathers the whole leaf from the boxes, backward returns
 this rank's box of the global-batch mean gradient:
 ``(1 / |B|) * sum`` over the batch group ``B`` of each rank's gradient of
-the whole leaf.  Ranks that differ only on axes outside ``B`` (``tp``)
-computed on the same rows, so their gradients are equal and are not
-summed.
+the whole leaf.  ``B`` is the group of the reduction axes: the batch axes
+and, under sequence parallelism, ``tp``, whose ranks compute different
+positions.  Ranks that differ only on axes outside ``B`` (``tp`` when it
+is not a sequence axis) computed on the same rows, so their gradients are
+equal and are not summed.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ import torch.distributed as dist
 from dlrover_tpu_torch.parallel.mesh import AXIS_ORDER
 from dlrover_tpu_torch.parallel.sharding import Placement, box_slices
 
-KINDS = ("all_gather", "reduce_scatter", "all_reduce")
+KINDS = ("all_gather", "reduce_scatter", "all_reduce", "ring_hop",
+         "all_to_all")
 STATS: Dict[str, Dict[str, float]] = {
     k: {"calls": 0, "bytes": 0, "ms": 0.0} for k in KINDS}
 #: Record CUDA events around each collective on a card tensor.
@@ -220,6 +230,90 @@ def gather(local: torch.Tensor, comm: Optional[LeafComm]) -> torch.Tensor:
     if comm is None:
         return local
     return _Gather.apply(local, comm)
+
+
+def _p2p(send: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
+    """Send ``send`` to global rank ``dst`` and receive a tensor of its
+    shape and type from global rank ``src``, both at once."""
+    send = send.contiguous()
+    t0, ev = time.perf_counter(), _begin(send)
+    host = via_host(send, group)
+    out = torch.empty_like(send, device="cpu", pin_memory=True) \
+        if host else torch.empty_like(send)
+    src_t = _to_host(send) if host else send
+    ops = [dist.P2POp(dist.isend, src_t, dst, group=group),
+           dist.P2POp(dist.irecv, out, src, group=group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    res = out.to(send.device, non_blocking=True) if host else out
+    _note("ring_hop", res.numel() * res.element_size(), t0, ev)
+    return res
+
+
+class _RingHop(torch.autograd.Function):
+    """Forward: send to the next rank of the ring, receive from the
+    previous one; backward: the reverse hop of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, nxt, prev):
+        ctx.group, ctx.nxt, ctx.prev = group, nxt, prev
+        return _p2p(x.detach(), nxt, prev, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _p2p(g, ctx.prev, ctx.nxt, ctx.group), None, None, None
+
+
+def ring_hop(x: torch.Tensor, group, nxt: int, prev: int) -> torch.Tensor:
+    """``x`` of the rank ``prev`` (global ranks), ``x`` itself going to
+    ``nxt``: one step of ``ppermute`` with ``perm = [(j, j + 1 mod n)]``
+    over the ring ``group``."""
+    return _RingHop.apply(x, group, nxt, prev)
+
+
+def _a2a(x: torch.Tensor, group, order: Sequence[int], split_dim: int,
+         concat_dim: int) -> torch.Tensor:
+    """``x`` cut into ``n`` equal chunks along ``split_dim``, chunk ``j``
+    sent to the rank at place ``j`` of the axis, the received chunks
+    joined along ``concat_dim`` in the axis's order.  ``order[j]`` is the
+    group rank of the axis's place ``j``."""
+    n = len(order)
+    chunks = list(x.chunk(n, dim=split_dim))
+    send = torch.stack([chunks[order.index(g)] for g in range(n)])
+    t0, ev = time.perf_counter(), _begin(send)
+    if via_host(send, group):
+        h = _to_host(send)
+        out = torch.empty_like(h, pin_memory=True)
+        dist.all_to_all_single(out, h, group=group)
+        out = out.to(x.device, non_blocking=True)
+    else:
+        out = torch.empty_like(send)
+        dist.all_to_all_single(out, send.contiguous(), group=group)
+    _note("all_to_all", out.numel() * out.element_size(), t0, ev)
+    parts = out.unbind(0)
+    return torch.cat([parts[order[j]] for j in range(n)], dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, order, split_dim, concat_dim):
+        ctx.args = (group, order, split_dim, concat_dim)
+        return _a2a(x.detach(), group, order, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, order, split_dim, concat_dim = ctx.args
+        return (_a2a(g.contiguous(), group, order, concat_dim, split_dim),
+                None, None, None, None)
+
+
+def all_to_all(x: torch.Tensor, group, order: Sequence[int], split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all over ``group`` (``jax.lax.all_to_all(x, axis,
+    split_axis, concat_axis, tiled=True)``); its gradient is the inverse
+    all-to-all.  ``order[j]`` is the group rank of the axis's place
+    ``j``."""
+    return _AllToAll.apply(x, group, list(order), split_dim, concat_dim)
 
 
 def stats_delta(before: Dict[str, Dict[str, float]]

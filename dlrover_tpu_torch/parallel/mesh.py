@@ -23,13 +23,25 @@ otherwise; a mesh of one rank needs none and makes none.
 
 ``pp > 1`` (pipelining) and ``ep > 1`` (experts) raise, naming the items
 that bring them.
+
+**The sequence axis.**  A mesh may name ``tp`` its sequence axis
+(:meth:`Mesh.sequence`, ``Mesh.seq_axis``): a sequence-parallel job's mesh
+(``accelerate`` builds it when its ``batch_axes`` or ``Strategy.rules``
+name one).  A loss that runs each rank's block of positions
+(``models.llama.loss_fn(attn_impl="ring" | "ulysses", mesh=...)`` with
+``tp > 1``) calls :func:`claim_sequence`, which refuses a mesh without
+that mark and, while a job's step runs (:func:`stepping`), any mesh but
+the job's: the job alone decides whether ``tp`` cuts the sequence, and
+its reductions and the loss's cut cannot disagree.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -108,15 +120,38 @@ class Mesh:
 
     ``ranks`` is an int array of shape ``spec.sizes`` (axis order
     :data:`AXIS_ORDER`); ``rank`` this process's rank (``None`` for a mesh
-    described without a process, e.g. a target seen from another world).
+    described without a process, e.g. a target seen from another world);
+    ``seq_axis`` the sequence axis of a sequence-parallel job's mesh, else
+    ``None``.
     """
 
     def __init__(self, spec: MeshSpec, ranks: np.ndarray,
-                 rank: Optional[int], groups: Optional[dict] = None):
+                 rank: Optional[int], groups: Optional[dict] = None,
+                 seq_axis: Optional[str] = None):
+        if seq_axis not in (None, "tp"):
+            raise ValueError(f"the sequence axis must be 'tp' (ring and "
+                             f"Ulysses attention run over it), got "
+                             f"{seq_axis!r}")
         self.spec = spec
         self.ranks = np.asarray(ranks, dtype=np.int64).reshape(spec.sizes)
         self.rank = rank
+        self.seq_axis = seq_axis
         self._groups: dict = dict(groups or {})
+
+    def sequence(self, axis: Optional[str]) -> "Mesh":
+        """This mesh with ``axis`` as its sequence axis (the same ranks and
+        process groups)."""
+        if axis == self.seq_axis:
+            return self
+        return Mesh(self.spec, self.ranks, self.rank, self._groups, axis)
+
+    def same_as(self, other: Optional["Mesh"]) -> bool:
+        """The same ranks, axes, sequence axis and process groups."""
+        return other is self or (
+            isinstance(other, Mesh) and self.spec == other.spec
+            and self.seq_axis == other.seq_axis and self.rank == other.rank
+            and np.array_equal(self.ranks, other.ranks)
+            and self._groups == other._groups)
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -183,7 +218,52 @@ class Mesh:
         return self.spec.describe()
 
     def __repr__(self) -> str:
-        return f"Mesh({self.spec.describe()}, rank={self.rank})"
+        seq = f", seq_axis={self.seq_axis!r}" if self.seq_axis else ""
+        return f"Mesh({self.spec.describe()}, rank={self.rank}{seq})"
+
+
+_STEP = threading.local()
+
+
+@contextlib.contextmanager
+def stepping(mesh: Optional[Mesh]):
+    """Run the block as a step (or an evaluation) of the job on ``mesh``.
+    Yields a dict whose ``"cut"`` turns true once a loss claims the
+    sequence over ``mesh`` (:func:`claim_sequence`)."""
+    prev = getattr(_STEP, "state", None)
+    state = _STEP.state = {"mesh": mesh, "cut": False}
+    try:
+        yield state
+    finally:
+        _STEP.state = prev
+
+
+def claim_sequence(mesh: Mesh, who: str) -> None:
+    """``who`` is about to run this rank's block of positions over
+    ``mesh``'s ``tp`` axis (above 1).  Raises unless ``tp`` is the
+    sequence axis of ``mesh`` and, inside a job's step, ``mesh`` is the
+    job's: any other mesh would cut the sequence while the job reduces the
+    loss and the gradients without ``tp``, or over other ranks."""
+    if mesh.seq_axis != "tp":
+        raise ValueError(
+            f"{who} over mesh {mesh.describe()} cuts each rank's block of "
+            f"positions over tp={mesh.axis_size('tp')}, but tp is not the "
+            f"mesh's sequence axis: build the job sequence-parallel "
+            f"(batch_axes=P(('dp', 'fsdp'), 'tp') or Strategy(rules="
+            f"{{'seq': 'tp'}})) and give the loss its mesh "
+            f"(accelerate.mesh_for(spec, seq_axis='tp') or job.mesh)")
+    state = getattr(_STEP, "state", None)
+    if state is None:
+        return
+    job = state["mesh"]
+    if not mesh.same_as(job):
+        where = "no mesh" if job is None else job.describe() + (
+            "" if job.seq_axis else " without a sequence axis")
+        raise ValueError(
+            f"{who} cuts the sequence over mesh {mesh.describe()} "
+            f"(sequence axis tp), but the job that runs it is on {where}: "
+            f"a sequence-parallel loss runs only on its own job's mesh")
+    state["cut"] = True
 
 
 def _axis_sets(spec: MeshSpec) -> List[Tuple[str, ...]]:

@@ -47,9 +47,14 @@ backend (with ``reduce_ms``, the median host time of the gradient
 reduction, when it goes through the host).  The checkpoint is sliced
 across the ranks.
 
-Refused, each with the slice that brings it: ``--strategy auto``,
-``--fp8``, ``--quant_grads``, ``--lora_rank > 0``, ``--init_from`` and a
-``--ckpt_dir`` on an object store (``gs://``, ``s3://``).
+``--strategy auto`` lets ``accelerate(strategy="auto")`` choose the mesh
+by its cost model, as the example does (``examples/llama_train.py:103-108,
+170-176``); each process then reads the rows of its share over the
+winner's batch axes (``global batch / shares`` of them).
+
+Refused, each with the slice that brings it: ``--fp8``, ``--quant_grads``,
+``--lora_rank > 0``, ``--init_from`` and a ``--ckpt_dir`` on an object
+store (``gs://``, ``s3://``).
 """
 
 from __future__ import annotations
@@ -72,7 +77,6 @@ from dlrover_tpu_torch.common.constants import (
     MODEL_ITEM,
     OBJECT_STORE_ITEM,
     QUANT_OFFLOAD_ITEM,
-    SEARCH_ITEM,
 )
 from dlrover_tpu_torch.common.device import process_device
 from dlrover_tpu_torch.common.env import NodeEnv
@@ -127,8 +131,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def refuse_later_options(args: argparse.Namespace) -> None:
     refused = [
-        (args.strategy == "auto", "--strategy auto (the strategy search)",
-         SEARCH_ITEM),
         (args.fp8, "--fp8", MODEL_ITEM),
         (args.quant_grads, "--quant_grads", QUANT_OFFLOAD_ITEM),
         (args.lora_rank > 0, "--lora_rank > 0 (LoRA)", MODEL_ITEM),
@@ -165,8 +167,9 @@ def synth_tokens(indices, seq_len: int, vocab: int) -> np.ndarray:
 
 
 def build(args: argparse.Namespace, num_processes: int = 1):
-    """``(cfg, job, state)`` for the run ``args`` describe, data-parallel
-    over ``num_processes`` (the group's world)."""
+    """``(cfg, job, state)`` for the run ``args`` describe: data-parallel
+    over ``num_processes`` (the group's world), or on the mesh
+    ``--strategy auto`` chose."""
     dev = process_device(args.device)
     cfg = build_config(args)
     global_batch = args.batch_per_proc * num_processes
@@ -177,7 +180,8 @@ def build(args: argparse.Namespace, num_processes: int = 1):
                                             param_dtype=torch.float32),
         optimizer=adamw(args.lr),
         sample_batch={"tokens": sample},
-        strategy=Strategy(mesh={"dp": num_processes}),
+        strategy=("auto" if args.strategy == "auto"
+                  else Strategy(mesh={"dp": num_processes})),
         param_specs="planner",
         device=dev,
     )
@@ -221,11 +225,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg, job, state = build(args, ctx.num_processes)
     logger.info("built the model and optimizer in %.3fs",
                 time.perf_counter() - t_build)
+    # This rank's share of each global batch: its index over the job's
+    # batch axes (its process id under the default dp mesh).
+    share, shares = job.batch_rank
     sampler = ElasticSampler(
         args.dataset_size,
-        batch_size_per_process=args.batch_per_proc,
-        num_processes=ctx.num_processes,
-        process_id=ctx.process_id,
+        batch_size_per_process=args.batch_per_proc * ctx.num_processes
+        // shares,
+        num_processes=shares,
+        process_id=share,
         seed=17,
     )
     start_step = 0
@@ -307,6 +315,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dp = f" dp={job.dp} backend={dist_env.group_backend()}"
     if reduce_ms:
         dp += f" reduce_ms={statistics.median(reduce_ms):.3f}"
+    dp += f" mesh={job.mesh.describe()}"
     # Losses in full (repr): a restored run is held to bit-equality.
     emit(f"TRAIN_DONE step={step} loss={loss!r} "
          f"first_loss={first_loss!r} step_ms={step_ms:.3f} "

@@ -19,13 +19,23 @@ each leaf is gathered on the old mesh and this rank's box of the new
 placement is kept (the reference's ``device_put`` onto the new sharding,
 ``trainer/elastic.py:111-131``).
 
+``strategy=None`` is ``"auto"``, as at the reference's ``:166-168``: the
+step is then chosen by ``accelerate``'s search (``"auto"``, ``"bo"`` or a
+sequence of candidates), with ``strategy_cache=`` as its cache.  The
+search's sample batch is the reference's (``per-process rows x
+processes``, the accumulation resolved over the processes); once the
+winner is built, this rank's batch share is its index over the winner's
+batch axes and each share's rows are ``global batch / shares``.  The
+fingerprint holds the device count, so a rebuild at a new world size
+misses the cache, searches again and caches under the new key.  A
+strategy whose ``rules`` map ``"seq"`` to ``"tp"`` trains
+sequence-parallel (see ``parallel/accelerate.py``).
+
 Each process trains on its own card (``common/device.process_device``);
 ``devices=[...]`` may name that one device (``"cpu"`` runs the plain
-versions, as the tests ask).  Refused by name: ``strategy=None`` or
-``"auto"`` (the reference's default, the strategy search) and
-``strategy_cache=`` (Queue A item 5b), more than one device a process
-(5d), ``frozen=`` (item 6), and ``reshard_live`` (the live reshard
-coordinator, a host layer).
+versions, as the tests ask).  Refused by name: more than one device a
+process (5d), ``frozen=`` (item 6), and ``reshard_live`` (the live
+reshard coordinator, a host layer).
 """
 
 from __future__ import annotations
@@ -39,12 +49,15 @@ import torch
 from dlrover_tpu_torch.common.constants import (
     HOST_LAYERS,
     MODEL_ITEM,
-    SEARCH_ITEM,
     TP_COMPUTE_ITEM,
 )
 from dlrover_tpu_torch.common.device import process_device
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.parallel.accelerate import accelerate, resolve_mesh
+from dlrover_tpu_torch.parallel.accelerate import (
+    Strategy,
+    accelerate,
+    resolve_mesh,
+)
 from dlrover_tpu_torch.parallel.mesh import batch_share
 from dlrover_tpu_torch.trainer.sampler import ElasticSampler
 
@@ -94,18 +107,11 @@ class ElasticTrainer:
                  sampler_seed: int = 0, devices=None,
                  strategy_cache: Any = None, param_specs: Any = None,
                  frozen: Any = None):
-        refused = [
-            (strategy is None or isinstance(strategy, str),
-             f"strategy={strategy!r} (the strategy search; pass a "
-             f"Strategy)", SEARCH_ITEM),
-            (strategy_cache is not None, "strategy_cache= (the strategy "
-             "search's cache)", SEARCH_ITEM),
-            (frozen is not None, "frozen= (LoRA's frozen base)",
-             MODEL_ITEM),
-        ]
-        for on, what, where in refused:
-            if on:
-                raise NotImplementedError(f"{what} comes with {where}")
+        if frozen is not None:
+            raise NotImplementedError(
+                f"frozen= (LoRA's frozen base) comes with {MODEL_ITEM}")
+        if strategy is None:
+            strategy = "auto"
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.init_fn = init_fn
@@ -113,6 +119,7 @@ class ElasticTrainer:
         self.fetch_batch = fetch_batch
         self.dataset_size = dataset_size
         self.base_strategy = strategy
+        self.strategy_cache = strategy_cache
         self.param_specs = param_specs
         self.sampler_seed = sampler_seed
         self.device = trainer_device(devices)
@@ -145,16 +152,20 @@ class ElasticTrainer:
         self._finish_world(num_processes, process_id)
 
     def _build_job(self, num_processes: int, process_id: int) -> None:
-        spec = resolve_mesh(self.base_strategy.mesh, num_processes)
-        self.share, self.shares = batch_share(spec, process_id)
+        searched = not isinstance(self.base_strategy, Strategy)
+        if searched:
+            # The search's candidates shard the batch differently: the
+            # sample and the accumulation are the reference's, over the
+            # processes; the shares follow the winner.
+            self.share, self.shares = process_id, num_processes
+            where = f"a mesh chosen by strategy={self.base_strategy!r}"
+        else:
+            spec = resolve_mesh(self.base_strategy.mesh, num_processes)
+            self.share, self.shares = batch_share(spec, process_id)
+            where = f"mesh {spec.describe()}"
         self.micro_batch, self.grad_accum = resolve_grad_accum(
             self.cfg.global_batch_size, self.shares,
             self.cfg.max_micro_batch_per_proc)
-        logger.info("elastic trainer build: %d procs on mesh %s (batch "
-                    "share %d of %d), micro=%d accum=%d (global batch %d "
-                    "preserved)", num_processes, spec.describe(),
-                    self.share, self.shares, self.micro_batch,
-                    self.grad_accum, self.cfg.global_batch_size)
         per_proc = self.micro_batch * self.grad_accum
         sample_local = self.fetch_batch(np.arange(per_proc, dtype=np.int64))
         # accelerate() takes the batch with the global leading dim.
@@ -166,7 +177,25 @@ class ElasticTrainer:
             loss_fn=self.loss_fn, init_fn=self.init_fn,
             optimizer=self.optimizer, sample_batch=sample_global,
             strategy=self.base_strategy, grad_accum=self.grad_accum,
-            param_specs=self.param_specs, device=self.device)
+            param_specs=self.param_specs,
+            cache=self.strategy_cache if searched else None,
+            device=self.device)
+        if searched:
+            self.share, self.shares = self.job.batch_rank
+            if self.cfg.global_batch_size % (self.shares * self.grad_accum):
+                raise ValueError(
+                    f"global batch {self.cfg.global_batch_size} is not a "
+                    f"multiple of {self.shares} share(s) x accum "
+                    f"{self.grad_accum} on the chosen mesh "
+                    f"{self.job.mesh.describe()}")
+            self.micro_batch = self.cfg.global_batch_size // (
+                self.shares * self.grad_accum)
+            where = f"mesh {self.job.mesh.describe()} (searched)"
+        logger.info("elastic trainer build: %d procs on %s (batch share %d "
+                    "of %d), micro=%d accum=%d (global batch %d preserved)",
+                    num_processes, where, self.share, self.shares,
+                    self.micro_batch, self.grad_accum,
+                    self.cfg.global_batch_size)
 
     def _finish_world(self, num_processes: int, process_id: int) -> None:
         if self.sampler is None:

@@ -29,9 +29,14 @@ runs each rank's share of the eval batch by its place in the batch group
 (the ranks of one ``tp`` group read the same rows) on the gathered
 parameters.
 
+``strategy=None`` is the search (``"auto"``); with a ``master_client``
+the trainer keeps its winners in the master's KV store
+(:class:`~dlrover_tpu_torch.parallel.strategy_search.MasterStrategyCache`,
+as the reference's ``:275-297``), so a worker relaunched on a fresh host
+skips the search.
+
 Refused by name: ``op_metrics_every > 0`` (``utils/op_metrics``, a host
-layer), ``frozen=`` (item 6), and what :class:`ElasticTrainer` refuses
-(``strategy=None``/``"auto"``, item 5b).
+layer), ``frozen=`` (item 6), and what :class:`ElasticTrainer` refuses.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch.distributed as dist
 from dlrover_tpu_torch.common import dist_env
 from dlrover_tpu_torch.common.constants import HOST_LAYERS, MODEL_ITEM
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.parallel.mesh import stepping
 from dlrover_tpu_torch.trainer.elastic import ElasticTrainer, TrainerConfig
 
 
@@ -303,6 +309,14 @@ class Trainer:
         else:
             tx, self.schedule = build_optimizer(args, total)
         self.optimizer = tx
+        strategy_cache = None
+        if master_client is not None:
+            # Winners live with the master: a worker relaunched on a fresh
+            # host skips the search mid-recovery.
+            from dlrover_tpu_torch.parallel.strategy_search import \
+                MasterStrategyCache
+
+            strategy_cache = MasterStrategyCache(master_client)
         self.core = ElasticTrainer(
             TrainerConfig(
                 global_batch_size=args.global_batch_size,
@@ -310,6 +324,7 @@ class Trainer:
             loss_fn=loss_fn, init_fn=init_fn, optimizer=tx,
             fetch_batch=fetch_batch, dataset_size=dataset_size,
             strategy=strategy, sampler_seed=args.seed, devices=devices,
+            strategy_cache=strategy_cache,
             param_specs="planner" if args.layout_planner else None)
         self._num_processes = num_processes
         self._process_id = process_id
@@ -390,7 +405,8 @@ class Trainer:
         params = self.core.job.params_view(self.core.state["params"])
         dev = self.core.device
         losses = []
-        with torch.no_grad():
+        # A sequence-parallel loss cuts its block only on the job's mesh.
+        with torch.no_grad(), stepping(self.core.job.mesh):
             for b in range(n_batches):
                 lo = b * global_bs + share * per_proc
                 indices = np.arange(lo, lo + per_proc, dtype=np.int64)

@@ -12,8 +12,10 @@ kernels' plain versions).  Both are held here against the reference's
 with the JAX parameters carried across by ``models/convert.py``, with and
 without packed segments: loss and every gradient within atol 1e-5 (the same
 fp32 arithmetic, summed in another order).  ``"ring"`` and ``"ulysses"``
-(sequence parallelism over a mesh) are refused with ``NotImplementedError``
-and any other value with ``ValueError``.
+(sequence parallelism over a mesh, ``tests/test_torch_seq*.py``) take the
+flash path without a mesh, as the reference's do, and refuse packed
+segments on a mesh with ``NotImplementedError``; any other value raises
+``ValueError``.
 """
 
 import functools
@@ -28,6 +30,7 @@ from dlrover_tpu.models import llama as jllama
 from dlrover_tpu_torch.models import llama as tllama
 from dlrover_tpu_torch.models.convert import params_from_numpy
 from dlrover_tpu_torch.parallel.accelerate import tree_leaves
+from dlrover_tpu_torch.parallel.mesh import Mesh, MeshSpec
 
 ATOL = 1e-5
 
@@ -101,9 +104,14 @@ def test_attn_impl_refuses_other_values(model):
     params = params_from_numpy(tree, tcfg, device="cpu",
                                param_dtype=torch.float32)
     b = {k: torch.from_numpy(v) for k, v in _batch(False).items()}
+    flash = tllama.loss_fn(params, b, tcfg)
+    seg = {k: torch.from_numpy(v) for k, v in _batch(True).items()}
+    one = Mesh(MeshSpec(), np.arange(1), 0)
     for impl in ("ring", "ulysses"):
+        assert torch.equal(tllama.loss_fn(params, b, tcfg, attn_impl=impl),
+                           flash)
         with pytest.raises(NotImplementedError, match=impl):
-            tllama.loss_fn(params, b, tcfg, attn_impl=impl)
+            tllama.loss_fn(params, seg, tcfg, attn_impl=impl, mesh=one)
     for impl in ("flash", "", "Reference"):
         with pytest.raises(ValueError, match="attn_impl"):
             tllama.loss_fn(params, b, tcfg, attn_impl=impl)

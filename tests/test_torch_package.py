@@ -21,6 +21,7 @@ from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama as tllama
 from dlrover_tpu_torch.models import llama_infer as tinfer
 from dlrover_tpu_torch.ops import quant as tquant
+from dlrover_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from dlrover_tpu_torch import serve as tserve
 
 REPO = Path(__file__).resolve().parents[1]
@@ -96,6 +97,9 @@ def test_import_leaves_jax_and_reference_out():
         "dlrover_tpu_torch.diagnosis.operators, "
         "dlrover_tpu_torch.diagnosis.manager, "
         "dlrover_tpu_torch.trainer.elastic, dlrover_tpu_torch.trainer.trainer, "
+        "dlrover_tpu_torch.parallel.ring_attention, "
+        "dlrover_tpu_torch.parallel.sequence, "
+        "dlrover_tpu_torch.parallel.strategy_search, "
         "dlrover_tpu_torch.serving, dlrover_tpu_torch.serving.gateway, "
         "dlrover_tpu_torch.serving.replica, dlrover_tpu_torch.serving.draft, "
         "dlrover_tpu_torch.serving.kvseg, dlrover_tpu_torch.serving.autoscale, "
@@ -227,8 +231,10 @@ def test_server_refuses_later_slice_options(tiny, kw):
 
 def test_other_later_slice_paths_are_refused(tiny, tmp_path):
     """Prefix caching and the KV-segment handoff (serving slice 2) and
-    journaled serving (serving slice 3) serve on the CPU; MoE and the ring
-    and Ulysses attentions are still refused by name."""
+    journaled serving (serving slice 3) serve on the CPU; MoE is still
+    refused by name.  The ring and Ulysses attentions came with Queue A
+    item 5b: without a mesh they take the flash path, as the reference's
+    do, and on a one-rank mesh their own one-block paths."""
     cfg, params = tiny
     srv = tinfer.DecodeServer(params, cfg, slots=1, max_len=32)
     p = np.ones(4, np.int32)
@@ -252,12 +258,17 @@ def test_other_later_slice_paths_are_refused(tiny, tmp_path):
     assert tuple(cache["layers"][0]["ks"].shape) == (1, cfg.n_kv_head, 8)
     with pytest.raises(NotImplementedError, match="MoE"):
         tllama.LlamaConfig.tiny(num_experts=4)
-    x = torch.zeros(1, 2, cfg.d_model)
+    x = torch.randn(1, 2, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    pos = torch.arange(2).expand(1, 2)
+    flash = tllama.block_apply(params["layers"][0], x, cfg, pos)
+    one = Mesh(MeshSpec(), np.arange(1), 0)
     for impl in ("ring", "ulysses"):
-        with pytest.raises(NotImplementedError, match=impl):
-            tllama.block_apply(params["layers"][0], x, cfg,
-                               torch.zeros(1, 2, dtype=torch.long),
-                               attn_impl=impl)
+        assert torch.equal(tllama.block_apply(
+            params["layers"][0], x, cfg, pos, attn_impl=impl), flash)
+        got = tllama.block_apply(params["layers"][0], x, cfg, pos,
+                                 attn_impl=impl, mesh=one)
+        torch.testing.assert_close(got, flash, atol=1e-5, rtol=1e-5)
     with pytest.raises(ValueError, match="decode_chunk"):
         tinfer.DecodeServer(params, cfg, decode_chunk=0)
     with pytest.raises(ValueError, match="draft"):

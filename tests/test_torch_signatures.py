@@ -8,9 +8,10 @@ records asked for: the int8 KV cache's drift at depth, and
    the reference's value has no CUDA meaning the port refuses it by name:
    ``interpret=True`` and ``backend="pallas"`` on a CPU tensor raise
    ``ValueError``, the flash tile keywords take only the reference's
-   defaults, a JAX PRNG ``key=`` raises, and ``accelerate``'s sharding and
-   search keywords raise ``NotImplementedError`` naming the slice that
-   brings them (Queue A item 5; ``fp8_init`` item 6).  ``backend=
+   defaults, a JAX PRNG ``key=`` raises, and ``accelerate``'s keywords of
+   a later slice raise ``NotImplementedError`` naming it (``fp8_init``
+   item 6; the search keywords of item 5b are taken since it was ported,
+   and their cases now build).  ``backend=
    "reference"`` runs the plain versions, ``"pallas"`` the kernels, and a
    name the reference's op does not give (``"auto"``, ``"jnp"``) raises;
    ``quantize_blockwise`` also takes its reference's ``"jnp"``.
@@ -50,7 +51,10 @@ from dlrover_tpu_torch.common import constants as tconst
 from dlrover_tpu_torch.parallel import accelerate as tacc
 from dlrover_tpu_torch.parallel import layout_planner as tplanner
 from dlrover_tpu_torch.parallel import mesh as tmesh
+from dlrover_tpu_torch.parallel import ring_attention as tring
+from dlrover_tpu_torch.parallel import sequence as tseq
 from dlrover_tpu_torch.parallel import sharding as tsharding
+from dlrover_tpu_torch.parallel import strategy_search as tss
 from dlrover_tpu_torch.trainer import elastic as telastic
 from dlrover_tpu_torch.trainer import trainer as ttrainer
 
@@ -75,6 +79,21 @@ COUNTERPARTS = {
     ("dlrover_tpu.ops.quant", "dequantize_dynamic"): tquant,
     ("dlrover_tpu.parallel.accelerate", "accelerate"): tacc,
     ("dlrover_tpu.parallel.accelerate", "infer_param_specs"): tacc,
+    ("dlrover_tpu.parallel.accelerate", "search"): tacc,
+    ("dlrover_tpu.parallel.accelerate", "aot_analyze"): tacc,
+    ("dlrover_tpu.parallel.ring_attention", "ring_attention"): tring,
+    ("dlrover_tpu.parallel.sequence", "ulysses_attention"): tseq,
+    ("dlrover_tpu.parallel.strategy_search", "BayesStrategySearch.__init__"):
+        tss,
+    ("dlrover_tpu.parallel.strategy_search", "StrategyCache.__init__"): tss,
+    ("dlrover_tpu.parallel.strategy_search", "MasterStrategyCache.__init__"):
+        tss,
+    ("dlrover_tpu.parallel.strategy_search", "default_space"): tss,
+    ("dlrover_tpu.parallel.strategy_search", "estimate_step_hbm_bytes"):
+        tss,
+    ("dlrover_tpu.parallel.strategy_search", "prune_space_by_memory"): tss,
+    ("dlrover_tpu.parallel.strategy_search", "fingerprint"): tss,
+    ("dlrover_tpu.models.llama", "loss_fn"): tllama,
     ("dlrover_tpu.parallel.mesh", "MeshSpec.normalized"): tmesh,
     ("dlrover_tpu.parallel.mesh", "build_mesh"): tmesh,
     ("dlrover_tpu.parallel.mesh", "build_hybrid_mesh"): tmesh,
@@ -291,17 +310,30 @@ def test_accelerate_grad_accum_forces_the_strategy():
 @pytest.mark.parametrize("kw,match", [
     ({"devices": ["cpu"]}, None),
     ({"batch_axes": ("dp",)}, None),
-    ({"profile_steps": 2}, "item 5b"),
-    ({"search_evals": 4}, "item 5b"),
-    ({"cache": "/nonexistent"}, "item 5b"),
+    ({"profile_steps": 2}, "taken"),
+    ({"search_evals": 4}, "taken"),
+    ({"cache": "/nonexistent"}, "taken"),
     ({"fp8_init": dict}, "item 6"),
 ], ids=["devices", "batch_axes", "profile_steps", "search_evals", "cache",
         "fp8_init"])
-def test_accelerate_refuses_later_slice_keywords(kw, match):
-    """The search keywords and fp8 raise naming their items; ``devices``
-    (this process's one device) and ``batch_axes`` came with the mesh slice
-    (item 5a) and build, and several devices a process names item 5d."""
+def test_accelerate_refuses_later_slice_keywords(kw, match, tmp_path):
+    """fp8 raises naming its item; ``devices`` (this process's one device)
+    and ``batch_axes`` came with the mesh slice (item 5a) and build, and
+    several devices a process names item 5d.  The search keywords came with
+    item 5b: with ``strategy="bo"`` or ``"auto"`` they build (a cache path
+    gets the winner's entry)."""
     name = next(iter(kw))
+    if match == "taken":
+        if name == "cache":
+            kw = {"cache": str(tmp_path / "strategies.json")}
+        job = _job(strategy="bo" if name != "cache" else "auto",
+                   grad_accum=1, **kw)
+        assert job.mesh.describe() == "single" and job.search["winner"]
+        if name == "cache":
+            assert len(tss.StrategyCache(kw["cache"])._load()) == 1
+        else:
+            assert job.search["kind"] == "bo"
+        return
     if match is None:
         job = _job(**kw)
         assert job.batch_axes == ("dp",) if name == "batch_axes" else \
@@ -328,8 +360,34 @@ def _sharded_adam8bit():
 def _ring_attention():
     cfg = tllama.LlamaConfig.tiny(dtype=torch.float32)
     params = tllama.init_params(cfg, torch.Generator(), "cpu")
-    tllama.loss_fn(params, {"tokens": torch.zeros(1, 5, dtype=torch.long)},
-                   cfg, attn_impl="ring")
+    loss = tllama.loss_fn(params, {"tokens": torch.zeros(1, 5,
+                                                         dtype=torch.long)},
+                          cfg, attn_impl="ring",
+                          mesh=tmesh.Mesh(tmesh.MeshSpec(), np.arange(1), 0))
+    assert torch.isfinite(loss)
+
+
+def _taken_job(**kw):
+    job = _job(grad_accum=1, **kw)
+    assert job.search is not None and job.search["winner"]
+    state = job.create_state(torch.Generator().manual_seed(0))
+    _, metrics = job.train_step(state, {"x": np.ones((4, 4), np.float32)})
+    assert torch.isfinite(metrics["loss"])
+    return job
+
+
+def _taken_sequence_axes():
+    job = _job(batch_axes=tsharding.PartitionSpec("dp", "tp"))
+    assert job.seq_axis == "tp" and job.reduce_axes == ("dp", "tp")
+
+
+def _taken_elastic(**kw):
+    core = telastic.ElasticTrainer(
+        telastic.TrainerConfig(4, 2), loss_fn=None, init_fn=None,
+        optimizer=None, fetch_batch=None, dataset_size=4, devices=["cpu"],
+        **kw)
+    assert core.base_strategy == kw["strategy"]
+    assert core.strategy_cache is kw.get("strategy_cache")
 
 
 def _saver_replicas():
@@ -339,15 +397,20 @@ def _saver_replicas():
 
 
 #: Every option of Queue A item 5 that stays refused, and the sub-item
-#: whose text (``constants.QUEUE_A_ITEMS``) its refusal carries.
+#: whose text (``constants.QUEUE_A_ITEMS``) its refusal carries; ``None``
+#: for the options of item 5b, which is ported: their cases take the
+#: option and build.
 ITEM5_REFUSALS = {
-    "accelerate_strategy_auto": (lambda: _job(strategy="auto"), "5b"),
-    "accelerate_profile_steps": (lambda: _job(profile_steps=2), "5b"),
-    "accelerate_search_evals": (lambda: _job(search_evals=3), "5b"),
-    "accelerate_cache": (lambda: _job(cache="x"), "5b"),
+    "accelerate_strategy_auto": (lambda: _taken_job(strategy="auto"), None),
+    "accelerate_profile_steps": (lambda: _taken_job(
+        strategy=[tacc.Strategy(), tacc.Strategy(remat="full")],
+        profile_steps=2), None),
+    "accelerate_search_evals": (lambda: _taken_job(strategy="bo",
+                                                   search_evals=3), None),
+    "accelerate_cache": (lambda: _taken_job(strategy="auto",
+                                            cache=_MemoryCache()), None),
     "accelerate_devices": (lambda: _job(devices=["cpu", "cpu"]), "5d"),
-    "accelerate_sequence_batch_axes": (lambda: _job(
-        batch_axes=tsharding.PartitionSpec("dp", "tp")), "5b"),
+    "accelerate_sequence_batch_axes": (_taken_sequence_axes, None),
     "remat_offload": (lambda: _job(strategy=tacc.Strategy(
         remat="offload")), "5c"),
     "offload_opt": (lambda: _job(strategy=tacc.Strategy(
@@ -359,27 +422,38 @@ ITEM5_REFUSALS = {
         tmesh.MeshSpec(), devices=["cpu", "cpu"]), "5d"),
     "constraint": (lambda: tsharding.constraint(torch.zeros(1), ("batch",)),
                    "5d"),
-    "ring_attention": (_ring_attention, "5b"),
-    "elastic_strategy_auto": (lambda: telastic.ElasticTrainer(
-        telastic.TrainerConfig(4, 2), loss_fn=None, init_fn=None,
-        optimizer=None, fetch_batch=None, dataset_size=4, strategy="auto",
-        devices=["cpu"]), "5b"),
-    "elastic_strategy_cache": (lambda: telastic.ElasticTrainer(
-        telastic.TrainerConfig(4, 2), loss_fn=None, init_fn=None,
-        optimizer=None, fetch_batch=None, dataset_size=4,
-        strategy=tacc.Strategy(), strategy_cache=object(),
-        devices=["cpu"]), "5b"),
+    "ring_attention": (_ring_attention, None),
+    "elastic_strategy_auto": (lambda: _taken_elastic(strategy="auto"),
+                              None),
+    "elastic_strategy_cache": (lambda: _taken_elastic(
+        strategy=tacc.Strategy(), strategy_cache=_MemoryCache()), None),
     "saver_replicas": (_saver_replicas, "5e"),
 }
 
 
+class _MemoryCache:
+    """A strategy cache in a dict (the ``get``/``put`` contract)."""
+
+    def __init__(self):
+        self.entries = {}
+
+    def get(self, key):
+        return self.entries.get(key)
+
+    def put(self, key, strategy):
+        self.entries[key] = strategy
+
+
 @pytest.mark.parametrize("case", list(ITEM5_REFUSALS))
 def test_item5_refusals_name_their_sub_item(case):
-    """Item 5 is split into 5a (the mesh, ported) and 5b-5e; no refusal
-    names the whole item any more."""
+    """Item 5 is split into 5a and 5b (the mesh; sequence parallelism and
+    the strategy search: ported, their options build) and 5c-5e; no
+    refusal names the whole item or a ported sub-item."""
     make, key = ITEM5_REFUSALS[case]
-    assert "5" not in tconst.QUEUE_A_ITEMS and "5a" not in \
-        tconst.QUEUE_A_ITEMS
+    assert not {"5", "5a", "5b"} & set(tconst.QUEUE_A_ITEMS)
+    if key is None:
+        make()
+        return
     with pytest.raises(NotImplementedError) as e:
         make()
     assert tconst.QUEUE_A_ITEMS[key] in str(e.value)

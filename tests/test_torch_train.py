@@ -284,9 +284,17 @@ def test_default_device_raises_without_cuda():
     (["--init_from", "x"], "init_from"),
     (["--ckpt_dir", "gs://bucket/x"], "ckpt_dir"),
 ])
-def test_train_cli_refuses_later_options(flags, match):
+def test_train_cli_refuses_later_options(flags, match, capsys):
+    """Each option raises naming what it needs, but ``--strategy auto``
+    (Queue A item 5b, ported): it trains on the mesh the search chose."""
+    argv = ["--device", "cpu", "--steps", "1"] + flags
+    if flags == ["--strategy", "auto"]:
+        assert ttrain.main(argv) == 0
+        out = capsys.readouterr().out
+        assert "TRAIN_DONE" in out and "mesh=single" in out
+        return
     with pytest.raises(NotImplementedError, match=match):
-        ttrain.main(["--device", "cpu", "--steps", "1"] + flags)
+        ttrain.main(argv)
 
 
 @pytest.mark.parametrize("strategy,match", [
@@ -308,6 +316,12 @@ def test_accelerate_refuses_later_strategies(strategy, match):
         # The whole-loss remat came with the mesh slice (item 5a): it
         # builds now; tests/test_torch_fsdp.py holds its numbers.
         assert tacc.accelerate(**kw).strategy.remat == "full"
+        return
+    if strategy == "auto":
+        # The search came with item 5b: one process has one candidate.
+        job = tacc.accelerate(**kw)
+        assert job.search["kind"] == "auto" and job.mesh.describe() == \
+            "single"
         return
     with pytest.raises(NotImplementedError, match=match):
         tacc.accelerate(**kw)

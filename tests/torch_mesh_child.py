@@ -230,12 +230,16 @@ def free_port() -> int:
 
 
 def spawn_world(world: int, plan: dict, work: Path, *,
-                timeout: float = 120.0) -> dict:
+                timeout: float = 120.0, script: Path = None) -> dict:
     """Run ``plan`` on ``world`` children (each in its own session,
     ``OMP_NUM_THREADS=1``, a deadline, reaped in a ``finally``); returns
     ``{job name: [rank records]}``.  A child drives card ``cuda:<rank>``
     (or card 0 when the ranks outnumber the cards).  A port taken between
-    the probe and the rendezvous is retried once."""
+    the probe and the rendezvous is retried once.  ``script`` is the
+    child's file (default: this one); it takes ``<plan> <out dir>`` and
+    writes ``<out dir>/<job>.rank<r>.json`` for each of the plan's
+    jobs."""
+    script = Path(script or __file__).resolve()
     work.mkdir(parents=True, exist_ok=True)
     plan_path = work / "plan.json"
     plan_path.write_text(json.dumps(plan))
@@ -258,7 +262,7 @@ def spawn_world(world: int, plan: dict, work: Path, *,
                 log = open(work / f"child{r}.log", "w+")
                 logs.append(log)
                 procs.append(subprocess.Popen(
-                    [sys.executable, str(Path(__file__).resolve()),
+                    [sys.executable, str(script),
                      str(plan_path), str(work)], cwd=REPO, env=env,
                     stdout=log, stderr=subprocess.STDOUT,
                     start_new_session=True))
